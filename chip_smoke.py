@@ -2,7 +2,8 @@
 """Drive the PyTorch port on one NVIDIA GPU, phase by phase; any failure
 exits non-zero.
 
-1. Build: compile every CUDA kernel of ``tony_tpu_torch/csrc`` with nvcc.
+1. Build: compile every CUDA kernel of ``tony_tpu_torch/csrc`` with nvcc,
+   one process a source, all at once.
 2. Kernel against its plain version: flash-decode at Qwen2.5-1.5B shapes
    (B=8, H=12, KVH=2, D=128, S in {64, 1024, 4096}; bf16, fp32 and int8
    caches; mixed lengths with a 0; a window; one MHA shape), held per
@@ -22,6 +23,26 @@ exits non-zero.
    kernel line.
 5. CLI: a 2-layer full-width checkpoint directory read by
    ``tony_tpu_torch.cli.generate --serve`` from a pipe.
+6. Training kernels against their plain versions at Qwen2.5-1.5B shapes:
+   flash attention forward, dQ and dK/dV at B=4, L=2048, H=12, KVH=2,
+   D=128 in bf16 (the training path's call), and fp32 at L=1024, a
+   512-key window, three packed segments, L=2047 and an MHA shape with
+   D=64, each output held per element to ``ops.attention.error_bound``;
+   fused AdamW over the model's whole 1.54 B-parameter leaf set (bf16
+   grads, fp32 master and moments, bf16 copy) held to one fp32 step.
+   Each kernel is timed beside its plain version, a PyTorch call that
+   the port never makes (``scaled_dot_product_attention`` forward and
+   backward, ``torch.optim.AdamW(fused=True)``) and its bound.
+7. Full-width gradient check: Qwen2.5-1.5B, 28 layers, fp32, 1 x 2048
+   tokens, chunked cross-entropy; one forward and backward through the
+   kernels and one through the plain versions, on the same weights.
+8. Training through ``fit``: Qwen2.5-1.5B at full width and depth, bf16
+   compute over fp32 masters, FusedAdamW(3e-4) with the carry, remat
+   ``attn_saved``, chunked CE (chunk 2048), micro-batch 4 x accum 2 of
+   2048-token sequences from a DataLoader over 8 fixed sequences, 8
+   steps: losses finite and falling, launch counts as the config
+   implies, tokens/s, ms/step, MFU, peak memory and (from an untimed
+   profiled step) the host share.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
@@ -228,8 +249,14 @@ def phase_build(ctx) -> None:
     ctx["build_s"] = time.perf_counter() - t0
     for name in _build.sources():
         _build.load(name)
+        entry = ""
         for line in _build.ptxas_report.get(name, "").splitlines():
-            print(f"  {name}: {line.strip()}")
+            # one line a kernel: its (mangled) name, registers, spills
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "Used" in line or "spill" in line:
+                info = line.split(":", 1)[-1].strip()
+                print(f"  {name}: {entry[:72]}: {info}")
     print(f"phase 1 build: {len(_build.sources())} source(s) in "
           f"{ctx['build_s']:.1f} s (nvcc, sm_90a)")
 
@@ -625,6 +652,570 @@ def kernel_line(ctx) -> dict:
             "library_ms": m["library_ms"]}
 
 
+# ------------------------------------------------------------ training
+
+PEAK_BF16 = PEAK_OPS["bfloat16"]
+TRAIN_SEQ, TRAIN_MICRO, TRAIN_ACCUM, TRAIN_STEPS = 2048, 4, 2, 8
+
+
+def attention_bound(q, k, vis_pairs: int, products: int,
+                    nbytes: int) -> tuple[float, str]:
+    """Least time for a flash-attention kernel on these inputs: 2 * D
+    flops per visible (query, key) pair of each q head for each of its
+    ``products`` matrix products, at the peak rate for the inputs' type,
+    against ``nbytes`` over HBM bandwidth."""
+    d = q.shape[3]
+    ops = vis_pairs * 2 * d * products
+    t_ops = ops / PEAK_OPS[str(q.dtype).split(".")[-1]] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
+
+
+def packed_segments(b: int, l: int):
+    """Three packed documents a row, at a quarter and just past half."""
+    import torch
+
+    cuts = torch.tensor([l // 4, l // 2 + 3], device=DEVICE)
+    return (torch.arange(l, device=DEVICE)[None, :, None]
+            >= cuts[None, None, :]).sum(-1).to(torch.int32) \
+        .expand(b, l).contiguous()
+
+
+def measure_attention(b, l, h, kvh, d, dtype, window, segments, flush,
+                      timed: bool) -> dict:
+    """The three kernels against their plain versions on one input set:
+    every output held to ``error_bound`` and inputs left unchanged, then
+    (``timed``) the times."""
+    import torch
+    import torch.nn.functional as F
+
+    from tony_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + l + h + d)
+    q, k, v, do = (torch.randn(b, l, n, d, device=DEVICE, generator=gen)
+                   .to(dtype) for n in (h, kvh, kvh, h))
+    seg = packed_segments(b, l) if segments else None
+    kw = dict(causal=True, window=window, segment_ids=seg)
+    inputs = [q, k, v, do] + ([seg] if seg is not None else [])
+    before = [t.clone() for t in inputs]
+    o, lse = att.flash_attention_fwd(q, k, v, **kw)
+    dq = att.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
+    dk, dv = att.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw)
+    sync()
+    check(all(torch.equal(a, c) for a, c in zip(inputs, before)),
+          "a flash attention kernel wrote into its inputs")
+    with torch.no_grad():
+        o_ref, lse_ref = att.flash_attention_reference(
+            q, k, v, True, window, seg, return_lse=True)
+        lim = att.error_bound(q, k, v, o_ref, lse_ref, **kw)
+        worst = {}
+
+        def hold(name, got, want, limit):
+            diff = (got.float() - want.float()).abs()
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"{name} not finite")
+            excess = (diff - limit).max().item()
+            check(excess <= 0, f"{name}: |got - want| exceeds its limit by "
+                  f"{excess:.3g} (max abs err {diff.max().item():.3g})")
+            worst[name] = (diff.max().item(), (diff / limit).max().item(),
+                           want.float().abs().max().item())
+
+        hold("o", o, o_ref, lim["o"])
+        hold("lse", lse, lse_ref, 1e-5 * (1 + lse_ref.abs()))
+        del o_ref, lim
+        grads = att.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+        lim = att.error_bound(q, k, v, o, lse, do, **kw)
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
+            hold(name, got, want, lim[name])
+        del grads, lim
+        vis = att.visibility(l, l, True, window, seg, DEVICE)
+        pairs = int(vis.sum()) * (b if seg is None else 1) * h
+        del vis
+    out = {"err": worst, "pairs": pairs}
+    if not timed:
+        return out
+    es = q.element_size()
+    qkv = (q.numel() + k.numel() + v.numel()) * es
+    rows = b * h * l * 4
+    segb = seg.numel() * 4 if seg is not None else 0
+    fwd = lambda: att.flash_attention_fwd(q, k, v, **kw)  # noqa: E731
+    bdq = lambda: att.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)  # noqa: E731,E501
+    bdkv = lambda: att.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw)  # noqa: E731,E501
+
+    def plain_fwd():
+        with torch.no_grad():
+            att.flash_attention_reference(q, k, v, True, window, seg,
+                                          return_lse=True)
+
+    def plain_bwd():
+        with torch.no_grad():
+            att.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=kvh != h)
+    dot = do.transpose(1, 2)
+
+    def lib_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=kvh != h)
+
+    def lib_bwd():
+        torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+
+    reps = 5
+    out.update(
+        fwd=cuda_time_ms(fwd, reps, flush),
+        dq=cuda_time_ms(bdq, reps, flush),
+        dkv=cuda_time_ms(bdkv, reps, flush),
+        plain_fwd=cuda_time_ms(plain_fwd, 3, flush),
+        plain_bwd=cuda_time_ms(plain_bwd, 3, flush),
+        lib_fwd=cuda_time_ms(lib_fwd, reps, flush),
+        lib_bwd=cuda_time_ms(lib_bwd, reps, flush),
+        bound_fwd=attention_bound(q, k, pairs, 2, qkv + q.numel() * es
+                                  + rows + segb),
+        bound_dq=attention_bound(q, k, pairs, 3, qkv + 2 * q.numel() * es
+                                 + 2 * rows + segb),
+        bound_dkv=attention_bound(q, k, pairs, 4, qkv + q.numel() * es
+                                  + (k.numel() + v.numel()) * es
+                                  + 2 * rows + segb))
+    return out
+
+
+def measure_logit_route(ctx) -> None:
+    """Which route chunked cross-entropy's bf16 logit products take here,
+    and what the fp32 upcast would cost instead, on one vocab tile of the
+    training path ([4 x 2047, 1536] x [1536, 2048])."""
+    import torch
+
+    from tony_tpu_torch.ops.xent import logit_route
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    h = torch.randn(TRAIN_MICRO * (TRAIN_SEQ - 1),
+                    QWEN25_15B["hidden_size"], device=DEVICE,
+                    generator=gen).bfloat16()
+    e = torch.randn(2048, QWEN25_15B["hidden_size"], device=DEVICE,
+                    generator=gen).bfloat16()
+    route = logit_route(DEVICE)
+    upcast = cuda_time_ms(lambda: h.float() @ e.float().t(), 5, ctx["flush"])
+    line = f"phase 6 chunked CE logit route: {route}; one tile by the fp32 " \
+        f"upcast {upcast:.3f} ms"
+    if route == "mm_out_dtype":
+        mm = cuda_time_ms(lambda: torch.mm(h, e.t(), out_dtype=torch.float32),
+                          5, ctx["flush"])
+        want = h.float() @ e.float().t()
+        got = torch.mm(h, e.t(), out_dtype=torch.float32)
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        line += f", by bf16 operands with an fp32 output {mm:.3f} ms " \
+            f"(max difference {err:.3g} of the largest logit)"
+    print(line + f" [{ctx['card']}]")
+
+
+def qwen_param_shapes() -> dict:
+    import torch
+
+    from tony_tpu_torch.models.transformer import Transformer
+
+    meta = Transformer(qwen_config(dtype=torch.float32), device="meta")
+    return {n: tuple(t.shape) for n, t in meta.state_dict().items()}
+
+
+def train_grad_dtype():
+    """The grads' dtype that phase 8's step hands fused AdamW:
+    ``Trainer`` returns its fp32 accumulators when ``accum_steps`` > 1,
+    else the module's bf16 grads. Phase 8 checks it."""
+    import torch
+
+    return torch.float32 if TRAIN_ACCUM > 1 else torch.bfloat16
+
+
+def measure_adamw(flush) -> dict:
+    """Fused AdamW over every leaf of Qwen2.5-1.5B (grads of phase 8's
+    dtype, fp32 master and moments, bf16 copy: the group the training
+    path launches): one step against the plain version, held to one fp32
+    step (one bf16 step for the copy), inputs unchanged; then the times."""
+    import torch
+
+    from tony_tpu_torch.ops import adamw as adw
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    shapes = qwen_param_shapes()
+    opt = adw.FusedAdamW(3e-4)
+    gdt = train_grad_dtype()
+    params = {n: 0.02 * torch.randn(*s, device=DEVICE, generator=gen)
+              for n, s in shapes.items()}
+    grads = {n: (1e-3 * torch.randn(*s, device=DEVICE, generator=gen))
+             .to(gdt) for n, s in shapes.items()}
+    state = opt.init(params, compute_dtype=torch.bfloat16)
+    # one step first, so the moments are not zero
+    adw.fused_adamw_update(opt, grads, state, params)
+    state = state._replace(count=state.count + 1)
+    ref_p = {n: t.clone() for n, t in params.items()}
+    ref_s = adw.FusedAdamWState(
+        count=state.count.clone(),
+        mu={n: t.clone() for n, t in state.mu.items()},
+        nu={n: t.clone() for n, t in state.nu.items()},
+        compute_params={n: t.clone()
+                        for n, t in state.compute_params.items()})
+    g_before = {n: t.clone() for n, t in grads.items()}
+    params, state = adw.fused_adamw_update(opt, grads, state, params)
+    lr, c1, c2 = adw._hyper(opt, ref_s.count)
+    for n in shapes:
+        adw.leaf_update_reference(
+            grads[n], ref_p[n], ref_s.mu[n], ref_s.nu[n], lr, c1, c2,
+            b1=opt.b1, b2=opt.b2, eps=opt.eps, wd=opt.weight_decay,
+            copy=ref_s.compute_params[n])
+    sync()
+    check(all(torch.equal(grads[n], g_before[n]) for n in shapes),
+          "fused AdamW wrote into its grads")
+    del g_before
+    err, bit_equal = 0.0, True
+    for n in shapes:
+        for got, want, step in (
+                (params[n], ref_p[n], 2.0 ** -23),
+                (state.mu[n], ref_s.mu[n], 2.0 ** -23),
+                (state.nu[n], ref_s.nu[n], 2.0 ** -23),
+                (state.compute_params[n], ref_s.compute_params[n],
+                 2.0 ** -8)):
+            diff = (got.float() - want.float()).abs()
+            excess = (diff - step * want.float().abs()).max().item()
+            check(excess <= 0, f"fused AdamW {n}: exceeds one step by "
+                  f"{excess:.3g}")
+            err = max(err, diff.max().item())
+            bit_equal = bit_equal and torch.equal(got, want)
+    n_el = sum(t.numel() for t in params.values())
+    # read g, p, mu, nu; write p, mu, nu and the bf16 copy
+    nbytes = n_el * (gdt.itemsize + 3 * 4 + 3 * 4 + 2)
+    ops = n_el * 15
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS["float32"] * 1e3
+
+    def kernel():
+        adw.fused_adamw_update(opt, grads, state, params)
+
+    def plain():
+        for n in shapes:
+            adw.leaf_update_reference(
+                grads[n], ref_p[n], ref_s.mu[n], ref_s.nu[n], lr, c1, c2,
+                b1=opt.b1, b2=opt.b2, eps=opt.eps, wd=opt.weight_decay,
+                copy=ref_s.compute_params[n])
+
+    ms = cuda_time_ms(kernel, 5, flush)
+    plain_ms = cuda_time_ms(plain, 3, flush)
+    del kernel, plain, state, ref_s
+    # the yardstick: PyTorch's fused AdamW on the same params and grads
+    # (fp32: its fused path needs grads of the params' dtype), no copy
+    lib_params = list(ref_p.values())
+    for n, t in zip(ref_p, lib_params):
+        t.grad = grads[n].float()
+    del grads
+    lib = torch.optim.AdamW(lib_params, lr=3e-4, weight_decay=1e-4,
+                            fused=True)
+    lib.step()
+    library_ms = cuda_time_ms(lib.step, 5, flush)
+    del lib, lib_params, ref_p, params
+    return {"max_abs_err": err, "bit_equal": bit_equal, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "n": n_el,
+            "nbytes": nbytes,
+            "bound": (t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")}
+
+
+def phase_train_kernels(ctx) -> None:
+    import torch
+
+    flush = ctx["flush"]
+    hf = QWEN25_15B
+    b, l = TRAIN_MICRO, TRAIN_SEQ
+    h, kvh = hf["num_attention_heads"], hf["num_key_value_heads"]
+    d = hf["hidden_size"] // h
+    cases = [  # name, b, l, h, kvh, d, dtype, window, segments, timed
+        ("main", b, l, h, kvh, d, torch.bfloat16, 0, False, True),
+        ("fp32", b, l // 2, h, kvh, d, torch.float32, 0, False, False),
+        ("window512", b, l, h, kvh, d, torch.bfloat16, 512, False, False),
+        ("segments3", b, l, h, kvh, d, torch.bfloat16, 0, True, False),
+        (f"L{l - 1}", b, l - 1, h, kvh, d, torch.bfloat16, 0, False,
+         False),
+        ("mha-d64", b, l, 16, 16, 64, torch.bfloat16, 0, False, False),
+    ]
+    for name, *shape, timed in cases:
+        m = measure_attention(*shape, flush, timed)
+        bb, ll, hh, kk, dd, dt, win, segs = shape
+        errs = "; ".join(f"{k} {e:.3g} ({r:.3f} of its limit, max|want| "
+                         f"{w:.3g})" for k, (e, r, w) in m["err"].items())
+        print(f"phase 6 flash attention {name}: B={bb} L={ll} H={hh} "
+              f"KVH={kk} D={dd} {str(dt).split('.')[-1]} window={win} "
+              f"segments={'3' if segs else 'none'}: max abs err {errs}")
+        if timed:
+            ctx["attention"] = m
+            for kern, plain, lib, bound in (
+                    ("fwd", "plain_fwd", "lib_fwd", "bound_fwd"),
+                    ("dq", "plain_bwd", "lib_bwd", "bound_dq"),
+                    ("dkv", "plain_bwd", "lib_bwd", "bound_dkv")):
+                print(f"  {kern}: kernel {m[kern]:.3f} ms, plain "
+                      f"{m[plain]:.3f} ms, sdpa {m[lib]:.3f} ms, bound "
+                      f"{m[bound][0]:.4f} ms ({m[bound][1]}) "
+                      f"[{ctx['card']}]")
+        torch.cuda.empty_cache()
+    measure_logit_route(ctx)
+    a = measure_adamw(flush)
+    ctx["adamw"] = a
+    gdt = str(train_grad_dtype()).split(".")[-1]
+    print(f"phase 6 fused AdamW over the Qwen2.5-1.5B leaf set ({a['n']} "
+          f"params, {gdt} grads as phase 8 gives them, fp32 master and "
+          f"moments, bf16 copy): max "
+          f"abs err {a['max_abs_err']:.3g}, bit-equal to the plain version "
+          f"{a['bit_equal']}; kernel {a['ms']:.3f} ms, plain "
+          f"{a['plain_ms']:.3f} ms, torch AdamW(fused) {a['library_ms']:.3f}"
+          f" ms, bound {a['bound'][0]:.3f} ms ({a['bound'][1]}, "
+          f"{a['nbytes'] / 1e9:.1f} GB) [{ctx['card']}]")
+    torch.cuda.empty_cache()
+
+
+def phase_grad_check(ctx) -> None:
+    import torch
+
+    import tony_tpu_torch.models.transformer as tmod
+    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.ops.attention import flash_attention_reference
+    from tony_tpu_torch.ops.xent import chunked_cross_entropy
+
+    cfg = qwen_config(dtype=torch.float32, attention_backend="pallas")
+    model = Transformer(cfg, device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    toks = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ), device=DEVICE,
+                         generator=gen)
+
+    def loss_and_grads():
+        for p in model.parameters():
+            p.grad = None
+        hidden = model(toks, return_hidden=True)
+        loss = chunked_cross_entropy(hidden[:, :-1], model.embedding,
+                                     toks[:, 1:], chunk_size=2048)
+        loss.backward()
+        sync()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return loss.detach(), grads
+
+    loss_k, grads_k = loss_and_grads()
+    kernel_attention = tmod.flash_attention
+
+    def plain_attention(q, k, v, causal=True, block_q=0, block_k=0,
+                        window=0, segment_ids=None):
+        return flash_attention_reference(q, k, v, causal, window,
+                                         segment_ids)
+
+    tmod.flash_attention = plain_attention
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        tmod.flash_attention = kernel_attention
+    check(bool(torch.isfinite(loss_k)), "kernel-route loss not finite")
+    dl = abs(float(loss_k) - float(loss_p))
+    check(dl <= 1e-5 * abs(float(loss_p)),
+          f"losses differ: kernels {float(loss_k)}, plain {float(loss_p)}")
+    worst, worst_name = 0.0, ""
+    for n, gp in grads_p.items():
+        gk = grads_k[n]
+        check(bool(torch.isfinite(gk).all()), f"grad {n} not finite")
+        ratio = ((gk - gp).abs().max() / gp.abs().max().clamp_min(1e-30)
+                 ).item()
+        if ratio > worst:
+            worst, worst_name = ratio, n
+    check(worst <= 1e-3, f"grad {worst_name}: max|kernel - plain| is "
+          f"{worst:.3g} of max|plain| > 1e-3")
+    print(f"phase 7 Qwen2.5-1.5B fp32 {cfg.n_layers} layers, 1 x "
+          f"{TRAIN_SEQ} tokens, chunked CE: loss {float(loss_k):.6f} "
+          f"(kernels) vs {float(loss_p):.6f} (plain), |diff| {dl:.3g} "
+          f"(limit 1e-5 relative); gradients over {len(grads_p)} leaves: "
+          f"worst max|kernel - plain| / max|plain| {worst:.3g} at "
+          f"{worst_name} (limit 1e-3)")
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def train_flops_per_token(cfg, n_params: int) -> float:
+    """Model FLOPs per trained token: 6 N for the matrix products (the
+    tied embedding counts once, as the LM head), plus the causal
+    attention scores and values, 6 * n_layers * H * D * L (3 x the
+    forward's 2 products of 2 * H * D flops over L / 2 keys)."""
+    return 6.0 * n_params + 6.0 * cfg.n_layers * cfg.n_heads \
+        * cfg.head_dim * TRAIN_SEQ
+
+
+def phase_fit(ctx) -> None:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import tony_tpu_torch.train.trainer as tr_mod
+    from tony_tpu_torch.data import ArraySource, DataLoader
+    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.ops import adamw, attention
+    from tony_tpu_torch.ops.xent import chunked_cross_entropy
+    from tony_tpu_torch.train import FusedAdamW, Trainer, fit
+
+    cfg = qwen_config(dtype=torch.bfloat16, attention_backend="pallas",
+                      remat=True, remat_policy="attn_saved")
+    model = Transformer(cfg, device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    cdt = torch.bfloat16
+
+    def apply_fn(m, batch):
+        hidden = m(batch["tokens"], return_hidden=True)
+        return chunked_cross_entropy(hidden[:, :-1], m.embedding,
+                                     batch["tokens"][:, 1:],
+                                     chunk_size=2048, compute_dtype=cdt)
+
+    trainer = Trainer(model, apply_fn, FusedAdamW(3e-4), compute_dtype=cdt,
+                      accum_steps=TRAIN_ACCUM)
+    rng = np.random.default_rng(SEED)
+    gb = TRAIN_MICRO * TRAIN_ACCUM
+    data = rng.integers(0, cfg.vocab_size, (gb, TRAIN_SEQ)).astype(np.int64)
+    loader = DataLoader(ArraySource({"tokens": data}), gb, seed=SEED,
+                        device=DEVICE)
+    stamps = []
+
+    def stamp(step, metrics):
+        # step 1's metrics are read once step 2 is queued: wait for the
+        # card there, so the timed window starts where step 2 ends
+        if not stamps:
+            sync()
+        stamps.append((step, time.perf_counter()))
+
+    # record the grads' dtypes the step hands fused AdamW, which phase 6
+    # measured at
+    grad_dtypes = set()
+    update = tr_mod.fused_adamw_update
+
+    def recording_update(opt, grads, *args, **kw):
+        grad_dtypes.update(g.dtype for g in grads.values())
+        return update(opt, grads, *args, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    counters = (attention.flash_attention_fwd,
+                attention.flash_attention_bwd_dq,
+                attention.flash_attention_bwd_dkv, adamw.fused_adamw_update)
+    for c in counters:
+        c.launches = 0
+    tr_mod.fused_adamw_update = recording_update
+    try:
+        sync()
+        t0 = time.perf_counter()
+        result = fit(trainer, None, loader, num_steps=TRAIN_STEPS,
+                     log_every=1, metric_sinks=[stamp])
+        sync()
+        t_end = time.perf_counter()
+        wall = t_end - t0
+    finally:
+        tr_mod.fused_adamw_update = update
+    check(grad_dtypes == {train_grad_dtype()},
+          f"the step gave fused AdamW {grad_dtypes} grads; phase 6 "
+          f"measured {train_grad_dtype()}")
+    launches = [c.launches for c in counters]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [hst["loss"] for hst in result.history if "loss" in hst]
+    check(result.steps_run == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
+          f"fit ran {result.steps_run} steps, logged {len(losses)}")
+    check(all(np.isfinite(losses)), f"losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    per_fwd = cfg.n_layers * TRAIN_ACCUM * TRAIN_STEPS
+    check(launches[:3] == [per_fwd] * 3,
+          f"flash attention launches {launches[:3]}, expected {per_fwd} "
+          f"each ({cfg.n_layers} layers x {TRAIN_ACCUM} micro-batches x "
+          f"{TRAIN_STEPS} steps; attn_saved never reruns the forward)")
+    check(launches[3] == TRAIN_STEPS,
+          f"fused AdamW launches {launches[3]}, expected {TRAIN_STEPS} "
+          "(one dtype group a step)")
+    # steady steps: from the end of step 2 on the card to the end of the
+    # last, over their count. The host's metric reads alone would not do:
+    # they track how far the host runs ahead, not when the card ends a step
+    check(len(stamps) == TRAIN_STEPS, f"{len(stamps)} metric stamps")
+    step_ms = (t_end - stamps[0][1]) / (TRAIN_STEPS - 2) * 1e3
+    tokens = gb * TRAIN_SEQ
+    tok_s = tokens / (step_ms / 1e3)
+    mfu = train_flops_per_token(cfg, n_params) * tokens \
+        / (step_ms / 1e3) / PEAK_BF16
+    ctx["train_launches"] = launches
+    # the untimed probe: one unprofiled step's wall, then one step under
+    # torch.profiler for the device's busy time
+    state = result.state
+    it = loader.from_step(0)
+    batch = next(it)
+    it.close()
+    sync()
+    w0 = time.perf_counter()
+    state, _ = trainer.step(state, batch)
+    sync()
+    step_wall = time.perf_counter() - w0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = trainer.step(state, batch)
+        sync()
+    dev_us = sum(getattr(r, "self_device_time_total",
+                         getattr(r, "self_cuda_time_total", 0.0))
+                 for r in prof.key_averages())
+    host = "not measured" if dev_us <= 0 else \
+        f"{max(0.0, 1.0 - dev_us * 1e-6 / step_wall):.3f}"
+    top = sorted(prof.key_averages(),
+                 key=lambda r: -getattr(r, "self_device_time_total",
+                                        getattr(r, "self_cuda_time_total",
+                                                0.0)))[:6]
+    print(f"phase 8 fit Qwen2.5-1.5B bf16 over fp32 masters, "
+          f"{cfg.n_layers} layers, remat attn_saved, {TRAIN_MICRO} x "
+          f"{TRAIN_ACCUM} x {TRAIN_SEQ} tokens a step, FusedAdamW(3e-4): "
+          f"losses {[round(x, 4) for x in losses]}; {step_ms:.1f} ms/step "
+          f"(steps 3-{TRAIN_STEPS} on the card over their count; all "
+          f"{TRAIN_STEPS} in {wall:.1f} s), {tok_s:.0f} tokens/s, MFU "
+          f"{mfu:.4f} "
+          f"({n_params} params, 989 TFLOP/s bf16 peak), peak memory "
+          f"{peak:.1f} GiB; launches fwd/dq/dkv/adamw {launches}; host "
+          f"share {host} (device busy {dev_us * 1e-3:.1f} ms in a profiled"
+          f" step, unprofiled step {step_wall * 1e3:.1f} ms) "
+          f"[{ctx['card']}]")
+    for r in top:
+        t = getattr(r, "self_device_time_total",
+                    getattr(r, "self_cuda_time_total", 0.0))
+        print(f"  device time {t * 1e-3:9.1f} ms  {r.key[:90]}")
+    ctx["fit"] = {"step_ms": step_ms, "tok_s": tok_s, "mfu": mfu,
+                  "peak_gib": peak, "losses": losses, "host": host}
+    del result, state, trainer, model, prof
+    torch.cuda.empty_cache()
+
+
+def train_kernel_lines(ctx) -> list[dict]:
+    a, w = ctx["attention"], ctx["adamw"]
+    launches = ctx["train_launches"]
+    src = "tony_tpu_torch/csrc/flash_attention.cu"
+    lines = []
+    for i, (name, kern, plain, lib, bound, errs, site) in enumerate((
+            ("flash_attention_fwd", "fwd", "plain_fwd", "lib_fwd",
+             "bound_fwd", ("o", "lse"), "tony_tpu/ops/attention.py:140"),
+            ("flash_attention_bwd_dq", "dq", "plain_bwd", "lib_bwd",
+             "bound_dq", ("dq",), "tony_tpu/ops/attention.py:204"),
+            ("flash_attention_bwd_dkv", "dkv", "plain_bwd", "lib_bwd",
+             "bound_dkv", ("dk", "dv"), "tony_tpu/ops/attention.py:262"))):
+        lines.append({
+            "name": name, "route": "cuda", "source": src, "replaces": site,
+            "launches": launches[i],
+            "max_abs_err": max(a["err"][e][0] for e in errs),
+            "ms": a[kern], "plain_ms": a[plain], "bound_ms": a[bound][0],
+            "bound_by": a[bound][1], "library_ms": a[lib]})
+    lines.append({
+        "name": "fused_adamw", "route": "cuda",
+        "source": "tony_tpu_torch/csrc/adamw.cu",
+        "replaces": "tony_tpu/ops/adamw.py:74", "launches": launches[3],
+        "max_abs_err": w["max_abs_err"], "ms": w["ms"],
+        "plain_ms": w["plain_ms"], "bound_ms": w["bound"][0],
+        "bound_by": w["bound"][1], "library_ms": w["library_ms"]})
+    return lines
+
+
 def main() -> int:
     try:
         import torch
@@ -646,7 +1237,10 @@ def main() -> int:
     t_all = time.perf_counter()
     for name, phase in (("build", phase_build), ("kernel", phase_kernel),
                         ("model", phase_model), ("serve", phase_serve),
-                        ("cli", phase_cli)):
+                        ("cli", phase_cli),
+                        ("train-kernels", phase_train_kernels),
+                        ("grad-check", phase_grad_check),
+                        ("fit", phase_fit)):
         t0 = time.perf_counter()
         try:
             phase(ctx)
@@ -656,7 +1250,7 @@ def main() -> int:
             return 1
         print(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
     try:
-        kernels = [kernel_line(ctx)]
+        kernels = [kernel_line(ctx)] + train_kernel_lines(ctx)
     except Exception:  # noqa: BLE001
         traceback.print_exc()
         return 1

@@ -120,3 +120,255 @@ def test_flash_decode_kernel_refuses_bad_inputs():
                      v, 8)
     with pytest.raises(ValueError, match="must match"):
         flash_decode(q.float(), k, v, 8)
+
+
+# ------------------------------------------------------- flash attention
+# Per element |got - want| <= the limit of ops.attention.error_bound:
+# u times the element's sum of absolute products (u = 2^-7 bf16, 2^-14
+# fp32), plus u |want|; lse to 1e-5 (1 + |lse|). Each backward kernel
+# gets the same inputs (q, k, v, the kernel's o and lse, dO) as its
+# plain version.
+
+from tony_tpu_torch.ops import attention as att  # noqa: E402
+
+ATT_CASES = [  # b, lq, lk, h, kvh, d, dtype, causal, window, segments
+    (2, 300, 300, 12, 2, 128, torch.bfloat16, True, 0, False),
+    (2, 300, 300, 12, 2, 128, torch.float32, True, 0, False),
+    (2, 300, 300, 12, 2, 128, torch.bfloat16, True, 48, False),
+    (2, 300, 300, 12, 2, 128, torch.float32, True, 0, True),
+    (1, 127, 127, 6, 1, 128, torch.bfloat16, True, 0, True),
+    (2, 200, 200, 4, 4, 64, torch.bfloat16, True, 0, False),
+    (2, 96, 160, 4, 2, 64, torch.float32, False, 0, False),
+    (1, 128, 256, 4, 2, 64, torch.float32, True, 0, False),
+]
+
+
+def _att_inputs(b, lq, lk, h, kvh, d, dtype, segments, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, lq, h, d, device="cuda", generator=g).to(dtype)
+    k = torch.randn(b, lk, kvh, d, device="cuda", generator=g).to(dtype)
+    v = torch.randn(b, lk, kvh, d, device="cuda", generator=g).to(dtype)
+    do = torch.randn(b, lq, h, d, device="cuda", generator=g).to(dtype)
+    seg = None
+    if segments:  # three packed documents a row
+        cuts = torch.tensor([lq // 4, lq // 2 + 3], device="cuda")
+        seg = (torch.arange(lq, device="cuda")[None, :, None]
+               >= cuts[None, None, :]).sum(-1).to(torch.int32).expand(b, lq)
+        seg = seg.contiguous()
+    return q, k, v, do, seg
+
+
+def _within(got, want, limit, name):
+    diff = (got.float() - want.float()).abs()
+    excess = (diff - limit).max().item()
+    assert excess <= 0, (name, excess, diff.max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATT_CASES)
+def test_flash_attention_kernels_match_plain_version(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    b, lq, lk, h, kvh, d, dtype, causal, window, segments = case
+    q, k, v, do, seg = _att_inputs(b, lq, lk, h, kvh, d, dtype, segments)
+    kw = dict(causal=causal, window=window, segment_ids=seg)
+    inputs = [q, k, v, do] + ([seg] if seg is not None else [])
+    before = [t.clone() for t in inputs]
+    n0 = (att.flash_attention_fwd.launches,
+          att.flash_attention_bwd_dq.launches,
+          att.flash_attention_bwd_dkv.launches)
+    o, lse = att.flash_attention_fwd(q, k, v, **kw)
+    dq = att.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
+    dk, dv = att.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (att.flash_attention_fwd.launches,
+            att.flash_attention_bwd_dq.launches,
+            att.flash_attention_bwd_dkv.launches) == tuple(x + 1 for x in n0)
+    assert all(torch.equal(a, c) for a, c in zip(inputs, before))
+    o_ref, lse_ref = att.flash_attention_reference(q, k, v, causal, window,
+                                                   seg, return_lse=True)
+    grads = att.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    lim = att.error_bound(q, k, v, o_ref, lse_ref, do, **kw)
+    lim_b = att.error_bound(q, k, v, o, lse, do, **kw)
+    _within(o, o_ref, lim["o"], "o")
+    _within(lse, lse_ref, 1e-5 * (1 + lse_ref.abs()), "lse")
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
+        assert torch.isfinite(got.float()).all()
+        _within(got, want, lim_b[name], name)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_matches_plain_autograd():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    q, k, v, do, seg = _att_inputs(2, 256, 256, 12, 2, 128, torch.float32,
+                                   True)
+    got, want = [], []
+    for fn, out in ((att.flash_attention, got),
+                    (att.flash_attention_reference, want)):
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fn(*x, causal=True, segment_ids=seg) * do).sum().backward()
+        out.extend(t.grad for t in x)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_write_only_their_outputs(dtype):
+    """Each kernel gets its outputs as windows into larger buffers with a
+    canary on both sides: the canaries survive and the results equal the
+    wrappers' bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    b, l, h, kvh, d = 2, 131, 12, 2, 128
+    q, k, v, do, seg = _att_inputs(b, l, l, h, kvh, d, dtype, True, seed=3)
+    kw = dict(causal=True, window=0)
+    o, lse = att.flash_attention_fwd(q, k, v, segment_ids=seg, **kw)
+    dq = att.flash_attention_bwd_dq(q, k, v, o, lse, do, segment_ids=seg,
+                                    **kw)
+    dk, dv = att.flash_attention_bwd_dkv(q, k, v, o, lse, do,
+                                         segment_ids=seg, **kw)
+    pad = 4096
+
+    def guarded(like):
+        buf = torch.full((pad + like.numel() + pad,), -7.25,
+                         dtype=like.dtype, device="cuda")
+        return buf, buf[pad:pad + like.numel()].view(like.shape)
+
+    delta = att._delta(o, do)
+    bufs = {n: guarded(t) for n, t in dict(o=o, lse=lse, dq=dq, dk=dk,
+                                           dv=dv).items()}
+    att._launch(0, q, k, v, seg, out=bufs["o"][1], lse_out=bufs["lse"][1],
+                **kw)
+    att._launch(1, q, k, v, seg, do=do, lse=lse, delta=delta,
+                dq=bufs["dq"][1], **kw)
+    att._launch(2, q, k, v, seg, do=do, lse=lse, delta=delta,
+                dk=bufs["dk"][1], dv=bufs["dv"][1], **kw)
+    torch.cuda.synchronize()
+    for name, want in dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv).items():
+        buf, view = bufs[name]
+        assert (buf[:pad] == -7.25).all() and (buf[-pad:] == -7.25).all()
+        assert torch.equal(view, want), name
+
+
+# ------------------------------------------------------------ fused AdamW
+
+from tony_tpu_torch.ops import adamw as adw  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("copy", [None, torch.bfloat16])
+def test_fused_adamw_kernel_matches_plain_version(gdt, mdt, copy):
+    """The kernel and the plain version round every operation alike, so
+    they agree to the bit (held to 1 ulp of fp32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = {"a": (1000, 300), "b": (7,), "c": (65536 + 5,)}
+    opt = adw.FusedAdamW(learning_rate=3e-3, weight_decay=1e-2,
+                         moment_dtype=mdt)
+    params = {n: torch.randn(*s, device="cuda", generator=g)
+              for n, s in shapes.items()}
+    state = opt.init(params, compute_dtype=copy)
+    ref_p = {n: t.clone() for n, t in params.items()}
+    ref_s = opt.init(ref_p, compute_dtype=copy)
+    for step in range(3):
+        grads = {n: (0.1 * torch.randn(*s, device="cuda", generator=g))
+                 .to(gdt) for n, s in shapes.items()}
+        before = {n: t.clone() for n, t in grads.items()}
+        n0 = adw.fused_adamw_update.launches
+        params, state = adw.fused_adamw_update(opt, grads, state, params)
+        assert adw.fused_adamw_update.launches == n0 + 1  # one group
+        lr, c1, c2 = adw._hyper(opt, ref_s.count)
+        for n in shapes:
+            adw.leaf_update_reference(
+                grads[n], ref_p[n], ref_s.mu[n], ref_s.nu[n], lr, c1, c2,
+                b1=opt.b1, b2=opt.b2, eps=opt.eps, wd=opt.weight_decay,
+                copy=None if copy is None else ref_s.compute_params[n])
+        ref_s = ref_s._replace(count=ref_s.count + 1)
+        torch.cuda.synchronize()
+        assert all(torch.equal(grads[n], before[n]) for n in shapes)
+        for n in shapes:
+            for got, want in ((params[n], ref_p[n]),
+                              (state.mu[n], ref_s.mu[n]),
+                              (state.nu[n], ref_s.nu[n])):
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=2.0 ** -23, atol=0)
+            if copy is not None:
+                torch.testing.assert_close(
+                    state.compute_params[n].float(),
+                    ref_s.compute_params[n].float(), rtol=2.0 ** -8, atol=0)
+    assert int(state.count) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("copy", [None, torch.bfloat16])
+def test_fused_adamw_kernel_writes_only_its_leaves(copy):
+    """Every param, moment and copy is a window into a larger buffer with
+    a canary on both sides, at sizes around the kernel's chunk: the
+    canaries survive, the grads are left as they were, and the results
+    equal the plain version's (held to 1 ulp of fp32, as above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    chunk = adw._kernel()[1]
+    sizes = {"a": chunk - 1, "b": chunk, "c": chunk + 1, "d": 3 * chunk + 5,
+             "e": 1}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    pad = 4096
+    bufs = []
+
+    def guarded(values, dtype):
+        buf = torch.full((pad + values.numel() + pad,), -7.25, dtype=dtype,
+                         device="cuda")
+        bufs.append(buf)
+        view = buf[pad:pad + values.numel()]
+        view.copy_(values)
+        return view
+
+    def leaves(scale, dtype=torch.float32):
+        return {n: guarded(scale * torch.randn(s, device="cuda",
+                                               generator=g).abs(), dtype)
+                for n, s in sizes.items()}
+
+    opt = adw.FusedAdamW(learning_rate=3e-3, weight_decay=1e-2)
+    state = adw.FusedAdamWState(
+        count=torch.ones((), dtype=torch.int32, device="cuda"),
+        mu=leaves(1e-2), nu=leaves(1e-4),
+        compute_params=None if copy is None else leaves(0.0, copy))
+    params = leaves(1.0)
+    grads = {n: (0.1 * torch.randn(s, device="cuda", generator=g))
+             .bfloat16() for n, s in sizes.items()}
+    grads_before = {n: t.clone() for n, t in grads.items()}
+
+    def clones(d):
+        return None if d is None else {n: t.clone() for n, t in d.items()}
+
+    ref_p, ref_mu, ref_nu, ref_c = (clones(params), clones(state.mu),
+                                    clones(state.nu),
+                                    clones(state.compute_params))
+    n0 = adw.fused_adamw_update.launches
+    adw.fused_adamw_update(opt, grads, state, params)
+    lr, c1, c2 = adw._hyper(opt, state.count)
+    for n in sizes:
+        adw.leaf_update_reference(
+            grads[n], ref_p[n], ref_mu[n], ref_nu[n], lr, c1, c2, b1=opt.b1,
+            b2=opt.b2, eps=opt.eps, wd=opt.weight_decay,
+            copy=None if ref_c is None else ref_c[n])
+    torch.cuda.synchronize()
+    assert adw.fused_adamw_update.launches == n0 + 1
+    for buf in bufs:
+        assert (buf[:pad] == -7.25).all() and (buf[-pad:] == -7.25).all()
+    assert all(torch.equal(grads[n], grads_before[n]) for n in sizes)
+    pairs = [(params, ref_p), (state.mu, ref_mu), (state.nu, ref_nu)]
+    for got, want in pairs:
+        for n in sizes:
+            torch.testing.assert_close(got[n], want[n], rtol=2.0 ** -23,
+                                       atol=0)
+    if copy is not None:
+        for n in sizes:
+            torch.testing.assert_close(state.compute_params[n].float(),
+                                       ref_c[n].float(), rtol=2.0 ** -8,
+                                       atol=0)

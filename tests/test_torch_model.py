@@ -68,12 +68,15 @@ def test_converter_is_strict():
 
 
 def test_config_refuses_what_is_not_ported():
+    # remat and the pallas backend are ported (training slice)
     for kw in ({"moe_every": 2}, {"quantized": True},
-               {"scan_layers": True}, {"remat": True},
-               {"attention_backend": "pallas"},
-               {"attention_backend": "ring"}):
+               {"scan_layers": True}, {"shard_activations": True},
+               {"mesh": object()}, {"attention_backend": "ring"},
+               {"attention_backend": "ulysses"}):
         with pytest.raises(NotImplementedError):
             TransformerConfig(**kw)
+    TransformerConfig(remat=True, remat_policy="attn_saved",
+                      attention_backend="pallas")
 
 
 # prompts per row (row 2 is an empty slot in the per-slot/paged modes)

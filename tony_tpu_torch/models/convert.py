@@ -7,6 +7,12 @@ returns tensors keyed as the port's ``Transformer.state_dict()``:
 flax kernels ``[in, ...out]`` become ``nn.Linear``'s ``[out, in]``.
 Strict both ways: a leaf it cannot map, or a port parameter no leaf
 fills, raises.
+
+``from_jax_train_state`` carries a whole JAX ``TrainState`` across
+(params, and the ``FusedAdamWState`` count, moments and compute copy),
+so both packages can continue from the same non-zero state. Elementwise
+optimizer leaves map exactly as their params do (a transpose is a
+permutation of elements).
 """
 
 from __future__ import annotations
@@ -58,10 +64,16 @@ def _map_leaf(path: str, x: np.ndarray) -> tuple[str, np.ndarray]:
     raise ValueError(f"unmapped param leaf {path!r}")
 
 
-def from_jax_params(params_np: Any, cfg) -> dict[str, torch.Tensor]:
+def _torch_dtype(x: np.ndarray) -> torch.dtype:
+    return torch.bfloat16 if x.dtype.name == "bfloat16" else torch.float32
+
+
+def from_jax_params(params_np: Any, cfg, keep_dtype: bool = False) \
+        -> dict[str, torch.Tensor]:
     """JAX param tree (bare or under ``"params"``) -> the port's
     ``state_dict`` (fp32 CPU tensors; ``load_state_dict`` casts them to
-    each parameter's dtype and device)."""
+    each parameter's dtype and device). ``keep_dtype`` keeps a bf16 leaf
+    bf16 (optimizer moments and compute copies)."""
     from tony_tpu_torch.models.transformer import Transformer
 
     if "params" in params_np and len(params_np) == 1:
@@ -69,7 +81,8 @@ def from_jax_params(params_np: Any, cfg) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     for path, x in _flatten(params_np).items():
         key, arr = _map_leaf(path, x)
-        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
+        t = torch.from_numpy(np.array(arr, dtype=np.float32))
+        out[key] = t.to(_torch_dtype(x)) if keep_dtype else t
     want = Transformer(cfg, device="meta").state_dict()
     missing = sorted(set(want) - set(out))
     extra = sorted(set(out) - set(want))
@@ -81,3 +94,30 @@ def from_jax_params(params_np: Any, cfg) -> dict[str, torch.Tensor]:
             raise ValueError(f"{key}: shape {tuple(t.shape)}, config "
                              f"wants {tuple(want[key].shape)}")
     return out
+
+
+def from_jax_train_state(state_np: Any, cfg):
+    """A JAX ``TrainState`` whose leaves are numpy arrays (``jax.tree.map(
+    np.asarray, state)``), optimizer ``FusedAdamWState`` -> the port's
+    ``TrainState`` on the CPU, ready for ``Trainer.place``: fp32 master
+    params, count, mu and nu (bf16 kept bf16) and the compute copy."""
+    from tony_tpu_torch.ops.adamw import FusedAdamWState
+    from tony_tpu_torch.train.trainer import TrainState
+
+    opt = state_np.opt_state
+    if not all(hasattr(opt, f) for f in FusedAdamWState._fields):
+        raise ValueError("from_jax_train_state takes a FusedAdamW state; "
+                         f"got {type(opt).__name__}")
+
+    def tree(t):
+        return None if t is None else from_jax_params(t, cfg,
+                                                      keep_dtype=True)
+
+    return TrainState(
+        step=int(np.asarray(state_np.step)),
+        params=from_jax_params(state_np.params, cfg),
+        opt_state=FusedAdamWState(
+            count=torch.tensor(int(np.asarray(opt.count)),
+                               dtype=torch.int32),
+            mu=tree(opt.mu), nu=tree(opt.nu),
+            compute_params=tree(opt.compute_params)))

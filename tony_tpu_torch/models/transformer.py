@@ -18,12 +18,21 @@ Writes that the JAX package drops (negative positions, positions past
 the buffer, sentinel pages) are filtered out before every index write,
 never clamped.
 
-Left out of this slice, refused at config construction: MoE
-(``moe_every``), int8 weights (``quantized``), ``scan_layers``,
-``remat``, ``shard_activations``/``mesh``, and the ring, ulysses and
-pallas attention backends. ``blockwise`` — the JAX default, an exact
-blocked reformulation of the same softmax — is computed here by
-``reference_attention``.
+The training forward takes ``segment_ids`` and three attention
+backends: ``pallas`` hands q and the grouped (unrepeated) K/V to
+``ops.attention.flash_attention`` (the CUDA kernels on the GPU), while
+``reference`` and ``blockwise`` — the JAX default, an exact blocked
+reformulation of the same softmax — are computed by
+``reference_attention``. ``remat`` ports the three policies of the JAX
+``Block`` with ``torch.utils.checkpoint``: ``nothing`` recomputes the
+whole block, ``dots`` keeps matmul outputs (selective checkpointing),
+``attn_saved`` recomputes only the FFN, its dots kept, so the flash
+forward never runs twice. Recomputation repeats the same operations, so
+remat changes no bit of the loss or the gradients.
+
+Left out, refused at config construction: MoE (``moe_every``), int8
+weights (``quantized``), ``scan_layers``, ``shard_activations``/``mesh``,
+and the ring and ulysses attention backends.
 """
 
 from __future__ import annotations
@@ -35,7 +44,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from tony_tpu_torch.ops.attention import flash_attention
 from tony_tpu_torch.ops.decode import flash_decode, quantize_kv
 from tony_tpu_torch.parallel.ring_attention import reference_attention
 
@@ -70,8 +82,8 @@ class RopeScaling:
         return torch.where(wavelen < high_wl, freq, scaled)
 
 
-_BACKENDS = ("reference", "blockwise")
-_LATER_BACKENDS = ("ring", "ulysses", "pallas")
+_BACKENDS = ("reference", "blockwise", "pallas")
+_LATER_BACKENDS = ("ring", "ulysses")
 
 
 @dataclass(frozen=True)
@@ -140,7 +152,6 @@ class TransformerConfig:
             "moe_every": self.moe_every > 0,
             "quantized": self.quantized,
             "scan_layers": self.scan_layers,
-            "remat": self.remat,
             "shard_activations": self.shard_activations,
             "mesh": self.mesh is not None,
             f"attention_backend={self.attention_backend!r}":
@@ -260,11 +271,22 @@ def _activation(cfg: TransformerConfig):
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` in ``cfg.dtype`` that casts its input to that dtype
-    first, as flax's Dense does."""
+    """``nn.Linear`` that computes in ``cfg.dtype``, casting its input and
+    (when a trainer holds them in another compute dtype) its weights to
+    that dtype first, as flax's Dense does."""
+
+    def __init__(self, *args, dtype=None, **kw):
+        super().__init__(*args, dtype=dtype, **kw)
+        self.compute_dtype = dtype or torch.get_default_dtype()
 
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        dt = self.compute_dtype
+        w, b = self.weight, self.bias
+        if w.dtype != dt:
+            w = w.to(dt)
+        if b is not None and b.dtype != dt:
+            b = b.to(dt)
+        return F.linear(x.to(dt), w, b)
 
 
 @dataclass
@@ -329,13 +351,22 @@ class Attention(nn.Module):
                                      cfg.rope_scaling, cfg.rotary_dims)
                 k = rotary_embedding(k, pos, cfg.rope_theta,
                                      cfg.rope_scaling, cfg.rotary_dims)
-            if cfg.kv_heads != cfg.n_heads:
-                group = cfg.n_heads // cfg.kv_heads
-                k = k.repeat_interleave(group, dim=2)
-                v = v.repeat_interleave(group, dim=2)
-            out = reference_attention(q, k, v, causal=True,
-                                      window=cfg.sliding_window,
-                                      segment_ids=segment_ids)
+            if cfg.attention_backend == "pallas":
+                # grouped K/V go to the kernels as they are
+                out = flash_attention(
+                    q, k, v, causal=True,
+                    block_q=cfg.attention_block_size,
+                    block_k=cfg.attention_block_k
+                    or cfg.attention_block_size,
+                    window=cfg.sliding_window, segment_ids=segment_ids)
+            else:
+                if cfg.kv_heads != cfg.n_heads:
+                    group = cfg.n_heads // cfg.kv_heads
+                    k = k.repeat_interleave(group, dim=2)
+                    v = v.repeat_interleave(group, dim=2)
+                out = reference_attention(q, k, v, causal=True,
+                                          window=cfg.sliding_window,
+                                          segment_ids=segment_ids)
         return self.o(out.reshape(b, l, -1))
 
     def _decode_attention(self, q, k, v, cache: dict, positions=None,
@@ -512,13 +543,52 @@ class Block(nn.Module):
 
     def forward(self, x, decode: bool = False, segment_ids=None,
                 positions=None, page_table=None, cache=None, plan=None):
+        cfg = self.cfg
+        if cfg.remat and not decode and torch.is_grad_enabled() \
+                and cfg.remat_policy != "attn_saved":
+            kw = {} if cfg.remat_policy == "nothing" \
+                else {"context_fn": _keep_dots}
+            return checkpoint(self._forward, x, False, segment_ids,
+                              use_reentrant=False, **kw)
+        return self._forward(x, decode, segment_ids, positions, page_table,
+                             cache, plan)
+
+    def _ffn(self, x, decode: bool):
+        cfg = self.cfg
+        if cfg.remat and not decode and torch.is_grad_enabled() \
+                and cfg.remat_policy == "attn_saved":
+            # attention stays outside the recomputation (its kernels'
+            # saved tensors are kept); only the FFN is recomputed, its
+            # dot outputs kept
+            return checkpoint(self.mlp, x, use_reentrant=False,
+                              context_fn=_keep_dots)
+        return self.mlp(x)
+
+    def _forward(self, x, decode: bool = False, segment_ids=None,
+                 positions=None, page_table=None, cache=None, plan=None):
         attn_out = self.attn(self.ln1(x), decode=decode,
                              segment_ids=segment_ids, positions=positions,
                              page_table=page_table, cache=cache, plan=plan)
         if self.cfg.parallel_residual:
-            return x + attn_out + self.mlp(self.ln2(x))
+            return x + attn_out + self._ffn(self.ln2(x), decode)
         x = x + attn_out
-        return x + self.mlp(self.ln2(x))
+        return x + self._ffn(self.ln2(x), decode)
+
+
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default,
+         torch.ops.aten.linear.default, torch.ops.aten.matmul.default}
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_saveable``: keep the outputs of
+    matrix products, recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _keep_dots():
+    return create_selective_checkpoint_contexts(_dots_saveable)
 
 
 class Transformer(nn.Module):
@@ -629,7 +699,7 @@ class Transformer(nn.Module):
         if return_hidden:
             return x.float()
         head = self.embedding if cfg.tied_embeddings else self.lm_head
-        logits = x.float() @ head.t()
+        logits = x.float() @ head.float().t()
         if cfg.lm_head_bias:
             logits = logits + self.lm_head_bias
         return logits

@@ -1,1 +1,2 @@
-"""Kernels of the port (``decode``) and where they run (``platform``)."""
+"""Kernels of the port (``decode``, ``attention``, ``adamw``), the
+chunked cross-entropy (``xent``), and where they run (``platform``)."""

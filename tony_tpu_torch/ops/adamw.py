@@ -1,0 +1,234 @@
+"""Fused AdamW: one pass over (grad, param, mu, nu) a leaf, as a CUDA
+kernel for Hopper (``csrc/adamw.cu``) beside its plain PyTorch version.
+
+Counterpart of ``tony_tpu/ops/adamw.py``: ``FusedAdamW`` (the config),
+``FusedAdamWState`` (count, mu, nu, compute_params) and
+``fused_adamw_update``, with the same math (``optax.adamw`` in fp32: bias
+correction by count + 1, decoupled weight decay, a callable learning rate
+evaluated at the pre-increment count), reduced-precision moments
+(``moment_dtype``) and the compute-dtype copy of the params written by
+the same pass. Params, grads and moments are dicts of tensors keyed
+alike (a model's ``state_dict`` names); params are fp32 masters.
+
+Differences from the JAX module, each deliberate:
+- On the GPU every float leaf goes through the kernel. The JAX package
+  sends a leaf to its Pallas kernel only above
+  ``TONY_FUSED_ADAMW_MIN_ELEMS`` (default 2^62, i.e. never: a v5e
+  measurement of the fixed cost of a ``pallas_call`` that does not carry
+  over to this card). Here the leaves are grouped by dtypes and each
+  group is one multi-tensor launch, so a step costs a launch or two,
+  not one a leaf. The plain version runs only on CPU tensors.
+- The update is in place: params, moments and the compute copies are
+  written where they lie, and the compute copy may be a model's own
+  parameter (``Trainer`` writes it straight into the module).
+- lr, c1 and c2 reach the kernel in a 3-float device tensor, as the JAX
+  ``hyp`` operand does: no host sync.
+- A non-float leaf carries its updated value into the compute copy, and
+  no sharded path exists (ROADMAP queue 3 records both JAX bugs at
+  ops/adamw.py:236 and :259; neither is copied).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class FusedAdamWState(NamedTuple):
+    count: torch.Tensor  # int32 step counter, on the params' device
+    mu: Any
+    nu: Any
+    # the compute-dtype copy of the params, written by the same pass as
+    # the fp32 master (None when the caller runs full precision)
+    compute_params: Any = None
+
+
+class FusedAdamW(NamedTuple):
+    """AdamW config consumed by ``fused_adamw_update`` and recognised by
+    ``train.Trainer`` as the fused-optimizer flag. Hyperparameters mirror
+    ``optax.adamw``; ``moment_dtype`` (e.g. ``torch.bfloat16``) stores
+    mu/nu at reduced precision."""
+
+    learning_rate: Any = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 1e-4
+    moment_dtype: Any = None
+
+    def init(self, params: dict, compute_dtype=None) -> FusedAdamWState:
+        def zeros():
+            return {n: torch.zeros_like(p, dtype=self.moment_dtype or p.dtype)
+                    for n, p in params.items()}
+
+        compute = None
+        if compute_dtype is not None:
+            compute = {n: p.to(compute_dtype) if p.is_floating_point()
+                       else p.clone() for n, p in params.items()}
+        dev = next(iter(params.values())).device
+        return FusedAdamWState(
+            count=torch.zeros((), dtype=torch.int32, device=dev),
+            mu=zeros(), nu=zeros(), compute_params=compute)
+
+
+def _hyper(opt: FusedAdamW, count: torch.Tensor):
+    """(lr, c1, c2) as fp32 device scalars, computed where count lies."""
+    dev = count.device
+
+    def const(x):  # filled on the device: a host-to-device copy would sync
+        return torch.full((), x, dtype=torch.float32, device=dev)
+
+    t = (count + 1).to(torch.float32)
+    c1 = const(1.0) / (const(1.0) - torch.pow(const(opt.b1), t))
+    c2 = const(1.0) / (const(1.0) - torch.pow(const(opt.b2), t))
+    lr = opt.learning_rate(count) if callable(opt.learning_rate) \
+        else opt.learning_rate
+    lr = lr.to(device=dev, dtype=torch.float32) if torch.is_tensor(lr) \
+        else const(float(lr))
+    return lr, c1, c2
+
+
+def leaf_update_reference(g, p, mu, nu, lr, c1, c2, *, b1, b2, eps, wd,
+                          copy=None) -> None:
+    """The plain version of the kernel on one leaf, in place: the same
+    fp32 operations in the same order, each rounded on its own."""
+    omb1, omb2 = 1.0 - b1, 1.0 - b2
+    g32 = g.to(torch.float32)
+    mu_n = mu.to(torch.float32) * b1 + g32 * omb1
+    nu_n = nu.to(torch.float32) * b2 + (g32 * omb2) * g32
+    p32 = p.to(torch.float32)
+    upd = (mu_n * c1) / (torch.sqrt(nu_n * c2) + eps) + p32 * wd
+    p_new = p32 - lr * upd
+    p.copy_(p_new.to(p.dtype))
+    mu.copy_(mu_n.to(mu.dtype))
+    nu.copy_(nu_n.to(nu.dtype))
+    if copy is not None:
+        copy.copy_(p_new.to(copy.dtype) if copy.is_floating_point()
+                   else p)
+
+
+def _kernel():
+    from tony_tpu_torch.ops import _build
+
+    lib = _build.load("adamw")
+    fn = lib.tony_adamw
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 \
+            + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_float] * 6 \
+            + [ctypes.c_void_p]
+        lib.tony_adamw_chunk.restype = ctypes.c_longlong
+    return fn, int(lib.tony_adamw_chunk())
+
+
+def _table(group: list, device, chunk: int) -> tuple[torch.Tensor, int]:
+    """(device table, chunk count) for one launch, in one int64 tensor:
+    six words a leaf (its pointers and size, as ``Leaf`` in the kernel),
+    then each chunk's leaf, then each chunk's offset in its leaf. It is
+    built from this call's pointers (a step's grads are new tensors) and
+    goes up by one asynchronous copy from page-locked memory, so the host
+    does not wait for the card."""
+    sizes = np.array([p.numel() for _, p, _, _, _ in group], dtype=np.int64)
+    counts = -(-sizes // chunk)
+    n_chunks = int(counts.sum())
+    leaf_of = np.repeat(np.arange(len(group), dtype=np.int64), counts)
+    first = np.cumsum(counts) - counts
+    offset = (np.arange(n_chunks, dtype=np.int64) - first[leaf_of]) * chunk
+    leaves = np.array(
+        [[g.data_ptr(), p.data_ptr(), mu.data_ptr(), nu.data_ptr(),
+          0 if c is None else c.data_ptr(), p.numel()]
+         for g, p, mu, nu, c in group], dtype=np.int64)
+    host = torch.from_numpy(np.concatenate([leaves.ravel(), leaf_of,
+                                            offset])).pin_memory()
+    return host.to(device, non_blocking=True), n_chunks
+
+
+def _launch_groups(opt: FusedAdamW, items: list, hyp: torch.Tensor) -> None:
+    """One kernel launch per (grad, moment, copy) dtype group of float
+    leaves on the GPU."""
+    groups: dict[tuple, list] = {}
+    for g, p, mu, nu, c in items:
+        if p.dtype != torch.float32:
+            raise ValueError(f"fused AdamW keeps fp32 master params, got "
+                             f"{p.dtype}")
+        if g.dtype not in _DTYPE_CODES or mu.dtype not in _DTYPE_CODES \
+                or nu.dtype != mu.dtype \
+                or (c is not None and c.dtype not in _DTYPE_CODES):
+            raise ValueError(f"fused AdamW takes fp32/bf16 grads, moments "
+                             f"and copies, got {g.dtype}, {mu.dtype}, "
+                             f"{nu.dtype}, {None if c is None else c.dtype}")
+        ts = [g, p, mu, nu] + ([c] if c is not None else [])
+        if any(t.device != p.device for t in ts):
+            raise ValueError("a leaf's grad, param, moments and copy must "
+                             "share one device")
+        if any(t.shape != p.shape or not t.is_contiguous() for t in ts):
+            raise ValueError("fused AdamW needs contiguous leaves of one "
+                             "shape")
+        key = (g.dtype, mu.dtype, None if c is None else c.dtype)
+        groups.setdefault(key, []).append((g, p, mu, nu, c))
+    if not groups:
+        return
+    fn, chunk = _kernel()
+    omb1, omb2 = 1.0 - opt.b1, 1.0 - opt.b2
+    for (gdt, mdt, cdt), group in groups.items():
+        dev = group[0][1].device
+        table, n_chunks = _table(group, dev, chunk)
+        at = table.data_ptr()
+        chunk_leaf = at + 8 * 6 * len(group)
+        err = fn(_DTYPE_CODES[gdt], _DTYPE_CODES[mdt],
+                 -1 if cdt is None else _DTYPE_CODES[cdt], at, chunk_leaf,
+                 chunk_leaf + 8 * n_chunks, n_chunks, hyp.data_ptr(), opt.b1,
+                 opt.b2, omb1, omb2, opt.eps, opt.weight_decay,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"fused AdamW kernel launch failed: CUDA "
+                               f"error {err}")
+        fused_adamw_update.launches += 1
+
+
+def fused_adamw_update(opt: FusedAdamW, grads: dict, state: FusedAdamWState,
+                       params: dict, *, mesh=None, param_specs=None,
+                       compute_dtype=None):
+    """One fused AdamW step, in place: returns (params, new_state), the
+    same param, moment and compute-copy tensors updated, and a new count.
+
+    ``compute_dtype`` (JAX signature) asks for the compute copy;
+    ``state.compute_params`` must then hold it (``FusedAdamW.init`` with
+    the same dtype). A leaf present in ``state.compute_params`` gets its
+    copy written whether or not ``compute_dtype`` is given, so a caller
+    may point the copies at other tensors (a model's parameters). CUDA
+    leaves run the kernel (``fused_adamw_update.launches`` counts the
+    launches); CPU leaves and non-float leaves run the plain version."""
+    if mesh is not None or param_specs is not None:
+        raise NotImplementedError("sharded fused AdamW is not ported yet "
+                                  "(single device; see ROADMAP.md)")
+    if compute_dtype is not None and state.compute_params is None:
+        raise ValueError("compute_dtype needs state.compute_params "
+                         "(FusedAdamW.init(params, compute_dtype))")
+    copies = state.compute_params or {}
+    lr, c1, c2 = _hyper(opt, state.count)
+    static = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps, wd=opt.weight_decay)
+    on_card = []
+    for name, g in grads.items():
+        p, mu, nu = params[name], state.mu[name], state.nu[name]
+        c = copies.get(name)
+        if p.device.type == "cuda" and p.is_floating_point():
+            on_card.append((g, p, mu, nu, c))
+        else:
+            leaf_update_reference(g, p, mu, nu, lr.to(p.device),
+                                  c1.to(p.device), c2.to(p.device),
+                                  copy=c, **static)
+    if on_card:
+        hyp = torch.stack([lr, c1, c2]).to(on_card[0][1].device)
+        _launch_groups(opt, on_card, hyp)
+    return params, FusedAdamWState(count=state.count + 1, mu=state.mu,
+                                   nu=state.nu,
+                                   compute_params=state.compute_params)
+
+
+fused_adamw_update.launches = 0
