@@ -43,6 +43,29 @@ exits non-zero.
    steps: losses finite and falling, launch counts as the config
    implies, tokens/s, ms/step, MFU, peak memory and (from an untimed
    profiled step) the host share.
+9. int8 kernels against their plain versions: q8_matmul at the four
+   (k, n) shapes of Qwen2.5-1.5B's seven projections, m in {1, 8, 4096},
+   fp32 and bf16 x, and one ragged shape (257, 1000, 300), each output
+   held per element to ``ops.quant.error_bound``; rmsnorm and
+   add_rmsnorm at rows {8, 8192}, D=1536, bf16 and fp32. Each is timed
+   beside its plain version, one PyTorch call the port never makes
+   (``torch._weight_int8pack_mm`` where it runs, else ``F.linear`` on
+   weights dequantized ahead of time; ``F.rms_norm``) and its bound.
+10. int8 model: Qwen2.5-1.5B at full width and depth, seeded random fp32
+   weights converted by ``quantize_for_serving``, prefill of 8 x 512
+   tokens and 16 teacher-forced decode steps with fp32 activations and
+   with bf16 activations (the same int8 state_dict in a bf16 config),
+   each row of logits held against the plain q8_matmul route; 7 x 28
+   kernel launches a forward. The fused norms, public ops no model path
+   calls, are driven on the model's embedded tokens and held against
+   its RMSNorm module.
+11. int8 generation: ``generate`` at batch 8, 512-token prompts, 128
+   greedy tokens, on the int8 model (bf16 activations) and on phase 4's
+   bf16 model: tokens/s, ms a decode step, launches, and the host share
+   from an untimed profiled probe.
+12. int8 CLI: over a 2-layer full-width checkpoint, ``cli.generate
+   --int8 --token-ids``, ``cli.score --int8`` and ``cli.score``; the
+   int8 nll/token within 5% of the fp32 one; ``--serve --int8`` refused.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
@@ -541,11 +564,12 @@ def probe_pass(ctx, srv, rng) -> dict:
     return captured
 
 
-def phase_cli(ctx) -> None:
-    import numpy as np
+def write_checkpoint() -> str:
+    """A 2-layer checkpoint directory at Qwen2.5-1.5B's full width under
+    build/: config.json and model.safetensors, seeded random bf16
+    weights. The caller removes it."""
     import torch
 
-    from tony_tpu_torch.cli import generate as cli
     from tony_tpu_torch.models.hf import write_safetensors
 
     hf = dict(QWEN25_15B, num_hidden_layers=2)
@@ -579,11 +603,19 @@ def phase_cli(ctx) -> None:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="smoke_ckpt_",
                             dir=os.path.join(ROOT, "build"))
+    with open(os.path.join(ckpt, "config.json"), "w") as fh:
+        json.dump(hf, fh)
+    write_safetensors(tensors, os.path.join(ckpt, "model.safetensors"))
+    return ckpt
+
+
+def phase_cli(ctx) -> None:
+    import numpy as np
+
+    from tony_tpu_torch.cli import generate as cli
+
+    ckpt = write_checkpoint()
     try:
-        with open(os.path.join(ckpt, "config.json"), "w") as fh:
-            json.dump(hf, fh)
-        write_safetensors(tensors, os.path.join(ckpt, "model.safetensors"))
-        del tensors
         rng = np.random.default_rng(SEED + 2)
         lines = [{"id": f"r{i}", "token_ids": rng.integers(
                      0, 151643, n).tolist(), "max_new_tokens": m}
@@ -1216,6 +1248,576 @@ def train_kernel_lines(ctx) -> list[dict]:
     return lines
 
 
+# ------------------------------------------------------------------ int8
+
+Q8_SHAPES = (  # Qwen2.5-1.5B's seven projections have four (k, n) shapes
+    ("q/o", 1536, 1536), ("k/v", 1536, 256), ("wg/wi", 1536, 8960),
+    ("wo", 8960, 1536))
+INT8_BATCH, INT8_PROMPT, INT8_STEPS, INT8_NEW = 8, 512, 16, 128
+
+
+def q8_bound(x, w_q, out_dtype) -> tuple[float, str]:
+    """Least time for q8_matmul on these inputs: x, the int8 weights and
+    the scales read once and the output written once, over HBM
+    bandwidth, against 2 m k n flops at the fp32 peak outside the tensor
+    cores for an fp32 x (its products must be fp32) or the bf16
+    tensor-core peak for a bf16 x."""
+    import torch
+
+    m, k = x.shape
+    n = w_q.shape[1]
+    nbytes = x.numel() * x.element_size() + w_q.numel() + 4 * n \
+        + m * n * torch.empty((), dtype=out_dtype).element_size()
+    peak = PEAK_OPS["float32" if x.dtype == torch.float32 else "bfloat16"]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * m * k * n / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def q8_library(ctx, x, w_q, scale):
+    """(call, label): one PyTorch call computing the same product, timed
+    and never used by the port. ``torch._weight_int8pack_mm`` (int8
+    weights [n, k], scales in x's dtype) where it runs on the card for
+    x's dtype and k and n are multiples of 64 (its CPU build crashes on
+    k = 1000), else ``F.linear`` on weights dequantized ahead of time in
+    x's dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    from tony_tpu_torch.ops.quant import dequantize_q8
+
+    routes = ctx.setdefault("q8_library_route", {})
+    if x.dtype not in routes:
+        probe = torch.ones(2, 64, dtype=x.dtype, device=DEVICE)
+        try:  # is the int8 product built for this dtype on the card?
+            torch._weight_int8pack_mm(
+                probe, torch.ones(64, 64, dtype=torch.int8, device=DEVICE),
+                torch.ones(64, dtype=x.dtype, device=DEVICE))
+            sync()
+            routes[x.dtype] = "_weight_int8pack_mm"
+        except (RuntimeError, NotImplementedError):
+            routes[x.dtype] = "F.linear(dequantized)"
+    if routes[x.dtype] == "_weight_int8pack_mm" \
+            and x.shape[1] % 64 == 0 and w_q.shape[1] % 64 == 0:
+        wt, sc = w_q.t().contiguous(), scale.to(x.dtype)
+        return (lambda: torch._weight_int8pack_mm(x, wt, sc),
+                routes[x.dtype])
+    wd = dequantize_q8(w_q, scale).to(x.dtype).t().contiguous()
+    return (lambda: F.linear(x, wd)), "F.linear(dequantized)"
+
+
+def measure_q8(ctx, x, w_q, scale, reps=10) -> dict:
+    """q8_matmul against its plain version on one input set, held per
+    element to ``ops.quant.error_bound`` with inputs unchanged, then the
+    times beside the bound and the library call."""
+    import torch
+
+    from tony_tpu_torch.ops import quant
+
+    before = [t.clone() for t in (x, w_q, scale)]
+    got = quant.q8_matmul(x, w_q, scale)
+    sync()
+    check(all(torch.equal(a, b) for a, b in zip((x, w_q, scale), before)),
+          "q8_matmul wrote into its inputs")
+    del before
+    want = quant.q8_matmul_reference(x, w_q, scale)
+    limit = quant.error_bound(x, w_q, scale, want)
+    diff = (got.float() - want.float()).abs()
+    check(bool(torch.isfinite(got.float()).all()), "q8_matmul not finite")
+    worst = (diff / limit.clamp_min(1e-30)).max().item()
+    err = diff.max().item()
+    check(worst <= 1.0, f"q8_matmul x{tuple(x.shape)} {x.dtype} "
+          f"w{tuple(w_q.shape)}: |got - want| reaches {worst:.3g} of its "
+          f"limit (max abs err {err:.3g})")
+    del got, want, limit, diff
+    lib, route = q8_library(ctx, x, w_q, scale)
+    ms = cuda_time_ms(lambda: quant.q8_matmul(x, w_q, scale), reps,
+                      ctx["flush"])
+    plain_ms = cuda_time_ms(
+        lambda: quant.q8_matmul_reference(x, w_q, scale), reps,
+        ctx["flush"])
+    library_ms = cuda_time_ms(lib, reps, ctx["flush"])
+    bound_ms, bound_by = q8_bound(x, w_q, x.dtype)
+    return {"max_abs_err": err, "of_limit": worst, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": route, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def norm_limit(want):
+    """Per element: 2^-7 |want| for a bf16 output (each side rounds once;
+    fp32 values a few ulps apart that straddle a rounding point land one
+    bf16 step apart, up to 2^-7 of the value), 2^-20 |want| + 1e-7 for
+    fp32 (the mean of squares summed in another order, an rsqrt within
+    2 ulp)."""
+    import torch
+
+    if want.dtype == torch.bfloat16:
+        return 2.0 ** -7 * want.float().abs()
+    return 2.0 ** -20 * want.abs() + 1e-7
+
+
+def measure_norms(ctx, rows: int, dtype) -> dict:
+    """rmsnorm and add_rmsnorm against their plain versions at [rows,
+    1536] (residual and output in ``dtype``, fp32 scale), inputs
+    unchanged and ``summed`` bit-equal; then the times beside the bytes
+    bound and ``F.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+
+    from tony_tpu_torch.ops import fused
+
+    d = QWEN25_15B["hidden_size"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + rows)
+    x = torch.randn(rows, d, device=DEVICE, generator=gen).to(dtype)
+    r = torch.randn(rows, d, device=DEVICE, generator=gen).to(dtype)
+    scale = 1 + 0.1 * torch.randn(d, device=DEVICE, generator=gen)
+    before = [t.clone() for t in (x, r, scale)]
+    out = fused.rmsnorm(x, scale)
+    normed, summed = fused.add_rmsnorm(x, r, scale)
+    sync()
+    check(all(torch.equal(a, b) for a, b in zip((x, r, scale), before)),
+          "a norm kernel wrote into its inputs")
+    want = fused.rmsnorm_reference(x, scale)
+    want_n, want_s = fused.add_rmsnorm_reference(x, r, scale)
+    check(torch.equal(summed, want_s), "add_rmsnorm: summed not bit-equal")
+    res = {}
+    for name, got, w in (("rmsnorm", out, want),
+                         ("add_rmsnorm", normed, want_n)):
+        diff = (got.float() - w.float()).abs()
+        worst = (diff / norm_limit(w).clamp_min(1e-30)).max().item()
+        check(worst <= 1.0, f"{name} rows={rows} {dtype}: |got - want| "
+              f"reaches {worst:.3g} of its limit")
+        res[name] = {"max_abs_err": diff.max().item(), "of_limit": worst}
+    es = x.element_size()
+    w_lib = scale.to(dtype)
+    flush = ctx["flush"]
+    for name, kern, plain, lib, nbytes in (
+            ("rmsnorm", lambda: fused.rmsnorm(x, scale),
+             lambda: fused.rmsnorm_reference(x, scale),
+             lambda: F.rms_norm(x, (d,), w_lib, 1e-6),
+             rows * d * 2 * es + 4 * d),
+            ("add_rmsnorm", lambda: fused.add_rmsnorm(x, r, scale),
+             lambda: fused.add_rmsnorm_reference(x, r, scale),
+             lambda: F.rms_norm(x + r, (d,), w_lib, 1e-6),
+             rows * d * 4 * es + 4 * d)):
+        res[name].update(
+            ms=cuda_time_ms(kern, 10, flush),
+            plain_ms=cuda_time_ms(plain, 10, flush),
+            library_ms=cuda_time_ms(lib, 10, flush),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    return res
+
+
+def phase_int8_kernels(ctx) -> None:
+    import torch
+
+    from tony_tpu_torch.ops.quant import quantize_q8
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    rows = []
+    for name, k, n in Q8_SHAPES + (("ragged", 1000, 300),):
+        w_q, scale = quantize_q8(
+            0.02 * torch.randn(k, n, device=DEVICE, generator=gen))
+        for m in ((257,) if name == "ragged" else (1, 8, 4096)):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(m, k, device=DEVICE, generator=gen).to(dtype)
+                r = measure_q8(ctx, x, w_q, scale, reps=5 if m > 8 else 10)
+                rows.append({"proj": name, "m": m, "k": k, "n": n,
+                             "dtype": str(dtype).split(".")[-1], **r})
+                print(f"phase 9 q8_matmul {name} m={m} k={k} n={n} "
+                      f"{rows[-1]['dtype']}: max abs err "
+                      f"{r['max_abs_err']:.3g} ({r['of_limit']:.3f} of its "
+                      f"limit); kernel {r['ms'] * 1e3:.1f} us, plain "
+                      f"{r['plain_ms'] * 1e3:.1f} us, {r['library']} "
+                      f"{r['library_ms'] * 1e3:.1f} us, bound "
+                      f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}) "
+                      f"[{ctx['card']}]")
+                del x
+        del w_q, scale
+    ctx["q8_rows"] = rows
+    norms = {}
+    for nrows in (8, 8192):
+        for dtype in (torch.bfloat16, torch.float32):
+            res = measure_norms(ctx, nrows, dtype)
+            dt = str(dtype).split(".")[-1]
+            norms[(nrows, dt)] = res
+            for name, r in res.items():
+                print(f"phase 9 {name} rows={nrows} D=1536 {dt}: max abs "
+                      f"err {r['max_abs_err']:.3g} ({r['of_limit']:.3f} of "
+                      f"its limit); kernel {r['ms'] * 1e3:.1f} us, plain "
+                      f"{r['plain_ms'] * 1e3:.1f} us, F.rms_norm "
+                      f"{r['library_ms'] * 1e3:.1f} us, bound "
+                      f"{r['bound_ms'] * 1e3:.2f} us (bytes) "
+                      f"[{ctx['card']}]")
+    ctx["norms"] = norms
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def plain_q8_route():
+    """The model's q8_matmul swapped for its plain version."""
+    import tony_tpu_torch.models.transformer as tmod
+    from tony_tpu_torch.ops.quant import q8_matmul_reference
+
+    kernel = tmod.q8_matmul
+    tmod.q8_matmul = q8_matmul_reference
+    try:
+        yield
+    finally:
+        tmod.q8_matmul = kernel
+
+
+def row_ratio(got, want) -> float:
+    """The worst row's max |got - want| over its max |want|."""
+    g, w = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    return ((g - w).abs().amax(-1) / w.abs().amax(-1)).max().item()
+
+
+def row_check(name, got, want, rel) -> float:
+    """Each row's max |got - want| within ``rel`` of its max |want|;
+    returns the worst row's ratio."""
+    import torch
+
+    check(bool(torch.isfinite(got).all()), f"{name}: logits not finite")
+    ratio = row_ratio(got, want)
+    check(ratio <= rel, f"{name}: a row's max |kernel - plain| is "
+          f"{ratio:.3g} of its max |plain| > {rel:.3g}")
+    return ratio
+
+
+def phase_int8_model(ctx) -> None:
+    import torch
+
+    from tony_tpu_torch.models.generate import init_cache, single_decode_step
+    from tony_tpu_torch.models.quantize import quantize_for_serving
+    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.ops import add_rmsnorm, q8_matmul, rmsnorm
+
+    base = Transformer(qwen_config(dtype=torch.float32), device=DEVICE) \
+        .init_weights(torch.Generator(device=DEVICE).manual_seed(SEED))
+    q32 = quantize_for_serving(base)
+    del base
+    torch.cuda.empty_cache()
+    q16 = Transformer(dataclasses.replace(q32.cfg, dtype=torch.bfloat16),
+                      device=DEVICE)
+    q16.load_state_dict(q32.state_dict())
+    cfg = q32.cfg
+    per_fwd = 7 * cfg.n_layers
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    prompt = torch.randint(0, cfg.vocab_size, (INT8_BATCH, INT8_PROMPT),
+                           device=DEVICE, generator=gen)
+    length = INT8_PROMPT + INT8_STEPS
+    fed, ref32 = None, None
+    for name, model in (("fp32", q32), ("bf16", q16)):
+        # the plain route; its fp32 run picks the tokens both dtypes feed
+        with torch.no_grad(), plain_q8_route():
+            cache = init_cache(model, INT8_BATCH, length)
+            plain = [model(prompt, decode=True, cache=cache)]
+            tok = torch.argmax(plain[0][:, -1], -1)
+            picked = []
+            for i in range(INT8_STEPS):
+                picked.append(tok)
+                cache, last = single_decode_step(
+                    model, cache, tok if fed is None else fed[i])
+                plain.append(last)
+                tok = torch.argmax(last, -1)
+        fed = fed or picked
+        del cache
+        if ref32 is None:
+            # fp32: reordered fp32 sums through 28 layers (the phase-7
+            # rule)
+            rel, ref32 = 1e-3, plain
+        else:
+            # bf16: the two routes round each projection's output to bf16
+            # once, from fp32 sums in another order, so outputs land a
+            # bf16 step apart here and there and the steps travel through
+            # 28 layers. Such noise is bf16 rounding's own: allow twice
+            # what bf16 activations alone move the plain route's logits
+            # from its fp32 run on the same tokens
+            noise = max(row_ratio(p16, p32) for p16, p32 in zip(plain, ref32))
+            rel = 2 * noise
+            del ref32
+        q8_matmul.launches = 0
+        cache = init_cache(model, INT8_BATCH, length)
+        with torch.no_grad():
+            got = model(prompt, decode=True, cache=cache)
+        sync()
+        check(q8_matmul.launches == per_fwd,
+              f"prefill launched q8_matmul {q8_matmul.launches} times, "
+              f"expected 7 x {cfg.n_layers}")
+        check(got.shape == (INT8_BATCH, INT8_PROMPT, cfg.vocab_size),
+              f"logits shape {tuple(got.shape)}")
+        pre = row_check(f"int8 {name} prefill", got, plain[0], rel)
+        del got
+        worst = 0.0
+        for i in range(INT8_STEPS):
+            cache, last = single_decode_step(model, cache, fed[i])
+            worst = max(worst, row_check(f"int8 {name} decode step {i}",
+                                         last, plain[i + 1], rel))
+        sync()
+        check(q8_matmul.launches == per_fwd * (1 + INT8_STEPS),
+              f"q8_matmul launched {q8_matmul.launches} times over "
+              f"{1 + INT8_STEPS} forwards, expected 7 x {cfg.n_layers} each")
+        note = "" if name == "fp32" else \
+            f" = 2 x {noise:.3g}, bf16's own distance from fp32"
+        print(f"phase 10 int8 Qwen2.5-1.5B {name} activations, "
+              f"{cfg.n_layers} layers: prefill {INT8_BATCH} x {INT8_PROMPT} "
+              f"worst row max|kernel - plain| / max|plain| {pre:.3g}, "
+              f"{INT8_STEPS} teacher-forced decode steps {worst:.3g} "
+              f"(limit {rel:.3g}{note}); q8_matmul launches "
+              f"{q8_matmul.launches} = {per_fwd} x {1 + INT8_STEPS} forwards")
+        del cache
+        if name == "bf16":
+            del plain
+        torch.cuda.empty_cache()
+    # the fused norms are public ops that no model path calls (nor does
+    # the JAX model): drive them as a user would, on the model's own
+    # embedded tokens with block 0's norm scale, and hold them against
+    # the model's plain RMSNorm module
+    toks = torch.randint(0, cfg.vocab_size, (16, INT8_PROMPT),
+                         device=DEVICE, generator=gen)
+    ln1 = q16.blocks[0].ln1
+    x = q16.embedding[toks].to(torch.bfloat16)
+    r = q16.embedding[toks.roll(1, dims=1)].to(torch.bfloat16)
+    rmsnorm.launches = add_rmsnorm.launches = 0
+    out = rmsnorm(x, ln1.scale, eps=cfg.norm_eps)
+    normed, summed = add_rmsnorm(x, r, ln1.scale, eps=cfg.norm_eps)
+    sync()
+    ctx["norm_launches"] = (rmsnorm.launches, add_rmsnorm.launches)
+    s = x.float() + r.float()
+    with torch.no_grad():
+        for nm, got, want in (("rmsnorm", out, ln1(x)),
+                              ("add_rmsnorm", normed, ln1(s))):
+            worst = ((got.float() - want.float()).abs()
+                     / norm_limit(want).clamp_min(1e-30)).max().item()
+            check(worst <= 1.0, f"{nm} on the model's embeddings: "
+                  f"{worst:.3g} of its limit from the RMSNorm module")
+    check(torch.equal(summed, s.to(torch.bfloat16)),
+          "add_rmsnorm: summed not bit-equal")
+    print(f"phase 10 fused norms on the int8 model's embedded tokens "
+          f"({x.shape[0] * x.shape[1]} rows, bf16) with block 0's scale: "
+          f"equal to its RMSNorm module within the limit; launches "
+          f"rmsnorm {rmsnorm.launches}, add_rmsnorm {add_rmsnorm.launches}")
+    del q32, x, r, out, normed, summed, s
+    ctx["int8_model"] = q16
+    torch.cuda.empty_cache()
+
+
+def time_generate(ctx, model, prompt) -> dict:
+    """One greedy ``generate`` of INT8_NEW tokens, timed on the host
+    around synchronised ends; a prefill alone, timed the same way; then
+    an untimed probe: 8 decode steps unprofiled for their wall and 8
+    under torch.profiler for the device's busy time (the host share, as
+    in phase 4)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tony_tpu_torch.models.generate import (generate, init_cache,
+                                                single_decode_step)
+
+    generate(model, prompt[:, :16], max_new_tokens=2)  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    out = generate(model, prompt, max_new_tokens=INT8_NEW)
+    sync()
+    wall = time.perf_counter() - t0
+    check(out.shape == (INT8_BATCH, INT8_NEW), f"generate gave "
+          f"{tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < model.cfg.vocab_size)).all()),
+          "generated ids out of range")
+    cache = init_cache(model, INT8_BATCH)
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model(prompt, decode=True, cache=cache)
+    sync()
+    prefill = time.perf_counter() - t0
+    tok = out[:, 0]
+    sync()
+    w0 = time.perf_counter()
+    for _ in range(8):
+        cache, _ = single_decode_step(model, cache, tok)
+    sync()
+    probe_wall = time.perf_counter() - w0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            cache, _ = single_decode_step(model, cache, tok)
+        sync()
+    dev_us = sum(getattr(r, "self_device_time_total",
+                         getattr(r, "self_cuda_time_total", 0.0))
+                 for r in prof.key_averages())
+    host = "not measured" if dev_us <= 0 else \
+        f"{max(0.0, 1.0 - dev_us * 1e-6 / probe_wall):.3f}"
+    tokens = INT8_BATCH * INT8_NEW
+    return {"wall": wall, "tok_s": tokens / wall, "prefill": prefill,
+            "step_ms": (wall - prefill) / (INT8_NEW - 1) * 1e3,
+            "decode_tok_s": INT8_BATCH * (INT8_NEW - 1) / (wall - prefill),
+            "host": host, "busy_ms": dev_us * 1e-3 / 8,
+            "probe_ms": probe_wall * 1e3 / 8}
+
+
+def phase_int8_generate(ctx) -> None:
+    import torch
+
+    import tony_tpu_torch.models.transformer as tmod
+    from tony_tpu_torch.models.generate import init_cache, single_decode_step
+    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.ops.quant import q8_matmul
+
+    q16 = ctx.pop("int8_model")
+    cfg = q16.cfg
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    prompt = torch.randint(0, cfg.vocab_size, (INT8_BATCH, INT8_PROMPT),
+                           device=DEVICE, generator=gen)
+    res = {}
+    q8_matmul.launches = 0
+    res["int8"] = time_generate(ctx, q16, prompt)
+    launches = q8_matmul.launches
+    # the timed run: warm-up (2 forwards), generate, prefill, 16 probe steps
+    fwds = 2 + INT8_NEW + 1 + 16
+    check(launches == 7 * cfg.n_layers * fwds,
+          f"q8_matmul launched {launches} times, expected 7 x "
+          f"{cfg.n_layers} x {fwds} forwards")
+    ctx["q8_launches"] = launches
+    # the largest decode call of the path (wg/wi at m = batch), captured
+    # from one more step for the kernel line
+    captured = {}
+    real = tmod.q8_matmul
+
+    def capture(x, w_q, scale):
+        if x.shape[0] == INT8_BATCH and w_q.shape[1] > captured.get("n", 0):
+            captured.update(n=w_q.shape[1], args=(x.clone(), w_q, scale))
+        return real(x, w_q, scale)
+
+    cache = init_cache(q16, INT8_BATCH, 16)
+    tmod.q8_matmul = capture
+    try:
+        single_decode_step(q16, cache, prompt[:, 0])
+    finally:
+        tmod.q8_matmul = real
+    ctx["q8_captured"] = captured["args"]
+    del q16, cache
+    torch.cuda.empty_cache()
+    bf16 = Transformer(qwen_config(dtype=torch.bfloat16), device=DEVICE) \
+        .init_weights(torch.Generator(device=DEVICE).manual_seed(SEED))
+    res["bf16"] = time_generate(ctx, bf16, prompt)
+    del bf16
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        print(f"phase 11 generate Qwen2.5-1.5B {name} weights (bf16 "
+              f"activations), {cfg.n_layers} layers, batch {INT8_BATCH}, "
+              f"{INT8_PROMPT}-token prompts, {INT8_NEW} greedy tokens: "
+              f"{r['wall']:.3f} s = {r['tok_s']:.1f} tok/s; prefill "
+              f"{r['prefill'] * 1e3:.1f} ms, then {r['step_ms']:.2f} ms a "
+              f"decode step = {r['decode_tok_s']:.1f} decode tok/s; host "
+              f"share {r['host']} (device busy {r['busy_ms']:.2f} ms a "
+              f"step under the profiler, {r['probe_ms']:.2f} ms a step "
+              f"unprofiled) [{ctx['card']}]")
+    print(f"phase 11 q8_matmul launches in the int8 run: {launches} = 7 x "
+          f"{cfg.n_layers} x {fwds} forwards")
+    ctx["int8_generate"] = res
+
+
+def phase_int8_cli(ctx) -> None:
+    import numpy as np
+
+    from tony_tpu_torch.cli import generate as cli
+    from tony_tpu_torch.cli import score
+    from tony_tpu_torch.ops.quant import q8_matmul
+
+    def run(main, argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = main(argv + ["--device", DEVICE])
+        return rc, out.getvalue().strip().splitlines()
+
+    def total_nll(lines):
+        fields = dict(f.split("=") for f in lines[-1].split()[1:])
+        check(lines[-1].startswith("TOTAL"), f"score printed {lines[-1]!r}")
+        return float(fields["nll/token"])
+
+    ckpt = write_checkpoint()
+    try:
+        rng = np.random.default_rng(SEED + 12)
+        # below the end-of-text id 151643 (the rehearsal's vocabulary may
+        # be smaller)
+        top = min(151643, QWEN25_15B["vocab_size"])
+        prompts = [rng.integers(0, top, n).tolist()
+                   for n in (40, 40, 40, 300)]
+        ids = [a for p in prompts for a in ("--token-ids",
+                                            ",".join(map(str, p)))]
+        q8_matmul.launches = 0
+        rc, lines = run(cli.main, ["--model", ckpt, *ids, "--int8",
+                                   "--max-new-tokens", "8"])
+        check(rc == 0 and len(lines) == len(prompts),
+              f"generate --int8: exit {rc}, {len(lines)} lines")
+        for p, line in zip(prompts, lines):
+            got = [int(t) for t in line.split(",")]
+            check(got[:len(p)] == p and len(p) < len(got) <= len(p) + 8,
+                  "generate --int8: prompt not echoed or wrong length")
+        # three prompts of one length decode as one batch: 2 groups
+        gen_launches = q8_matmul.launches
+        check(gen_launches == 2 * 8 * 7 * 2,
+              f"generate --int8 launched q8_matmul {gen_launches} times, "
+              f"expected 2 groups x 8 forwards x 7 x 2 layers")
+        seqs = ["--token-ids", ",".join(map(str, prompts[3])),
+                "--token-ids", ",".join(map(str, prompts[0]))]
+        q8_matmul.launches = 0
+        rc, q8_lines = run(score.main, ["--model", ckpt, *seqs, "--int8"])
+        check(rc == 0 and q8_matmul.launches == 2 * 7 * 2,
+              f"score --int8: exit {rc}, q8_matmul launches "
+              f"{q8_matmul.launches}")
+        rc, fp_lines = run(score.main, ["--model", ckpt, *seqs])
+        check(rc == 0, f"score: exit {rc}")
+        nll_q8, nll_fp = total_nll(q8_lines), total_nll(fp_lines)
+        check(abs(nll_q8 - nll_fp) <= 0.05 * nll_fp,
+              f"int8 nll/token {nll_q8} not within 5% of fp32 {nll_fp}")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["--model", ckpt, "--serve", "--int8"])
+        check(rc == 2 and "--int8" in err.getvalue(),
+              f"--serve --int8 returned {rc}")
+        print(f"phase 12 cli over a 2-layer full-width checkpoint: generate "
+              f"--int8 answered {len(lines)} prompts (q8_matmul launches "
+              f"{gen_launches}); score nll/token int8 {nll_q8:.4f} vs fp32 "
+              f"{nll_fp:.4f} ({abs(nll_q8 - nll_fp) / nll_fp:.2e} relative, "
+              f"limit 0.05); --serve --int8 refused with exit 2")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def int8_kernel_lines(ctx) -> list[dict]:
+    """q8_matmul at the path's largest decode call (wg/wi, m = batch,
+    bf16 x), replayed; the norms at rows 8192, bf16."""
+    x, w_q, scale = ctx["q8_captured"]
+    m = measure_q8(ctx, x, w_q, scale)
+    print(f"q8_matmul at the int8 path's largest decode call (m={x.shape[0]}"
+          f" k={x.shape[1]} n={w_q.shape[1]} {x.dtype}): max abs err "
+          f"{m['max_abs_err']:.3g} ({m['of_limit']:.3f} of its limit); "
+          f"kernel {m['ms'] * 1e3:.1f} us, plain {m['plain_ms'] * 1e3:.1f} "
+          f"us, {m['library']} {m['library_ms'] * 1e3:.1f} us, bound "
+          f"{m['bound_ms'] * 1e3:.2f} us ({m['bound_by']}) [{ctx['card']}]")
+    lines = [{"name": "q8_matmul", "route": "cuda",
+              "source": "tony_tpu_torch/csrc/q8_matmul.cu",
+              "replaces": "tony_tpu/ops/quant.py:42",
+              "launches": ctx["q8_launches"],
+              "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+              "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+              "bound_by": m["bound_by"], "library_ms": m["library_ms"]}]
+    for i, (name, site) in enumerate((
+            ("rmsnorm", "tony_tpu/ops/fused.py:19"),
+            ("add_rmsnorm", "tony_tpu/ops/fused.py:26"))):
+        r = ctx["norms"][(8192, "bfloat16")][name]
+        lines.append({
+            "name": name, "route": "cuda",
+            "source": "tony_tpu_torch/csrc/fused_norms.cu",
+            "replaces": site, "launches": ctx["norm_launches"][i],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    return lines
+
+
 def main() -> int:
     try:
         import torch
@@ -1240,7 +1842,11 @@ def main() -> int:
                         ("cli", phase_cli),
                         ("train-kernels", phase_train_kernels),
                         ("grad-check", phase_grad_check),
-                        ("fit", phase_fit)):
+                        ("fit", phase_fit),
+                        ("int8-kernels", phase_int8_kernels),
+                        ("int8-model", phase_int8_model),
+                        ("int8-generate", phase_int8_generate),
+                        ("int8-cli", phase_int8_cli)):
         t0 = time.perf_counter()
         try:
             phase(ctx)
@@ -1250,7 +1856,8 @@ def main() -> int:
             return 1
         print(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
     try:
-        kernels = [kernel_line(ctx)] + train_kernel_lines(ctx)
+        kernels = [kernel_line(ctx)] + train_kernel_lines(ctx) \
+            + int8_kernel_lines(ctx)
     except Exception:  # noqa: BLE001
         traceback.print_exc()
         return 1

@@ -1,10 +1,13 @@
-"""The port's CLI against the JAX package's on one tiny random Qwen2
+"""The port's CLIs against the JAX package's on one tiny random Qwen2
 checkpoint saved by ``transformers``: the ``--serve`` JSONL loop and the
-one-shot ``--token-ids`` path print the same token ids (``--serve``
-responses arrive in finish order, which depends on threading in the JAX
-CLI, so lines are compared as a set). Weights are drawn from a seeded
-numpy generator; the port reads the checkpoint with its own
-safetensors reader."""
+one-shot ``--token-ids`` path (float and ``--int8``, greedy prompts of
+one length batched) print the same token ids (``--serve`` responses
+arrive in finish order, which depends on threading in the JAX CLI, so
+lines are compared as a set), and ``score`` (full forward, ``--int8``,
+``--kv-int8``) prints the same nll/token: to 1e-4 absolute, its printed
+precision, the same fp32 math summed in another order. Weights are
+drawn from a seeded numpy generator; the port reads the checkpoint with
+its own safetensors reader."""
 
 import io
 import json
@@ -16,7 +19,9 @@ import torch
 import transformers
 
 from tony_tpu.cli import generate as jax_cli
+from tony_tpu.cli import score as jax_score
 from tony_tpu_torch.cli import generate as torch_cli
+from tony_tpu_torch.cli import score as torch_score
 from tony_tpu_torch.models.hf import read_safetensors, write_safetensors
 
 
@@ -99,3 +104,72 @@ def test_safetensors_round_trip(ckpt, tmp_path):
     assert back.keys() == {*sd, "scalar"}
     for k, v in sd.items():
         assert back[k].dtype == v.dtype and torch.equal(back[k], v)
+
+
+# three greedy prompts of one length decode as one batch in both CLIs
+GROUPED = ["--token-ids", "5,6,7", "--token-ids", "9,1", "--token-ids",
+           "1,2,3", "--token-ids", "8,8,8", "--token-ids", "4"]
+
+
+@pytest.mark.parametrize("flags", [[], ["--int8"],
+                                   ["--int8", "--dtype", "bf16"]])
+def test_one_shot_grouped_prompts_match_jax(ckpt, flags, monkeypatch,
+                                            capsys):
+    argv = ["--model", ckpt, *GROUPED, "--max-new-tokens", "6", *flags]
+    rc_j, out_j = _run(jax_cli.main, argv + ["--compile-cache", ""], "",
+                       monkeypatch, capsys)
+    rc_t, out_t = _run(torch_cli.main, argv + ["--device", "cpu"], "",
+                       monkeypatch, capsys)
+    assert rc_j == rc_t == 0
+    assert len(out_t) == 5
+    assert out_t == out_j
+
+
+def test_serve_refuses_int8(ckpt, monkeypatch, capsys):
+    argv = ["--model", ckpt, "--serve", "--int8"]
+    rc_j, _ = _run(jax_cli.main, argv + ["--compile-cache", ""], "",
+                   monkeypatch, capsys)
+    rc_t = torch_cli.main(argv + ["--device", "cpu"])
+    assert rc_j == rc_t == 2
+    assert "--int8" in capsys.readouterr().err
+
+
+def _scores(lines):
+    out = []
+    for line in lines:
+        fields = dict(f.split("=") for f in line.split() if "=" in f)
+        out.append((line.split()[0] == "TOTAL", int(fields["tokens"]),
+                    float(fields["nll/token"])))
+    return out
+
+
+@pytest.mark.parametrize("flags", [[], ["--int8"], ["--kv-int8"]])
+def test_score_matches_jax(ckpt, flags, monkeypatch, capsys):
+    argv = ["--model", ckpt, "--token-ids", "5,6,7,8,9,10,11",
+            "--token-ids", ",".join(str(i % 96) for i in range(40)),
+            "--token-ids", "3", *flags]
+    rc_j, out_j = _run(jax_score.main, argv, "", monkeypatch, capsys)
+    rc_t, out_t = _run(torch_score.main, argv + ["--device", "cpu"], "",
+                       monkeypatch, capsys)
+    assert rc_j == rc_t == 0
+    got, want = _scores(out_t), _scores(out_j)
+    assert len(got) == len(want) == 3  # two inputs and the total
+    for (tg, ng, vg), (tw, nw, vw) in zip(got, want):
+        assert (tg, ng) == (tw, nw)
+        assert abs(vg - vw) <= 1e-4
+
+
+def test_score_int8_costs_little_over_fp32(ckpt, monkeypatch, capsys):
+    argv = ["--model", ckpt, "--token-ids",
+            ",".join(str(i * 7 % 96) for i in range(60)), "--device", "cpu"]
+    _, fp = _run(torch_score.main, argv, "", monkeypatch, capsys)
+    _, q8 = _run(torch_score.main, argv + ["--int8"], "", monkeypatch,
+                 capsys)
+    nll_fp, nll_q8 = _scores(fp)[-1][2], _scores(q8)[-1][2]
+    assert nll_q8 != nll_fp and abs(nll_q8 - nll_fp) <= 0.05 * nll_fp
+
+
+def test_score_rejects_text_clearly(ckpt, capsys):
+    rc = torch_score.main(["--model", ckpt, "--text", "hello", "--device",
+                           "cpu"])
+    assert rc == 2 and "tokenizer" in capsys.readouterr().err

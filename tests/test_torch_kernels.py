@@ -372,3 +372,187 @@ def test_fused_adamw_kernel_writes_only_its_leaves(copy):
             torch.testing.assert_close(state.compute_params[n].float(),
                                        ref_c[n].float(), rtol=2.0 ** -8,
                                        atol=0)
+
+
+# ------------------------------------------------------ int8 q8_matmul
+# Per element |got - want| <= ops.quant.error_bound: 2^-7 |want| for a
+# bf16 output (the two roundings may land one bf16 step apart) plus
+# 2^-14 M, M = scale_j sum_k |x_ik| |q_kj| (fp32 sums in another order).
+
+from tony_tpu_torch.ops import quant as q8  # noqa: E402
+
+Q8_SHAPES = [  # m, k, n: decode and prefill tiles, ragged edges, splits
+    (1, 1536, 256), (8, 1536, 8960), (16, 8960, 1536), (17, 1000, 300),
+    (257, 1000, 300), (300, 96, 40), (5, 7, 3), (128, 1536, 1536)]
+
+
+def _q8_inputs(m, k, n, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, k, device="cuda", generator=g).to(dtype)
+    w_q, scale = q8.quantize_q8(
+        0.02 * torch.randn(k, n, device="cuda", generator=g))
+    return x, w_q, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", Q8_SHAPES)
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, None), (torch.bfloat16, None),
+    (torch.bfloat16, torch.float32)])
+def test_q8_matmul_kernel_matches_plain_version(shape, dtype, out_dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x, w_q, scale = _q8_inputs(*shape, dtype)
+    before = [t.clone() for t in (x, w_q, scale)]
+    n0 = q8.q8_matmul.launches
+    got = q8.q8_matmul(x, w_q, scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert q8.q8_matmul.launches == n0 + 1
+    assert all(torch.equal(a, b) for a, b in zip((x, w_q, scale), before))
+    want = q8.q8_matmul_reference(x, w_q, scale, out_dtype)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    _within(got, want, q8.error_bound(x, w_q, scale, want), "q8_matmul")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8_matmul_limit_catches_a_dropped_slice_or_scale(dtype):
+    """The kernel's own result sits inside the limit; a plain result
+    with one 32-wide k-slice dropped, or one column left unscaled,
+    does not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x, w_q, scale = _q8_inputs(8, 1536, 8960, dtype, seed=2)
+    got = q8.q8_matmul(x, w_q, scale)
+    want = q8.q8_matmul_reference(x, w_q, scale)
+    limit = q8.error_bound(x, w_q, scale, want)
+    _within(got, want, limit, "q8_matmul")
+    dropped = x.clone()
+    dropped[:, 640:672] = 0
+    unscaled = scale.clone()
+    unscaled[4321] = 1.0
+    for wrong in (q8.q8_matmul_reference(dropped, w_q, scale),
+                  q8.q8_matmul_reference(x, w_q, unscaled)):
+        assert ((got.float() - wrong.float()).abs() - limit).max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1536, 8960), (17, 1000, 300),
+                                   (257, 96, 40)])
+def test_q8_matmul_kernel_writes_only_its_outputs(shape):
+    """The C entry point gets the output and the split-K scratch as
+    windows into larger buffers with a canary on both sides: the
+    canaries survive and the result equals the wrapper's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    m, k, n = shape
+    x, w_q, scale = _q8_inputs(m, k, n, torch.bfloat16, seed=1)
+    want = q8.q8_matmul(x, w_q, scale)
+    skinny, splits, kps = q8.plan(m, n, k, x.device)
+    pad = 4096
+
+    def guarded(count, dtype):
+        buf = torch.full((pad + count + pad,), -7.25, dtype=dtype,
+                         device="cuda")
+        return buf, buf[pad:pad + count]
+
+    out_buf, out = guarded(m * n, torch.bfloat16)
+    part_buf, part = guarded(splits * m * n, torch.float32)
+    err = q8._kernel()[0](
+        1, 1, x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), part.data_ptr(), m, n, k, splits, kps, int(skinny),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    for buf in (out_buf, part_buf):
+        assert (buf[:pad] == -7.25).all() and (buf[-pad:] == -7.25).all()
+    assert torch.equal(out.view(m, n), want)
+
+
+@pytest.mark.cuda
+def test_q8_matmul_kernel_refuses_bad_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x, w_q, scale = _q8_inputs(4, 64, 32, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        q8.q8_matmul(x.t().contiguous().t(), w_q, scale)
+    with pytest.raises(ValueError, match="float32"):
+        q8.q8_matmul(x, w_q, scale.bfloat16())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        q8.q8_matmul(x.half(), w_q, scale)
+
+
+# ------------------------------------------------------------ fused norms
+# Per element: 2^-7 |want| for a bf16 output (one bf16 step), 2^-20 |want|
+# + 1e-7 for fp32 (the mean of squares summed in another order, an rsqrt
+# within 2 ulp); summed bit-equal.
+
+from tony_tpu_torch.ops import fused  # noqa: E402
+
+
+def _norm_limit(want):
+    if want.dtype == torch.bfloat16:
+        return 2.0 ** -7 * want.float().abs()
+    return 2.0 ** -20 * want.abs() + 1e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(8, 1536), (37, 1000), (5, 100),
+                                    (1, 7)])
+@pytest.mark.parametrize("x_dt,r_dt,s_dt", [
+    (torch.float32, torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.float32, torch.bfloat16),
+    (torch.float32, torch.bfloat16, torch.float32)])
+def test_norm_kernels_match_plain_version(rows, d, x_dt, r_dt, s_dt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(rows + d)
+    x = torch.randn(rows, d, device="cuda", generator=g).to(x_dt)
+    r = torch.randn(rows, d, device="cuda", generator=g).to(r_dt)
+    scale = (1 + 0.1 * torch.randn(d, device="cuda", generator=g)).to(s_dt)
+    before = [t.clone() for t in (x, r, scale)]
+    n0 = (fused.rmsnorm.launches, fused.add_rmsnorm.launches)
+    out = fused.rmsnorm(x, scale)
+    normed, summed = fused.add_rmsnorm(x, r, scale)
+    torch.cuda.synchronize()
+    assert (fused.rmsnorm.launches, fused.add_rmsnorm.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    assert all(torch.equal(a, b) for a, b in zip((x, r, scale), before))
+    want = fused.rmsnorm_reference(x, scale)
+    want_n, want_s = fused.add_rmsnorm_reference(x, r, scale)
+    assert out.dtype == normed.dtype == summed.dtype == x_dt
+    assert torch.equal(summed, want_s)
+    _within(out, want, _norm_limit(want), "rmsnorm")
+    _within(normed, want_n, _norm_limit(want_n), "add_rmsnorm")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1536, 100])
+def test_norm_kernels_write_only_their_outputs(d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rows, pad = 13, 4096
+    g = torch.Generator(device="cuda").manual_seed(d)
+    x = torch.randn(rows, d, device="cuda", generator=g).bfloat16()
+    r = torch.randn(rows, d, device="cuda", generator=g)
+    scale = torch.randn(d, device="cuda", generator=g)
+    want = fused.rmsnorm(x, scale)
+    want_n, want_s = fused.add_rmsnorm(x, r, scale)
+    bufs = [torch.full((pad + rows * d + pad,), -7.25, dtype=x.dtype,
+                       device="cuda") for _ in range(3)]
+    views = [b[pad:pad + rows * d] for b in bufs]
+    lib = fused._kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.tony_rmsnorm(1, 0, x.data_ptr(), scale.data_ptr(),
+                            views[0].data_ptr(), rows, d, 1e-6, stream) == 0
+    assert lib.tony_add_rmsnorm(1, 0, 0, x.data_ptr(), r.data_ptr(),
+                                scale.data_ptr(), views[1].data_ptr(),
+                                views[2].data_ptr(), rows, d, 1e-6,
+                                stream) == 0
+    torch.cuda.synchronize()
+    for buf in bufs:
+        assert (buf[:pad] == -7.25).all() and (buf[-pad:] == -7.25).all()
+    for view, w in zip(views, (want, want_n, want_s)):
+        assert torch.equal(view.view(rows, d), w)

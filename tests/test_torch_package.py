@@ -15,8 +15,11 @@ import torch
 
 from torch_parity import QWEN_TINY, tokens
 from tony_tpu_torch.cli import generate as torch_cli
+from tony_tpu_torch.cli import score as torch_score
 from tony_tpu_torch.models.generate import generate
 from tony_tpu_torch.models.transformer import Transformer, TransformerConfig
+from tony_tpu_torch.models.quantize import quantize_for_serving
+from tony_tpu_torch.ops import add_rmsnorm, q8_matmul, rmsnorm
 from tony_tpu_torch.ops.decode import flash_decode
 from tony_tpu_torch.serve import Request, Server
 
@@ -79,6 +82,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
         "max_position_embeddings": 64, "rms_norm_eps": 1e-6}))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_cli.main(["--model", str(tmp_path), "--token-ids", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_score.main(["--model", str(tmp_path), "--token-ids", "1,2",
+                          "--int8"])
 
 
 def test_cpu_work_never_launches_the_kernel():
@@ -92,3 +98,18 @@ def test_cpu_work_never_launches_the_kernel():
     list(srv.run([Request([1, 2, 3], 5), Request([4, 5], 3)]))
     assert srv.counters()["decode_steps"] > 0
     assert flash_decode.launches == 0
+
+
+def test_cpu_int8_and_norm_work_never_launches_the_kernels():
+    cfg = TransformerConfig(dtype=torch.float32, **QWEN_TINY)
+    model = quantize_for_serving(Transformer(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(0)))
+    counters = (q8_matmul, rmsnorm, add_rmsnorm)
+    for c in counters:
+        c.launches = 0
+    generate(model, tokens(0, (2, 5)), max_new_tokens=4)
+    x = torch.randn(3, QWEN_TINY["d_model"])
+    scale = torch.ones(QWEN_TINY["d_model"])
+    rmsnorm(x, scale)
+    add_rmsnorm(x, x.bfloat16(), scale)
+    assert [c.launches for c in counters] == [0, 0, 0]

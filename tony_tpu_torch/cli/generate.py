@@ -3,7 +3,11 @@ checkpoint through the PyTorch port (counterpart of
 ``tony_tpu/cli/generate.py``).
 
 One-shot: ``--token-ids 1,2,3`` (repeatable) prints prompt +
-continuation as comma-separated ids. Serving (``--serve``): one JSON
+continuation as comma-separated ids, in input order; greedy prompts of
+one length decode as one batch (up to 32 rows), as the JAX CLI does.
+``--int8`` loads at fp32 and converts every projection to int8 weights
+(``models.quantize``), run through the int8 kernel; ``--serve`` refuses
+it, as the JAX CLI does. Serving (``--serve``): one JSON
 request per stdin line, ``{"id", "token_ids", "max_new_tokens"?,
 "temperature"?, "top_k"?, "seed"?}``, one JSON response per finished
 request, ``{"id", "token_ids", "finish_reason"}``, in finish order,
@@ -37,6 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=0.0,
                    help="0 = greedy")
     p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--top-p", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--eos-id", type=int, default=-1,
                    help="stop token (default: the config's eos_token_id)")
@@ -46,6 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flash-decode", action="store_true",
                    help="single-token decode attention through the "
                         "hand-written CUDA flash-decode kernel")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 weight-only projections through the int8 "
+                        "dequant-matmul kernel (half the weight bytes a "
+                        "decode step against bf16); one-shot only")
     p.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32",
                    help="dense-weight and activation dtype (embeddings, "
                         "norms and logits stay fp32); bf16 for serving")
@@ -127,6 +136,10 @@ def main(argv=None) -> int:
     if not args.serve and not args.token_ids:
         print("need --token-ids or --serve", file=sys.stderr)
         return 2
+    if args.serve and args.int8:
+        print("--serve does not support --int8 weight quantization "
+              "yet", file=sys.stderr)
+        return 2
 
     import torch
 
@@ -134,28 +147,55 @@ def main(argv=None) -> int:
     from tony_tpu_torch.models.hf import load_llama_dir
 
     overrides = {"kv_cache_quant": args.kv_int8}
-    if args.dtype == "bf16":
+    if args.dtype == "bf16" and args.int8:
+        print("note: --int8 supplies its own storage format; "
+              "--dtype bf16 is ignored", file=sys.stderr)
+    elif args.dtype == "bf16":
         overrides["dtype"] = torch.bfloat16
     if args.flash_decode:
         overrides["decode_attention"] = "flash"
     model, hf = load_llama_dir(args.model, device=args.device, **overrides)
+    if args.int8:
+        from tony_tpu_torch.models.quantize import quantize_cli
+
+        model = quantize_cli(model)
     # HF configs may ship a LIST of eos ids; the loops stop on any
     eos = normalize_eos_ids(args.eos_id) or \
         normalize_eos_ids(hf.get("eos_token_id"))
     if args.serve:
+        if args.top_p < 1.0:
+            print("warning: --top-p is not applied in --serve mode "
+                  "(per-slot sampling supports temperature/top-k); "
+                  "ignoring", file=sys.stderr)
         return _serve_loop(model, args, eos)
+    prompts = [[int(i) for i in ids.split(",")] for ids in args.token_ids]
+    # GREEDY same-length prompts decode as one batch (no padding, so
+    # positions agree and greedy rows are independent), up to 32 rows a
+    # batch; sampled prompts decode one at a time from the seed, so a
+    # (prompt, --seed) pair gives the same ids whatever else is asked
+    batchable = args.temperature == 0.0
+    by_len: dict[int, list[int]] = {}
+    for pos, ids in enumerate(prompts):
+        by_len.setdefault(len(ids) if batchable else pos, []).append(pos)
+    max_group = 32  # bounds the batched KV-cache footprint
     gen = torch.Generator(device=model.device)
-    for ids in args.token_ids:
-        prompt = [int(i) for i in ids.split(",")]
-        gen.manual_seed(args.seed)
-        out = generate(model, [prompt], max_new_tokens=args.max_new_tokens,
-                       temperature=args.temperature, top_k=args.top_k,
-                       generator=gen, eos_id=eos)
-        new_ids = out[0].tolist()
+    outputs: dict[int, list[int]] = {}
+    for whole in by_len.values():
+        for start in range(0, len(whole), max_group):
+            group = whole[start:start + max_group]
+            gen.manual_seed(args.seed)
+            out = generate(model, [prompts[pos] for pos in group],
+                           max_new_tokens=args.max_new_tokens,
+                           temperature=args.temperature, top_k=args.top_k,
+                           top_p=args.top_p, generator=gen, eos_id=eos)
+            for row, pos in enumerate(group):
+                outputs[pos] = out[row].tolist()
+    for pos, ids in enumerate(prompts):  # print in input order
+        new_ids = outputs[pos]
         stops = [i for i, t in enumerate(new_ids) if t in eos]
         if stops:
             new_ids = new_ids[:stops[0]]
-        print(",".join(str(i) for i in prompt + new_ids))
+        print(",".join(str(i) for i in ids + new_ids))
     return 0
 
 

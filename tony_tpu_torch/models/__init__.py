@@ -1,12 +1,15 @@
 """The decoder transformer (``transformer``), KV-cache generation
-(``generate``), and weight import from the JAX package (``convert``)
-and from HF checkpoints (``hf``)."""
+(``generate``), int8 weight-only conversion (``quantize``), and weight
+import from the JAX package (``convert``) and from HF checkpoints
+(``hf``)."""
 
 from tony_tpu_torch.models.generate import (generate, init_cache,
                                             multi_decode_step,
                                             single_decode_step)
+from tony_tpu_torch.models.quantize import quantize_for_serving
 from tony_tpu_torch.models.transformer import (RopeScaling, Transformer,
                                                TransformerConfig)
 
 __all__ = ["RopeScaling", "Transformer", "TransformerConfig", "generate",
-           "init_cache", "multi_decode_step", "single_decode_step"]
+           "init_cache", "multi_decode_step", "quantize_for_serving",
+           "single_decode_step"]

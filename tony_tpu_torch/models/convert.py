@@ -4,7 +4,10 @@
 returns (``embedding``, ``ln_f``, ``lm_head``, ``block_i/{ln1, ln2,
 attn/{q,k,v,o}, mlp/{wg,wi,wo}}``), each leaf a numpy array, and
 returns tensors keyed as the port's ``Transformer.state_dict()``:
-flax kernels ``[in, ...out]`` become ``nn.Linear``'s ``[out, in]``.
+flax kernels ``[in, ...out]`` become ``nn.Linear``'s ``[out, in]``; the
+int8 tree ``models.quantize`` makes (``{kernel_q8, scale, bias?}`` under
+each projection) maps onto a ``cfg.quantized`` model's ``QuantDense``
+buffers as it is, int8 kept int8.
 Strict both ways: a leaf it cannot map, or a port parameter no leaf
 fills, raises.
 
@@ -21,6 +24,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from tony_tpu_torch.models.quantize import _DENSE_NAMES
 
 
 def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
@@ -47,6 +52,11 @@ def _map_leaf(path: str, x: np.ndarray) -> tuple[str, np.ndarray]:
     if sub[0] in ("ln1", "ln2") and len(sub) == 2 \
             and sub[1] in ("scale", "bias"):
         return f"blocks.{i}.{sub[0]}.{sub[1]}", x
+    if len(sub) == 3 and sub[2] in ("kernel_q8", "scale") \
+            and sub[1] in _DENSE_NAMES:
+        # a quantized projection: already [in_flat, out_flat] and
+        # [out_flat], the QuantDense buffers' layout
+        return f"blocks.{i}.{sub[0]}.{sub[1]}.{sub[2]}", x
     if len(sub) == 3 and sub[2] in ("kernel", "bias"):
         mod, name, leaf = sub
         key = f"blocks.{i}.{mod}.{name}." + (
@@ -68,12 +78,20 @@ def _torch_dtype(x: np.ndarray) -> torch.dtype:
     return torch.bfloat16 if x.dtype.name == "bfloat16" else torch.float32
 
 
+def _tensor(arr: np.ndarray, keep_dtype: bool) -> torch.Tensor:
+    if arr.dtype == np.int8:  # int8 weights stay int8
+        return torch.from_numpy(np.array(arr, dtype=np.int8))
+    t = torch.from_numpy(np.array(arr, dtype=np.float32))
+    return t.to(_torch_dtype(arr)) if keep_dtype else t
+
+
 def from_jax_params(params_np: Any, cfg, keep_dtype: bool = False) \
         -> dict[str, torch.Tensor]:
     """JAX param tree (bare or under ``"params"``) -> the port's
-    ``state_dict`` (fp32 CPU tensors; ``load_state_dict`` casts them to
-    each parameter's dtype and device). ``keep_dtype`` keeps a bf16 leaf
-    bf16 (optimizer moments and compute copies)."""
+    ``state_dict`` (fp32 CPU tensors, int8 weights int8;
+    ``load_state_dict`` casts them to each entry's dtype and device).
+    ``keep_dtype`` keeps a bf16 leaf bf16 (optimizer moments and compute
+    copies)."""
     from tony_tpu_torch.models.transformer import Transformer
 
     if "params" in params_np and len(params_np) == 1:
@@ -81,8 +99,7 @@ def from_jax_params(params_np: Any, cfg, keep_dtype: bool = False) \
     out: dict[str, torch.Tensor] = {}
     for path, x in _flatten(params_np).items():
         key, arr = _map_leaf(path, x)
-        t = torch.from_numpy(np.array(arr, dtype=np.float32))
-        out[key] = t.to(_torch_dtype(x)) if keep_dtype else t
+        out[key] = _tensor(arr, keep_dtype)
     want = Transformer(cfg, device="meta").state_dict()
     missing = sorted(set(want) - set(out))
     extra = sorted(set(out) - set(want))

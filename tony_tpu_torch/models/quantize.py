@@ -1,0 +1,117 @@
+"""int8 weight-only conversion for generation and scoring: the
+counterpart of ``tony_tpu/models/quantize.py``.
+
+``quantize_for_serving(model)`` returns the model with every projection
+(q, k, v, o, wg, wi, wo) held as ``{kernel_q8 int8, scale fp32}``, which
+``TransformerConfig(quantized=True)``'s ``QuantDense`` runs through the
+int8 kernel (``ops.quant.q8_matmul``): half the weight bytes a decode
+step against bf16. Embeddings, norms, biases and the LM head stay full
+precision.
+
+The int8 values and scales are computed from the fp32 weights, bit for
+bit those of ``tony_tpu.models.quantize.quantize_transformer_params`` on
+the same weights. The port stores dense weights at ``cfg.dtype``, so a
+model built at bf16 no longer holds them: conversion refuses it. For
+bf16 activations over int8 weights, quantize at fp32 and load the
+quantized ``state_dict`` into a bf16 config (``QuantDense``'s buffers do
+not follow ``cfg.dtype``).
+
+Scope: the dense transformer. A MoE tree (the JAX package's quantized
+Mixtral experts) raises ``NotImplementedError`` until MoE is ported, and
+``scan_layers`` is refused as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from tony_tpu_torch.ops.quant import quantize_q8
+
+# parent module names whose kernel becomes int8
+_DENSE_NAMES = ("q", "k", "v", "o", "wi", "wg", "wo")
+
+
+def _quantize_tree(node: Any, name: str = "") -> Any:
+    """A JAX-layout param tree (numpy leaves): each dense kernel
+    [in, *out] (o: [*in, out]) becomes {kernel_q8 [in_flat, out_flat],
+    scale [out_flat]}, its bias rides along."""
+    if not isinstance(node, dict):
+        return node
+    if "router" in node:
+        raise NotImplementedError("int8 MoE experts are not ported yet "
+                                  "(MoE is not ported; see ROADMAP.md)")
+    if "kernel" in node and name in _DENSE_NAMES:
+        extra = set(node) - {"kernel", "bias"}
+        if extra:
+            raise ValueError(f"unexpected leaves under {name}: {extra}")
+        arr = np.asarray(node["kernel"])
+        if name == "o":  # [heads, dh, d]: the leading axes are the input
+            w2 = arr.reshape(-1, arr.shape[-1])
+        else:  # [in, *out]
+            w2 = arr.reshape(arr.shape[0], -1)
+        w_q, scale = quantize_q8(torch.from_numpy(np.array(w2)))
+        out = {"kernel_q8": w_q.numpy(), "scale": scale.numpy()}
+        if "bias" in node:
+            out["bias"] = node["bias"]
+        return out
+    return {k: _quantize_tree(v, k) for k, v in node.items()}
+
+
+def _quantize_state_dict(sd: dict) -> dict:
+    """A port ``state_dict``: each projection's ``weight`` [out, in]
+    becomes ``kernel_q8`` [in, out] and ``scale`` [out]."""
+    out = {}
+    for key, t in sd.items():
+        mod, _, leaf = key.rpartition(".")
+        if leaf == "weight" and mod.rsplit(".", 1)[-1] in _DENSE_NAMES:
+            if t.dtype != torch.float32:
+                raise ValueError(
+                    f"{key} is {t.dtype}: int8 conversion quantizes the "
+                    "fp32 weights (build or load the model at fp32)")
+            w_q, scale = quantize_q8(t.t())
+            out[f"{mod}.kernel_q8"], out[f"{mod}.scale"] = w_q, scale
+        else:  # biases (fp32, as the weights are) and every other leaf
+            out[key] = t
+    return out
+
+
+def quantize_transformer_params(params: Any) -> Any:
+    """A port ``state_dict`` (name -> tensor) or a JAX-layout param tree
+    (nested dicts of numpy arrays, bare or under ``"params"``) -> the
+    same with every projection quantized. Biases ride along unchanged;
+    every other leaf passes through."""
+    if any(isinstance(v, dict) for v in params.values()):
+        return _quantize_tree(params)
+    return _quantize_state_dict(params)
+
+
+def quantize_for_serving(model):
+    """model -> the quantized model (``cfg.quantized``) on the same
+    device, ready for ``generate`` and ``cli.score``. The model's dense
+    weights must be fp32."""
+    from tony_tpu_torch.models.transformer import Transformer
+
+    cfg = model.cfg
+    if cfg.scan_layers:
+        raise ValueError("int8 serving conversion expects per-block "
+                         "params (scan_layers stacks them)")
+    qcfg = dataclasses.replace(cfg, quantized=True)
+    qsd = quantize_transformer_params(
+        {k: v.detach() for k, v in model.state_dict().items()})
+    qmodel = Transformer(qcfg, device=model.device)
+    qmodel.load_state_dict(qsd, strict=True)
+    return qmodel
+
+
+def quantize_cli(model):
+    """CLI-facing wrapper: a config the conversion refuses exits with a
+    clean message instead of a traceback (shared by the generate and
+    score CLIs)."""
+    try:
+        return quantize_for_serving(model)
+    except ValueError as e:
+        raise SystemExit(f"--int8: {e}")

@@ -30,9 +30,16 @@ whole block, ``dots`` keeps matmul outputs (selective checkpointing),
 forward never runs twice. Recomputation repeats the same operations, so
 remat changes no bit of the loss or the gradients.
 
-Left out, refused at config construction: MoE (``moe_every``), int8
-weights (``quantized``), ``scan_layers``, ``shard_activations``/``mesh``,
-and the ring and ulysses attention backends.
+``quantized`` (int8 weight-only, for generation and scoring) swaps
+every projection for ``QuantDense``, which holds the int8 kernel and its
+per-column scale as buffers and runs ``ops.quant.q8_matmul`` (the CUDA
+kernel on the GPU); ``models.quantize.quantize_for_serving`` converts a
+float model.
+
+Left out, refused at config construction: MoE (``moe_every``),
+``scan_layers``, ``shard_activations``/``mesh`` (so ``QuantDense`` has
+no tensor-parallel form yet), and the ring and ulysses attention
+backends.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from tony_tpu_torch.ops.attention import flash_attention
 from tony_tpu_torch.ops.decode import flash_decode, quantize_kv
+from tony_tpu_torch.ops.quant import q8_matmul
 from tony_tpu_torch.parallel.ring_attention import reference_attention
 
 NEG_INF = -1e30
@@ -150,7 +158,6 @@ class TransformerConfig:
                 "expected one of: nothing, dots, attn_saved")
         later = {
             "moe_every": self.moe_every > 0,
-            "quantized": self.quantized,
             "scan_layers": self.scan_layers,
             "shard_activations": self.shard_activations,
             "mesh": self.mesh is not None,
@@ -289,6 +296,50 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), w, b)
 
 
+class QuantDense(nn.Module):
+    """int8 weight-only projection (``cfg.quantized``), the counterpart
+    of the JAX ``QuantDense``: buffers ``kernel_q8`` int8 [in, out] (the
+    JAX layout, so the kernel reads rows of ``out`` coalesced),
+    ``scale`` fp32 [out] and, where the float layer had one, an fp32
+    ``bias``. Their dtypes do not follow ``cfg.dtype``, so one quantized
+    ``state_dict`` loads into a config of any compute dtype. They are
+    buffers, not parameters: int8 weights have no useful gradients.
+    ``models.quantize`` fills them."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.register_buffer("kernel_q8", torch.zeros(
+            in_features, out_features, dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(
+            out_features, dtype=torch.float32, device=device))
+        if bias:
+            self.register_buffer("bias", torch.zeros(
+                out_features, dtype=torch.float32, device=device))
+        else:
+            self.bias = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        in_f, out_f = self.kernel_q8.shape
+        x2 = x.reshape(-1, in_f).to(dt).contiguous()
+        y = q8_matmul(x2, self.kernel_q8, self.scale)
+        y = y.reshape(*x.shape[:-1], out_f)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
+
+
+def _dense(cfg: TransformerConfig, in_features: int, out_features: int,
+           bias: bool, device=None) -> nn.Module:
+    if cfg.quantized:
+        return QuantDense(in_features, out_features, bias, cfg.dtype,
+                          device)
+    return Dense(in_features, out_features, bias=bias, dtype=cfg.dtype,
+                 device=device)
+
+
 @dataclass
 class WritePlan:
     """Where a decode window's K/V land, filtered once per forward: the
@@ -328,11 +379,12 @@ class Attention(nn.Module):
         self.cfg = cfg
         h, kvh, dh, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_model
         qkv_bias = cfg.use_bias or cfg.qkv_bias
-        kw = dict(dtype=cfg.dtype, device=device)
-        self.q = Dense(d, h * dh, bias=qkv_bias, **kw)
-        self.k = Dense(d, kvh * dh, bias=qkv_bias, **kw)
-        self.v = Dense(d, kvh * dh, bias=qkv_bias, **kw)
-        self.o = Dense(h * dh, d, bias=cfg.use_bias, **kw)
+        # q's output and o's input flatten [heads, head_dim] head-major,
+        # as the .view(b, l, h, dh) below and the JAX kernels do
+        self.q = _dense(cfg, d, h * dh, qkv_bias, device)
+        self.k = _dense(cfg, d, kvh * dh, qkv_bias, device)
+        self.v = _dense(cfg, d, kvh * dh, qkv_bias, device)
+        self.o = _dense(cfg, h * dh, d, cfg.use_bias, device)
 
     def forward(self, x, decode: bool = False, segment_ids=None,
                 positions=None, page_table=None, cache=None, plan=None):
@@ -517,11 +569,11 @@ class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        kw = dict(bias=cfg.use_bias, dtype=cfg.dtype, device=device)
+        d, f, bias = cfg.d_model, cfg.d_ff, cfg.use_bias
         if cfg.gated_mlp:
-            self.wg = Dense(cfg.d_model, cfg.d_ff, **kw)
-        self.wi = Dense(cfg.d_model, cfg.d_ff, **kw)
-        self.wo = Dense(cfg.d_ff, cfg.d_model, **kw)
+            self.wg = _dense(cfg, d, f, bias, device)
+        self.wi = _dense(cfg, d, f, bias, device)
+        self.wo = _dense(cfg, f, d, bias, device)
         self.act = _activation(cfg)
 
     def forward(self, x):

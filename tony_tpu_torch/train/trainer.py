@@ -87,6 +87,12 @@ class Trainer:
         if self.batch_shardings is not None:
             raise NotImplementedError("batch_shardings is not ported yet "
                                       "(single device; see ROADMAP.md)")
+        if getattr(getattr(self.model, "cfg", None), "quantized", False):
+            raise ValueError(
+                "an int8 weight-only model (cfg.quantized) is for "
+                "generation and scoring: int8 weights have no useful "
+                "gradients. Train the float model, then convert it with "
+                "models.quantize_for_serving")
         # the dtype each parameter is stored in when no compute dtype
         # overrides it (taken once: wiring changes it)
         self._own_dtype = {n: p.dtype
