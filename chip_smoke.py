@@ -3,7 +3,9 @@
 exits non-zero.
 
 1. Build: compile every CUDA kernel of ``tony_tpu_torch/csrc`` with nvcc,
-   one process a source, all at once.
+   one process a source, all at once; print each kernel's registers and
+   spills, and for the bf16 tensor-core backward kernels their dynamic
+   shared memory and blocks per SM.
 2. Kernel against its plain version: flash-decode at Qwen2.5-1.5B shapes
    (B=8, H=12, KVH=2, D=128, S in {64, 1024, 4096}; bf16, fp32 and int8
    caches; mixed lengths with a 0; a window; one MHA shape), held per
@@ -32,7 +34,9 @@ exits non-zero.
    grads, fp32 master and moments, bf16 copy) held to one fp32 step.
    Each kernel is timed beside its plain version, a PyTorch call that
    the port never makes (``scaled_dot_product_attention`` forward and
-   backward, ``torch.optim.AdamW(fused=True)``) and its bound.
+   backward, ``torch.optim.AdamW(fused=True)``) and its bound, with its
+   achieved TFLOP/s at the training call; a second run of the bf16 dQ
+   and dK/dV kernels must give the same bits.
 7. Full-width gradient check: Qwen2.5-1.5B, 28 layers, fp32, 1 x 2048
    tokens, chunked cross-entropy; one forward and backward through the
    kernels and one through the plain versions, on the same weights.
@@ -264,24 +268,43 @@ def measure_decode(q, k, v, length, window, k_scale, v_scale, flush,
 # ----------------------------------------------------------------- phases
 
 
+def ptxas_entries(report: str) -> dict:
+    """{mangled kernel name: [ptxas lines]} from an ``-Xptxas -v`` report:
+    the registers line and the stack/spill line of each entry."""
+    entries, entry = {}, ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and ("Used" in line or "spill" in line):
+            entries.setdefault(entry, []).append(
+                line.split(":", 1)[-1].strip())
+    return entries
+
+
 def phase_build(ctx) -> None:
     from tony_tpu_torch.ops import _build
+    from tony_tpu_torch.ops.attention import kernel_resources
 
     t0 = time.perf_counter()
     _build.build_all()
     ctx["build_s"] = time.perf_counter() - t0
     for name in _build.sources():
         _build.load(name)
-        entry = ""
-        for line in _build.ptxas_report.get(name, "").splitlines():
-            # one line a kernel: its (mangled) name, registers, spills
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1] if "'" in line else line
-            elif "Used" in line or "spill" in line:
-                info = line.split(":", 1)[-1].strip()
-                print(f"  {name}: {entry[:72]}: {info}")
+        for entry, info in ptxas_entries(
+                _build.ptxas_report.get(name, "")).items():
+            print(f"  {name}: {entry[:72]}: {'; '.join(info)}")
     print(f"phase 1 build: {len(_build.sources())} source(s) in "
           f"{ctx['build_s']:.1f} s (nvcc, sm_90a)")
+    # the bf16 backward on the tensor cores: ptxas's registers and spills,
+    # the dynamic shared memory and how many blocks fit on an SM
+    entries = ptxas_entries(_build.ptxas_report.get("flash_attention", ""))
+    for (kern, d), r in kernel_resources().items():
+        info = ["; ".join(v) for e, v in entries.items()
+                if f"{kern}_kernel_tcILi{d}E" in e]
+        print(f"phase 1 {kern}_kernel_tc<{d}> (bf16, mma.sync): "
+              f"{info[0] if info else 'ptxas report not captured (built before)'}"
+              f"; {r['smem']} B dynamic shared memory, {r['blocks']} "
+              f"block(s) of 128 threads per SM")
 
 
 def phase_kernel(ctx) -> None:
@@ -764,15 +787,31 @@ def measure_attention(b, l, h, kvh, d, dtype, window, segments, flush,
         pairs = int(vis.sum()) * (b if seg is None else 1) * h
         del vis
     out = {"err": worst, "pairs": pairs}
+    if dtype == torch.bfloat16:
+        # the tensor-core backward sums in a fixed order: a second run
+        # gives the same bits
+        dq2 = att.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
+        dk2, dv2 = att.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw)
+        sync()
+        check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+              and torch.equal(dv, dv2),
+              "a second run of the bf16 backward kernels differs")
+        out["bit_equal"] = True
+        del dq2, dk2, dv2
     if not timed:
         return out
     es = q.element_size()
     qkv = (q.numel() + k.numel() + v.numel()) * es
     rows = b * h * l * 4
     segb = seg.numel() * 4 if seg is not None else 0
+    # the backward's calls as FlashAttention.backward makes them: delta
+    # once, in PyTorch, then both kernels
+    delta = att._delta(o, do)
     fwd = lambda: att.flash_attention_fwd(q, k, v, **kw)  # noqa: E731
-    bdq = lambda: att.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)  # noqa: E731,E501
-    bdkv = lambda: att.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw)  # noqa: E731,E501
+    bdq = lambda: att.flash_attention_bwd_dq(q, k, v, o, lse, do,  # noqa: E731,E501
+                                             delta=delta, **kw)
+    bdkv = lambda: att.flash_attention_bwd_dkv(q, k, v, o, lse, do,  # noqa: E731,E501
+                                               delta=delta, **kw)
 
     def plain_fwd():
         with torch.no_grad():
@@ -798,7 +837,26 @@ def measure_attention(b, l, h, kvh, d, dtype, window, segments, flush,
         torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
 
     reps = 5
+    group = h // kvh
+    if dtype == torch.bfloat16 and group > 1:
+        # dK/dV at every split of the query group (the wrapper's rule
+        # picks the fewest that fill the card's block slots)
+        dkv_out = torch.empty_like(k), torch.empty_like(v)
+        out["splits"] = {}
+        for s in (s for s in range(1, group + 1) if group % s == 0):
+            part = torch.empty(2 * s * k.numel(), dtype=torch.float32,
+                               device=DEVICE) if s > 1 else None
+            out["splits"][s] = cuda_time_ms(
+                lambda: att._launch(2, q, k, v, seg, causal=True,
+                                    window=window, do=do, lse=lse,
+                                    delta=delta, dk=dkv_out[0],
+                                    dv=dkv_out[1], part=part, splits=s),
+                reps, flush)
+            del part
+        out["split"] = att.dkv_splits(b, l, kvh, group, q.device)
+        del dkv_out
     out.update(
+        delta=cuda_time_ms(lambda: att._delta(o, do), reps, flush),
         fwd=cuda_time_ms(fwd, reps, flush),
         dq=cuda_time_ms(bdq, reps, flush),
         dkv=cuda_time_ms(bdkv, reps, flush),
@@ -977,19 +1035,41 @@ def phase_train_kernels(ctx) -> None:
         bb, ll, hh, kk, dd, dt, win, segs = shape
         errs = "; ".join(f"{k} {e:.3g} ({r:.3f} of its limit, max|want| "
                          f"{w:.3g})" for k, (e, r, w) in m["err"].items())
+        bits = "; bf16 dq/dk/dv bit-equal on a second run" \
+            if m.get("bit_equal") else ""
         print(f"phase 6 flash attention {name}: B={bb} L={ll} H={hh} "
               f"KVH={kk} D={dd} {str(dt).split('.')[-1]} window={win} "
-              f"segments={'3' if segs else 'none'}: max abs err {errs}")
+              f"segments={'3' if segs else 'none'}: max abs err {errs}"
+              f"{bits}")
         if timed:
             ctx["attention"] = m
-            for kern, plain, lib, bound in (
-                    ("fwd", "plain_fwd", "lib_fwd", "bound_fwd"),
-                    ("dq", "plain_bwd", "lib_bwd", "bound_dq"),
-                    ("dkv", "plain_bwd", "lib_bwd", "bound_dkv")):
-                print(f"  {kern}: kernel {m[kern]:.3f} ms, plain "
-                      f"{m[plain]:.3f} ms, sdpa {m[lib]:.3f} ms, bound "
-                      f"{m[bound][0]:.4f} ms ({m[bound][1]}) "
+            for kern, plain, lib, bound, products in (
+                    ("fwd", "plain_fwd", "lib_fwd", "bound_fwd", 2),
+                    ("dq", "plain_bwd", "lib_bwd", "bound_dq", 3),
+                    ("dkv", "plain_bwd", "lib_bwd", "bound_dkv", 4)):
+                tflops = m["pairs"] * 2 * dd * products / m[kern] / 1e9
+                print(f"  {kern}: kernel {m[kern]:.3f} ms ({tflops:.1f} "
+                      f"TFLOP/s, {m[bound][0] / m[kern]:.3f} of the bound)"
+                      f", plain {m[plain]:.3f} ms, sdpa {m[lib]:.3f} ms, "
+                      f"bound {m[bound][0]:.4f} ms ({m[bound][1]}) "
                       f"[{ctx['card']}]")
+            if "splits" in m:
+                print("  dkv by split of the query group: " + ", ".join(
+                    f"{s}: {t:.3f} ms" for s, t in m["splits"].items())
+                    + f" (the wrapper takes {m['split']}) [{ctx['card']}]")
+            print(f"  delta = rowsum(dO * O) in PyTorch, once a backward: "
+                  f"{m['delta']:.3f} ms")
+            bwd = m["dq"] + m["dkv"]
+            print(f"  backward dq + dkv: {bwd:.3f} ms "
+                  f"({m['pairs'] * 2 * dd * 7 / bwd / 1e9:.1f} TFLOP/s "
+                  f"over the 7 products the two kernels run, "
+                  f"{m['pairs'] * 2 * dd * 5 / bwd / 1e9:.1f} over the "
+                  f"backward's 5; "
+                  f"{(m['bound_dq'][0] + m['bound_dkv'][0]) / bwd:.3f} of "
+                  f"the bounds' sum), with delta {bwd + m['delta']:.3f} ms; "
+                  f"sdpa backward {m['lib_bwd']:.3f} ms "
+                  f"({(bwd + m['delta']) / m['lib_bwd']:.2f}x) "
+                  f"[{ctx['card']}]")
         torch.cuda.empty_cache()
     measure_logit_route(ctx)
     a = measure_adamw(flush)
@@ -1214,6 +1294,23 @@ def phase_fit(ctx) -> None:
         t = getattr(r, "self_device_time_total",
                     getattr(r, "self_cuda_time_total", 0.0))
         print(f"  device time {t * 1e-3:9.1f} ms  {r.key[:90]}")
+    kernels = {"fwd": ("::fwd_kernel<",),
+               "dq": ("::dq_kernel<", "::dq_kernel_tc<"),
+               "dkv": ("::dkv_kernel<", "::dkv_kernel_tc<"),
+               "dkv partial sums": ("::dkv_reduce(",)}
+    attn = dict.fromkeys(kernels, 0.0)
+    for r in prof.key_averages():
+        for name, marks in kernels.items():
+            if any(mark in r.key for mark in marks):
+                attn[name] += getattr(r, "self_device_time_total",
+                                      getattr(r, "self_cuda_time_total",
+                                              0.0)) * 1e-3
+    attn_ms = sum(attn.values())
+    share = "not measured" if dev_us <= 0 else \
+        f"{attn_ms / (dev_us * 1e-3):.3f}"
+    print("  attention kernels' device time in the profiled step: "
+          + ", ".join(f"{n} {t:.1f} ms" for n, t in attn.items())
+          + f"; {attn_ms:.1f} ms, {share} of the device busy time")
     ctx["fit"] = {"step_ms": step_ms, "tok_s": tok_s, "mfu": mfu,
                   "peak_gib": peak, "losses": losses, "host": host}
     del result, state, trainer, model, prof

@@ -140,6 +140,18 @@ ATT_CASES = [  # b, lq, lk, h, kvh, d, dtype, causal, window, segments
     (2, 200, 200, 4, 4, 64, torch.bfloat16, True, 0, False),
     (2, 96, 160, 4, 2, 64, torch.float32, False, 0, False),
     (1, 128, 256, 4, 2, 64, torch.float32, True, 0, False),
+    # the bf16 tensor-core backward's edges: unequal lengths without the
+    # causal mask, lengths off its 64-row tile, a window narrower than a
+    # tile, GQA 6:1 and 8:1 and MHA, D 64 and 128, segments
+    (2, 96, 160, 4, 2, 64, torch.bfloat16, False, 0, False),
+    (1, 200, 129, 12, 2, 128, torch.bfloat16, False, 0, False),
+    (1, 128, 256, 4, 2, 64, torch.bfloat16, True, 0, False),
+    (2, 129, 129, 12, 2, 128, torch.bfloat16, True, 0, False),
+    (1, 257, 257, 8, 1, 64, torch.bfloat16, True, 48, False),
+    (2, 300, 300, 8, 1, 128, torch.bfloat16, True, 0, False),
+    (2, 300, 300, 6, 6, 128, torch.bfloat16, True, 0, False),
+    (2, 300, 300, 12, 2, 128, torch.bfloat16, True, 0, True),
+    (1, 1024, 1024, 12, 2, 128, torch.bfloat16, True, 0, False),
 ]
 
 
@@ -214,14 +226,17 @@ def test_flash_attention_autograd_matches_plain_autograd():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_kernels_write_only_their_outputs(dtype):
-    """Each kernel gets its outputs as windows into larger buffers with a
-    canary on both sides: the canaries survive and the results equal the
-    wrappers' bit for bit."""
+@pytest.mark.parametrize("dtype,l", [(torch.float32, 131),
+                                     (torch.bfloat16, 131),
+                                     (torch.bfloat16, 300)])
+def test_flash_attention_kernels_write_only_their_outputs(dtype, l):
+    """Each kernel gets its outputs, and bf16 dK/dV its fp32 partial-sum
+    scratch (the query group split as the wrapper splits it), as windows
+    into larger buffers with a canary on both sides: the canaries survive
+    and the results equal the wrappers' bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    b, l, h, kvh, d = 2, 131, 12, 2, 128
+    b, h, kvh, d = 2, 12, 2, 128
     q, k, v, do, seg = _att_inputs(b, l, l, h, kvh, d, dtype, True, seed=3)
     kw = dict(causal=True, window=0)
     o, lse = att.flash_attention_fwd(q, k, v, segment_ids=seg, **kw)
@@ -237,19 +252,82 @@ def test_flash_attention_kernels_write_only_their_outputs(dtype):
         return buf, buf[pad:pad + like.numel()].view(like.shape)
 
     delta = att._delta(o, do)
-    bufs = {n: guarded(t) for n, t in dict(o=o, lse=lse, dq=dq, dk=dk,
-                                           dv=dv).items()}
+    outs = dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv)
+    splits = 1
+    if dtype == torch.bfloat16:
+        splits = att.dkv_splits(b, l, kvh, h // kvh, q.device)
+        assert splits > 1  # these grids are small: the scratch is used
+        outs["part"] = torch.empty(2 * splits * k.numel(),
+                                   dtype=torch.float32, device="cuda")
+    bufs = {n: guarded(t) for n, t in outs.items()}
     att._launch(0, q, k, v, seg, out=bufs["o"][1], lse_out=bufs["lse"][1],
                 **kw)
     att._launch(1, q, k, v, seg, do=do, lse=lse, delta=delta,
                 dq=bufs["dq"][1], **kw)
     att._launch(2, q, k, v, seg, do=do, lse=lse, delta=delta,
-                dk=bufs["dk"][1], dv=bufs["dv"][1], **kw)
+                dk=bufs["dk"][1], dv=bufs["dv"][1],
+                part=bufs["part"][1] if splits > 1 else None, splits=splits,
+                **kw)
     torch.cuda.synchronize()
-    for name, want in dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv).items():
+    for name, want in outs.items():
         buf, view = bufs[name]
         assert (buf[:pad] == -7.25).all() and (buf[-pad:] == -7.25).all()
-        assert torch.equal(view, want), name
+        if name != "part":
+            assert torch.equal(view, want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (2, 300, 300, 12, 2, 128, True, 0, False),
+    (2, 300, 300, 8, 1, 64, True, 48, False),
+    (1, 200, 129, 6, 6, 128, False, 0, False),
+    (2, 300, 300, 12, 2, 128, True, 0, True)])
+def test_flash_attention_bf16_backward_is_bit_reproducible(case):
+    """The bf16 dQ and dK/dV kernels (and dK/dV's partial pass) sum in a
+    fixed order, with no atomics: two runs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    b, lq, lk, h, kvh, d, causal, window, segments = case
+    q, k, v, do, seg = _att_inputs(b, lq, lk, h, kvh, d, torch.bfloat16,
+                                   segments, seed=4)
+    kw = dict(causal=causal, window=window, segment_ids=seg)
+    o, lse = att.flash_attention_fwd(q, k, v, **kw)
+    runs = [(att.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw),
+             *att.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [8, 4])
+def test_flash_attention_bf16_backward_reads_strided_inputs(pad):
+    """q, k, v and dO as views into wider rows: with 8 elements of padding
+    the kernels read them through their strides (16-byte rows stay
+    aligned), with 4 the wrapper copies them first; either way the
+    results equal those of contiguous inputs bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    b, l, h, kvh, d = 2, 200, 12, 2, 128
+    q, k, v, do, _ = _att_inputs(b, l, l, h, kvh, d, torch.bfloat16, False,
+                                 seed=5)
+
+    def strided(t):
+        wide = torch.zeros(*t.shape[:3], d + pad, dtype=t.dtype,
+                           device="cuda")
+        wide[..., :d] = t
+        return wide[..., :d]
+
+    o, lse = att.flash_attention_fwd(q, k, v)
+    want = (att.flash_attention_bwd_dq(q, k, v, o, lse, do),
+            *att.flash_attention_bwd_dkv(q, k, v, o, lse, do))
+    sq, sk, sv, sdo = (strided(t) for t in (q, k, v, do))
+    got = (att.flash_attention_bwd_dq(sq, sk, sv, o, lse, sdo),
+           *att.flash_attention_bwd_dkv(sq, sk, sv, o, lse, sdo))
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(x, y), name
 
 
 # ------------------------------------------------------------ fused AdamW

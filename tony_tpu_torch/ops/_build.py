@@ -64,7 +64,7 @@ def _finish(name: str, started) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{out}")
     ptxas_report[name] = "\n".join(
-        ln for ln in out.splitlines() if "ptxas" in ln)
+        ln for ln in out.splitlines() if "ptxas" in ln or "spill" in ln)
     os.replace(tmp, lib)
 
 

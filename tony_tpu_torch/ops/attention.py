@@ -11,7 +11,9 @@ group, never repeated), causal, a sliding ``window`` and packed
 ``autograd.Function`` whose forward saves (q, k, v, o, lse) and whose
 backward computes ``delta = rowsum(dO * O)`` in PyTorch and launches the
 dQ and dK/dV kernels; on a CPU tensor it runs
-``flash_attention_reference``, whose gradient comes from autograd.
+``flash_attention_reference``, whose gradient comes from autograd. The
+bf16 backward runs on the tensor cores; the fp32 build keeps SIMT fp32
+kernels (the tensor cores have no fp32 mode that meets its limit).
 
 Deliberate divergences from the JAX function (ROADMAP queue 3):
 - the kernels take any sequence length with bounds checks, so the
@@ -40,9 +42,43 @@ def _kernel():
     fn = _build.load("flash_attention").tony_flash_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 13 \
-            + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 14 \
+            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     return fn
+
+
+def kernel_resources() -> dict:
+    """The bf16 tensor-core backward kernels at each head dim: their
+    dynamic shared memory (bytes) and blocks per SM, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports them."""
+    from tony_tpu_torch.ops import _build
+
+    fn = _build.load("flash_attention").tony_flash_attention_resources
+    out = {}
+    for which, name in ((1, "dq"), (2, "dkv")):
+        for d in HEAD_DIMS:
+            smem, blocks = ctypes.c_int(), ctypes.c_int()
+            err = fn(which, d, ctypes.byref(smem), ctypes.byref(blocks))
+            if err != 0:
+                raise RuntimeError(f"occupancy query for {name} D={d} "
+                                   f"failed: CUDA error {err}")
+            out[(name, d)] = {"smem": smem.value, "blocks": blocks.value}
+    return out
+
+
+def dkv_splits(b: int, lk: int, kvh: int, group: int, device) -> int:
+    """How many blocks share a KV head's query group in the bf16 dK/dV
+    kernel: the fewest (a divisor of the group) whose blocks fill every
+    block slot of the card (two an SM) at least once, so k tiles of
+    uneven causal work even out; each split beyond one adds an fp32
+    partial of dK and dV that a second pass sums in split order. At the
+    training call (B=4, L=2048, KVH=2, group 6) that is 2 (``chip_smoke``
+    phase 6 times every split there)."""
+    blocks = -(-lk // 64) * kvh * b
+    slots = 2 * torch.cuda.get_device_properties(device) \
+        .multi_processor_count
+    return next(s for s in range(1, group + 1)
+                if group % s == 0 and (blocks * s >= slots or s == group))
 
 
 def _blockable(length: int, limit: int) -> bool:
@@ -259,11 +295,22 @@ def _prepare(q, k, v, segment_ids):
     return segment_ids
 
 
+def _rows16(t):
+    """``t`` if the bf16 backward's 16-byte row copies can read it (a
+    16-byte aligned base, strides of 8-element multiples), else a
+    contiguous copy."""
+    if t.data_ptr() % 16 == 0 and all(
+            st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape) if n > 1):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _launch(which: int, q, k, v, seg, *, causal, window, do=None,
             lse=None, delta=None, out=None, lse_out=None, dq=None,
-            dk=None, dv=None) -> None:
+            dk=None, dv=None, part=None, splits: int = 1) -> None:
     """One launch of kernel ``which`` (0 forward, 1 dQ, 2 dK/dV) into
-    the given output tensors."""
+    the given output tensors; bf16 dK/dV with ``splits`` > 1 sums its
+    partials in ``part``."""
     b, lq, h, d = q.shape
     lk, kvh = k.shape[1], k.shape[2]
     strides = _strides(q) + _strides(k) + _strides(v) \
@@ -275,10 +322,10 @@ def _launch(which: int, q, k, v, seg, *, causal, window, do=None,
     err = _kernel()(
         which, _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), ptr(do), ptr(seg), ptr(lse), ptr(delta), ptr(out),
-        ptr(lse_out), ptr(dq), ptr(dk), ptr(dv),
+        ptr(lse_out), ptr(dq), ptr(dk), ptr(dv), ptr(part),
         ctypes.cast((ctypes.c_longlong * 12)(*strides), ctypes.c_void_p),
-        b, h, kvh, lq, lk, int(causal), int(window), float(d ** -0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        b, h, kvh, lq, lk, int(causal), int(window), int(splits),
+        float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel {which} launch failed: "
                            f"CUDA error {err}")
@@ -321,6 +368,8 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
     seg = _prepare(q, k, v, segment_ids)
     do = do if do.stride(3) == 1 else do.contiguous()
     delta = _delta(o, do) if delta is None else delta
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (_rows16(t) for t in (q, k, v, do))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(1, q, k, v, seg, causal=causal, window=window, do=do,
             lse=lse.contiguous(), delta=delta, dq=dq)
@@ -339,10 +388,19 @@ def flash_attention_bwd_dkv(q, k, v, o, lse, do, causal: bool = True,
     seg = _prepare(q, k, v, segment_ids)
     do = do if do.stride(3) == 1 else do.contiguous()
     delta = _delta(o, do) if delta is None else delta
+    splits, part = 1, None
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (_rows16(t) for t in (q, k, v, do))
+        splits = dkv_splits(k.shape[0], k.shape[1], k.shape[2],
+                            q.shape[2] // k.shape[2], k.device)
+        if splits > 1:
+            part = torch.empty(2 * splits * k.numel(), dtype=torch.float32,
+                               device=k.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch(2, q, k, v, seg, causal=causal, window=window, do=do,
-            lse=lse.contiguous(), delta=delta, dk=dk, dv=dv)
+            lse=lse.contiguous(), delta=delta, dk=dk, dv=dv, part=part,
+            splits=splits)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
