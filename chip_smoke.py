@@ -4,14 +4,15 @@ exits non-zero.
 
 1. Build: compile every CUDA kernel of ``tony_tpu_torch/csrc`` with nvcc,
    one process a source, all at once; print each kernel's registers and
-   spills, and for the bf16 tensor-core backward kernels their dynamic
-   shared memory and blocks per SM.
+   spills, and for the tensor-core kernels (flash attention forward, dQ,
+   dK/dV; flash-decode) their dynamic shared memory and blocks per SM.
 2. Kernel against its plain version: flash-decode at Qwen2.5-1.5B shapes
    (B=8, H=12, KVH=2, D=128, S in {64, 1024, 4096}; bf16, fp32 and int8
    caches; mixed lengths with a 0; a window; one MHA shape), held per
    element to ``decode_tolerance``, then timed beside the plain version,
    ``scaled_dot_product_attention`` (a yardstick the port never calls)
-   and the bytes bound.
+   and the bytes bound, each with the route it took (tensor cores or
+   SIMT).
 3. Model against its reference: Qwen2.5-1.5B at full width and depth,
    seeded random fp32 weights, a 200-token prompt prefilled through the
    page pool and 8 greedy decode steps on the paged view, held against
@@ -35,8 +36,8 @@ exits non-zero.
    Each kernel is timed beside its plain version, a PyTorch call that
    the port never makes (``scaled_dot_product_attention`` forward and
    backward, ``torch.optim.AdamW(fused=True)``) and its bound, with its
-   achieved TFLOP/s at the training call; a second run of the bf16 dQ
-   and dK/dV kernels must give the same bits.
+   achieved TFLOP/s at the training call; a second run of the bf16
+   forward, dQ and dK/dV kernels must give the same bits.
 7. Full-width gradient check: Qwen2.5-1.5B, 28 layers, fp32, 1 x 2048
    tokens, chunked cross-entropy; one forward and backward through the
    kernels and one through the plain versions, on the same weights.
@@ -224,9 +225,11 @@ def measure_decode(q, k, v, length, window, k_scale, v_scale, flush,
     to ``decode_tolerance`` before anything is timed, then the times."""
     import torch
 
-    from tony_tpu_torch.ops.decode import flash_decode, flash_decode_reference
+    from tony_tpu_torch.ops.decode import (flash_decode,
+                                           flash_decode_reference, plan)
 
     kw = dict(window=window, k_scale=k_scale, v_scale=v_scale)
+    tc, nsplit = plan(q, k, window)
     vmax = (v.float() * v_scale[..., None] if v_scale is not None
             else v.float()).abs().max().item()
     inputs = [t for t in (q, k, v, length, k_scale, v_scale)
@@ -262,7 +265,44 @@ def measure_decode(q, k, v, length, window, k_scale, v_scale, flush,
     return {"max_abs_err": err, "excess": excess, "rtol": rtol,
             "atol": atol, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "nsplit": nsplit,
+            "route": "tensor cores" if tc else "SIMT"}
+
+
+def decode_by_split(q, k, v, length, window, k_scale, v_scale, flush,
+                    splits, reps=20) -> dict:
+    """{nsplit: kernel ms} for one input set, each split count launched
+    through the C entry point as the wrapper launches it (the wrapper's
+    own rule picks one of them)."""
+    import torch
+
+    from tony_tpu_torch.ops import decode as dec
+
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    out = torch.empty_like(q)
+    lengths = length.to(torch.int32).contiguous()
+    res = {}
+    for n in splits:
+        ml = torch.empty(b * kvh * n * g * 2, dtype=torch.float32,
+                         device=q.device)
+        acc = torch.empty(b * kvh * n * g * d, dtype=torch.float32,
+                          device=q.device)
+
+        def run():
+            err = dec._kernel()(
+                dec._DTYPE_CODES[k.dtype], dec._DTYPE_CODES[q.dtype],
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if k_scale is None else k_scale.data_ptr(),
+                None if v_scale is None else v_scale.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), ml.data_ptr(),
+                acc.data_ptr(), b, h, kvh, s, d, int(window),
+                float(d ** -0.5), n, torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"flash_decode at nsplit={n}: CUDA error {err}")
+
+        res[n] = cuda_time_ms(run, reps, flush)
+    return res
 
 
 # ----------------------------------------------------------------- phases
@@ -284,6 +324,8 @@ def ptxas_entries(report: str) -> dict:
 def phase_build(ctx) -> None:
     from tony_tpu_torch.ops import _build
     from tony_tpu_torch.ops.attention import kernel_resources
+    from tony_tpu_torch.ops.decode import \
+        kernel_resources as decode_resources
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -295,13 +337,22 @@ def phase_build(ctx) -> None:
             print(f"  {name}: {entry[:72]}: {'; '.join(info)}")
     print(f"phase 1 build: {len(_build.sources())} source(s) in "
           f"{ctx['build_s']:.1f} s (nvcc, sm_90a)")
-    # the bf16 backward on the tensor cores: ptxas's registers and spills,
-    # the dynamic shared memory and how many blocks fit on an SM
+    # the tensor-core kernels: ptxas's registers and spills, the dynamic
+    # shared memory and how many blocks fit on an SM
     entries = ptxas_entries(_build.ptxas_report.get("flash_attention", ""))
     for (kern, d), r in kernel_resources().items():
         info = ["; ".join(v) for e, v in entries.items()
                 if f"{kern}_kernel_tcILi{d}E" in e]
         print(f"phase 1 {kern}_kernel_tc<{d}> (bf16, mma.sync): "
+              f"{info[0] if info else 'ptxas report not captured (built before)'}"
+              f"; {r['smem']} B dynamic shared memory, {r['blocks']} "
+              f"block(s) of 128 threads per SM")
+    entries = ptxas_entries(_build.ptxas_report.get("flash_decode", ""))
+    for (cache, d), r in decode_resources().items():
+        mangled = "13__nv_bfloat16" if cache == "bf16" else "a"
+        info = ["; ".join(v) for e, v in entries.items()
+                if f"flash_decode_tcI{mangled}Li{d}E" in e]
+        print(f"phase 1 flash_decode_tc<{cache}, {d}> (bf16 q, mma.sync): "
               f"{info[0] if info else 'ptxas report not captured (built before)'}"
               f"; {r['smem']} B dynamic shared memory, {r['blocks']} "
               f"block(s) of 128 threads per SM")
@@ -340,7 +391,8 @@ def phase_kernel(ctx) -> None:
                 rows.append({"cache": cache, "H": h, "KVH": kvh, "S": s,
                              "window": window, **m})
                 print(f"phase 2 flash_decode B=8 H={h} KVH={kvh} D=128 "
-                      f"S={s} {cache} window={window}: max abs err "
+                      f"S={s} {cache} window={window} ({m['route']}, "
+                      f"{m['nsplit']} split(s)): max abs err "
                       f"{m['max_abs_err']:.3g} (tol {m['rtol']:.3g}*|want| "
                       f"+ {m['atol']:.3g}, worst excess {m['excess']:.3g});"
                       f" kernel {m['ms'] * 1e3:.1f} us, plain "
@@ -684,7 +736,10 @@ def phase_cli(ctx) -> None:
 
 def kernel_line(ctx) -> dict:
     """The main path's largest flash-decode call, replayed: error
-    against the plain version and the times beside the bound."""
+    against the plain version and the times beside the bound, then the
+    kernel's time at the split counts around the wrapper's."""
+    import torch
+
     cap = ctx["captured"]
     q, k, v, length = cap["args"]
     kw = cap["kw"]
@@ -693,11 +748,24 @@ def kernel_line(ctx) -> dict:
     m = measure_decode(*args)
     print(f"flash_decode at the serve path's largest call (B={q.shape[0]}"
           f" H={q.shape[1]} KVH={k.shape[2]} D={q.shape[2]} S={k.shape[1]}"
-          f" {k.dtype}): max abs err {m['max_abs_err']:.3g} (worst excess "
+          f" {k.dtype}; {m['route']}, {m['nsplit']} split(s)): max abs err "
+          f"{m['max_abs_err']:.3g} (worst excess "
           f"{m['excess']:.3g} over {m['rtol']:.3g}*|want|, limit "
-          f"{m['atol']:.3g}); kernel {m['ms'] * 1e3:.1f} us, plain "
+          f"{m['atol']:.3g}); kernel {m['ms'] * 1e3:.1f} us "
+          f"({m['bound_ms'] / m['ms']:.3f} of the bound), plain "
           f"{m['plain_ms'] * 1e3:.1f} us, sdpa {m['library_ms'] * 1e3:.1f} "
           f"us, bound {m['bound_ms'] * 1e3:.2f} us [{ctx['card']}]")
+    # the split rule against its neighbours: one, two and three blocks an
+    # SM, and the rule's own count
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    groups = q.shape[0] * k.shape[2]
+    splits = sorted({m["nsplit"]} | {max(1, -(-n * sms // groups))
+                                     for n in (1, 2, 3)})
+    by = decode_by_split(*args, splits)
+    print("flash_decode at that call by KV splits (kernel only, C entry "
+          "point): " + ", ".join(f"{n}: {t * 1e3:.1f} us"
+                                 for n, t in by.items())
+          + f" (the wrapper takes {m['nsplit']}) [{ctx['card']}]")
     return {"name": "flash_decode", "route": "cuda",
             "source": "tony_tpu_torch/csrc/flash_decode.cu",
             "replaces": "tony_tpu/ops/decode.py:70",
@@ -788,16 +856,19 @@ def measure_attention(b, l, h, kvh, d, dtype, window, segments, flush,
         del vis
     out = {"err": worst, "pairs": pairs}
     if dtype == torch.bfloat16:
-        # the tensor-core backward sums in a fixed order: a second run
+        # the tensor-core kernels sum in a fixed order: a second run
         # gives the same bits
+        o2, lse2 = att.flash_attention_fwd(q, k, v, **kw)
         dq2 = att.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
         dk2, dv2 = att.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw)
         sync()
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              "a second run of the bf16 forward kernel differs")
         check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
               and torch.equal(dv, dv2),
               "a second run of the bf16 backward kernels differs")
         out["bit_equal"] = True
-        del dq2, dk2, dv2
+        del o2, lse2, dq2, dk2, dv2
     if not timed:
         return out
     es = q.element_size()
@@ -1035,7 +1106,7 @@ def phase_train_kernels(ctx) -> None:
         bb, ll, hh, kk, dd, dt, win, segs = shape
         errs = "; ".join(f"{k} {e:.3g} ({r:.3f} of its limit, max|want| "
                          f"{w:.3g})" for k, (e, r, w) in m["err"].items())
-        bits = "; bf16 dq/dk/dv bit-equal on a second run" \
+        bits = "; bf16 o/lse/dq/dk/dv bit-equal on a second run" \
             if m.get("bit_equal") else ""
         print(f"phase 6 flash attention {name}: B={bb} L={ll} H={hh} "
               f"KVH={kk} D={dd} {str(dt).split('.')[-1]} window={win} "
@@ -1294,7 +1365,7 @@ def phase_fit(ctx) -> None:
         t = getattr(r, "self_device_time_total",
                     getattr(r, "self_cuda_time_total", 0.0))
         print(f"  device time {t * 1e-3:9.1f} ms  {r.key[:90]}")
-    kernels = {"fwd": ("::fwd_kernel<",),
+    kernels = {"fwd": ("::fwd_kernel<", "::fwd_kernel_tc<"),
                "dq": ("::dq_kernel<", "::dq_kernel_tc<"),
                "dkv": ("::dkv_kernel<", "::dkv_kernel_tc<"),
                "dkv partial sums": ("::dkv_reduce(",)}

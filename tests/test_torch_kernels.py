@@ -41,11 +41,13 @@ def _inputs(b, s, h, kvh, d, cache, seed=0):
     return q, k.to(dt), v.to(dt), {}, vmax
 
 
+# bf16 and int8 caches under a bf16 q take the tensor-core route (G = 1,
+# 6, 8 in one block of 16 query rows, G = 20 in two); fp32 the SIMT one
 @pytest.mark.cuda
 @pytest.mark.parametrize("cache", ["fp32", "bf16", "int8"])
-@pytest.mark.parametrize("heads", [(12, 2), (12, 12), (8, 1)])
+@pytest.mark.parametrize("heads", [(12, 2), (12, 12), (8, 1), (20, 1)])
 @pytest.mark.parametrize("s,window", [(300, 0), (300, 50), (64, 0),
-                                      (1027, 0)])
+                                      (1027, 0), (1027, 300)])
 def test_flash_decode_kernel_matches_plain_version(cache, heads, s, window):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -59,30 +61,61 @@ def test_flash_decode_kernel_matches_plain_version(cache, heads, s, window):
     want = flash_decode_reference(q, k, v, length, window=window, **kw)
     torch.cuda.synchronize()
     assert flash_decode.launches == before + 1
+    assert dec.plan(q, k, window)[0] == (cache != "fp32")
     assert torch.isfinite(got).all()
     assert (got[0] == 0).all()  # length 0: exact zeros
     _assert_close(got, want, vmax)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("d,tc", [(64, True), (128, True), (96, False)])
+@pytest.mark.parametrize("heads", [(12, 2), (4, 4), (16, 2)])
+def test_flash_decode_routes_by_head_dim(cache, d, tc, heads):
+    """A bf16 q at D = 64 or 128 takes the tensor-core route, at another
+    head dim the SIMT one; both meet the limit, lengths out of range are
+    clamped by the kernels as the plain version masks them, and a second
+    run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    h, kvh = heads
+    s = 200
+    q, k, v, kw, vmax = _inputs(4, s, h, kvh, d, cache, seed=2)
+    length = torch.tensor([-3, 1, 131, s + 9], dtype=torch.int32,
+                          device="cuda")
+    assert dec.plan(q, k)[0] == tc
+    got = flash_decode(q, k, v, length, **kw)
+    again = flash_decode(q, k, v, length, **kw)
+    want = flash_decode_reference(q, k, v, length, **kw)
+    torch.cuda.synchronize()
+    assert (got[0] == 0).all()  # a negative length sees no key
+    _assert_close(got, want, vmax)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cache", ["fp32", "bf16", "int8"])
-@pytest.mark.parametrize("s,window", [(300, 0), (4096, 0), (1024, 48)])
-def test_flash_decode_kernel_writes_only_its_outputs(cache, s, window):
+@pytest.mark.parametrize("s,window", [(300, 0), (4096, 0), (1024, 48),
+                                      (64, 0)])
+@pytest.mark.parametrize("heads", [(12, 2), (20, 1), (6, 6)])
+def test_flash_decode_kernel_writes_only_its_outputs(cache, s, window,
+                                                     heads):
     """Out-of-bounds writes: the C entry point gets the output and the
     split-KV scratch as windows into larger buffers filled with a canary
     on both sides. The canaries must survive, the inputs must be left
-    as they were, and the result must equal the wrapper's bit for bit."""
+    as they were, and the result must equal the wrapper's bit for bit
+    (S = 64 takes one split: the kernel writes the output itself)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    h, kvh, d, b = 12, 2, 128, 8
+    h, kvh = heads
+    d, b = 128, 8
     q, k, v, kw, _ = _inputs(b, s, h, kvh, d, cache, seed=1)
     length = torch.tensor([0, 1, 63, 64, 65, s // 2, s - 1, s],
                           dtype=torch.int32, device="cuda")
     inputs = [q, k, v, length] + list(kw.values())
     before = [t.clone() for t in inputs]
     want = flash_decode(q, k, v, length, window=window, **kw)
-    nsplit = dec._n_splits(b, kvh, min(s, window) if window else s,
-                           q.device)
+    nsplit = dec.plan(q, k, window)[1]
     pad = 4096
 
     def guarded(n, dtype):
@@ -228,7 +261,9 @@ def test_flash_attention_autograd_matches_plain_autograd():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,l", [(torch.float32, 131),
                                      (torch.bfloat16, 131),
-                                     (torch.bfloat16, 300)])
+                                     (torch.bfloat16, 300),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 1)])
 def test_flash_attention_kernels_write_only_their_outputs(dtype, l):
     """Each kernel gets its outputs, and bf16 dK/dV its fp32 partial-sum
     scratch (the query group split as the wrapper splits it), as windows
@@ -328,6 +363,80 @@ def test_flash_attention_bf16_backward_reads_strided_inputs(pad):
     torch.cuda.synchronize()
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (2, 300, 300, 12, 2, 128, True, 0, False),
+    (2, 300, 300, 8, 1, 64, True, 48, False),
+    (1, 200, 129, 6, 6, 128, False, 0, False),
+    (2, 300, 300, 12, 2, 128, True, 0, True)])
+def test_flash_attention_bf16_forward_is_bit_reproducible(case):
+    """The bf16 tensor-core forward sums in a fixed order, with no
+    atomics: two runs give the same o and lse bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    b, lq, lk, h, kvh, d, causal, window, segments = case
+    q, k, v, _, seg = _att_inputs(b, lq, lk, h, kvh, d, torch.bfloat16,
+                                  segments, seed=6)
+    kw = dict(causal=causal, window=window, segment_ids=seg)
+    (o1, l1), (o2, l2) = (att.flash_attention_fwd(q, k, v, **kw)
+                          for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [8, 4])
+def test_flash_attention_bf16_forward_reads_strided_inputs(pad):
+    """q, k and v as views into wider rows: with 8 elements of padding
+    the forward reads them through their strides, with 4 the wrapper
+    copies them first; either way o and lse equal those of contiguous
+    inputs bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    b, l, h, kvh, d = 2, 200, 12, 2, 128
+    q, k, v, _, _ = _att_inputs(b, l, l, h, kvh, d, torch.bfloat16, False,
+                                seed=7)
+
+    def strided(t):
+        wide = torch.zeros(*t.shape[:3], d + pad, dtype=t.dtype,
+                           device="cuda")
+        wide[..., :d] = t
+        return wide[..., :d]
+
+    want = att.flash_attention_fwd(q, k, v)
+    got = att.flash_attention_fwd(*(strided(t) for t in (q, k, v)))
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,window", [(300, 0), (200, 48)])
+def test_flash_attention_bf16_forward_isolated_rows(l, window):
+    """Every token its own segment: each query row sees only its own key,
+    so in every k tile but the diagonal one its scores are all masked
+    and its running max stays at the mask value. The forward must give
+    finite outputs equal to v's row (p = 1, l = 1) within the limit, and
+    the lse of a single visible score."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    b, h, kvh, d = 2, 12, 2, 128
+    q, k, v, _, _ = _att_inputs(b, l, l, h, kvh, d, torch.bfloat16, False,
+                                seed=8)
+    seg = torch.arange(l, dtype=torch.int32, device="cuda") \
+        .expand(b, l).contiguous()
+    kw = dict(causal=True, window=window, segment_ids=seg)
+    o, lse = att.flash_attention_fwd(q, k, v, **kw)
+    o_ref, lse_ref = att.flash_attention_reference(q, k, v, True, window,
+                                                   seg, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    lim = att.error_bound(q, k, v, o_ref, lse_ref, **kw)
+    _within(o, o_ref, lim["o"], "o")
+    _within(lse, lse_ref, 1e-5 * (1 + lse_ref.abs()), "lse")
+    assert torch.equal(o, v.repeat_interleave(h // kvh, dim=2))
 
 
 # ------------------------------------------------------------ fused AdamW

@@ -33,15 +33,17 @@
 //   is fp32; the softmax scale folds into the exp, and dQ/dK take it
 //   once at the end.
 //
-// The forward and the fp32 backward (fwd_kernel, dq_kernel, dkv_kernel):
-// SIMT fp32 FMAs on 64x64 tiles staged in shared memory as fp32 (rows
-// padded to D + 1), 16x16 threads with a 4x4 tile of scores each; a tile
-// that the segments or the ragged edge leave wholly invisible is skipped
-// after one vote of the block. The fp32 backward stays SIMT: the tensor
-// cores' fp32 route (TF32, 10 mantissa bits) cannot meet its 2^-14 limit.
+// The fp32 kernels (fwd_kernel, dq_kernel, dkv_kernel; only their float
+// instances are built): SIMT fp32 FMAs on 64x64 tiles staged in shared
+// memory as fp32 (rows padded to D + 1), 16x16 threads with a 4x4 tile of
+// scores each; a tile that the segments or the ragged edge leave wholly
+// invisible is skipped after one vote of the block. They stay SIMT: the
+// tensor cores' fp32 route (TF32, 10 mantissa bits) cannot meet the fp32
+// limit of 2^-14.
 //
-// The bf16 backward (dq_kernel_tc, dkv_kernel_tc) runs on the tensor
-// cores, as FlashAttention-2's backward does:
+// The bf16 kernels (fwd_kernel_tc, dq_kernel_tc, dkv_kernel_tc) run on
+// the tensor cores, as FlashAttention-2 does; the bf16 forward's SIMT
+// instance fwd_kernel<bf16> is retired:
 // - every product is mma.sync.m16n8k16 (bf16 operands, fp32 sums); the
 //   operands come from shared memory by ldmatrix (.trans where the tile
 //   is stored [depth][n]), S and dP stay in accumulator registers, and P
@@ -52,15 +54,22 @@
 //   dQ, keys for dK/dV) and every product of those rows, so warps share
 //   nothing but the opposite tile and need no barrier between products;
 // - tiles are bf16 [64][D + 8] in shared memory: the 16-byte pad moves
-//   each row four banks on, so ldmatrix reads without conflicts; dQ holds
-//   Q and dO plus two stages of K/V (102 KB at D = 128), dK/dV holds K and
-//   V plus two stages of Q/dO with their lse/delta rows (103 KB): two
-//   blocks, 8 warps, an SM;
+//   each row four banks on, so ldmatrix reads without conflicts; the
+//   forward holds Q plus two stages of K/V (87 KB at D = 128), dQ holds
+//   Q and dO plus two stages of K/V (102 KB), dK/dV holds K and V plus two
+//   stages of Q/dO with their lse/delta rows (103 KB): two blocks, 8
+//   warps, an SM;
+// - the forward keeps each warp's 16 query rows of Q as A fragments in
+//   registers for the whole k loop (read once by ldmatrix), runs the
+//   online softmax on the S accumulators (row max and sum over the four
+//   lanes that share a row, exp2 with the scale folded in, l summing the
+//   unrounded p) and writes o = acc / max(l, 1e-30) and the lse in the
+//   fp32 kernel's units and layout, which the backward reads;
 // - the opposite tiles are double-buffered: cp.async (16 bytes a thread;
 //   rows past the end zero-filled) loads tile n + 1 while tile n
 //   multiplies, one barrier a tile on each side;
-// - dQ: one block per (q head, batch, q tile of 64), the latest (heaviest
-//   causal) q tiles first in launch order;
+// - forward and dQ: one block per (q head, batch, q tile of 64), the
+//   latest (heaviest causal) q tiles first in launch order;
 // - dK/dV: one block per (KV head x split, batch, k tile of 64), the
 //   earliest (heaviest) k tiles first. One block per KV head would launch
 //   256 blocks of causal work that differs 32-fold at the training call
@@ -75,9 +84,10 @@
 //   warp whose rows see no element of the tile skips its products.
 // What bounds them: the tensor cores' operands. Each warp reads the whole
 // opposite tile from shared memory for each of its products (about one
-// ldmatrix.x4 for two mma), so shared-memory bandwidth caps mma.sync near
-// half the bf16 peak; wgmma (64-row warpgroup products, B read by the
-// hardware) and TMA loads are the next step.
+// ldmatrix.x4 for two mma; the forward's Q, in registers, is the one
+// exception), so shared-memory bandwidth caps mma.sync near half the bf16
+// peak; wgmma (64-row warpgroup products, B read by the hardware) and TMA
+// loads are the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -654,6 +664,175 @@ __device__ __forceinline__ bool tile_cut(const Args& a, int q0, int k0) {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
+// The forward: one block per (q head, batch, q tile of 64), heavy causal
+// tiles first; warp w owns queries q0 + 16w .. +15, keeps their Q as A
+// fragments in registers (loaded once) and walks the visible k tiles,
+// K/V double-buffered by cp.async. The online softmax runs on the S
+// accumulators: m (raw scores) and l per row, reduced over the quad of
+// lanes that shares a row; p enters P.V as bf16 in the A-fragment layout.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+    fwd_kernel_tc(const Args a) {
+  using bf16 = __nv_bfloat16;
+  using TT = TcTile<D>;
+  constexpr int NT = TT::NT;
+  constexpr int KS = D / 16;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const uint32_t sQ = smem_u32(tc_smem);
+  // stage s: K at sQ + (1 + 2s) tiles, V right after it
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gr = lane / 4, tq = lane % 4;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int kvh = h / (a.H / a.KVH);
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.sqb + h * a.sqh;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.skb + kvh * a.skh;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.svb + kvh * a.svh;
+  const int* segb =
+      a.seg ? a.seg + static_cast<long long>(b) * a.Lk : nullptr;
+
+  int kt0, kt1;
+  kv_range(a, q0, &kt0, &kt1);
+  load_tile_async<D>(sQ, qp, a.sql, q0, a.Lq);
+  cp_commit();
+  if (kt0 < kt1) {
+    load_tile_async<D>(sQ + TT::BYTES, kp, a.skl, kt0 * BK, a.Lk);
+    load_tile_async<D>(sQ + 2 * TT::BYTES, vp, a.svl, kt0 * BK, a.Lk);
+  }
+  cp_commit();
+  cp_wait<1>();  // Q has landed (the first K/V tile may still be in flight)
+  __syncthreads();
+  const uint32_t oa = off_a<D>(lane) + 16 * warp * TT::LDS * 2;
+  const uint32_t ob = off_b<D>(lane), obt = off_bt<D>(lane);
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) ldsm_x4(qa[kk], sQ + oa + kk * 32);
+
+  const int i0 = q0 + 16 * warp + gr;  // this thread's rows: i0, i0 + 8
+  const float sl2 = a.scale * LOG2E;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int st = (kt - kt0) & 1;
+    if (kt + 1 < kt1) {
+      const uint32_t nk = sQ + (1 + 2 * (st ^ 1)) * TT::BYTES;
+      load_tile_async<D>(nk, kp, a.skl, (kt + 1) * BK, a.Lk);
+      load_tile_async<D>(nk + TT::BYTES, vp, a.svl, (kt + 1) * BK, a.Lk);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const int k0 = kt * BK;
+    const uint32_t sK = sQ + (1 + 2 * st) * TT::BYTES, sV = sK + TT::BYTES;
+    // the mask, only where a cut crosses the tile; a warp whose 16 rows
+    // see no key of it skips the tile
+    const bool cut = tile_cut(a, q0, k0);
+    uint32_t vis = 0xffffffffu;
+    if (cut) {
+      vis = 0;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (visible(a, segb, i0 + 8 * (e >> 1), k0 + 8 * n + 2 * tq + (e & 1)))
+            vis |= 1u << (4 * n + e);
+    }
+    if (__any_sync(0xffffffffu, vis != 0)) {
+      float s[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t kb[4];
+          ldsm_x4(kb, sK + ob + j * 16 * TT::LDS * 2 + kk * 32);
+          mma(s[2 * j], qa[kk], kb[0], kb[1]);
+          mma(s[2 * j + 1], qa[kk], kb[2], kb[3]);
+        }
+      // online softmax over this tile's visible scores; a row that sees
+      // none keeps m (NEG_INF is finite, so corr is exp2(0) = 1, not NaN)
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if ((vis >> (4 * n + e)) & 1u)
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] = fmaxf(m[r], mx[r]);
+        corr[r] = exp2f((m[r] - mx[r]) * sl2);
+        m[r] = mx[r];
+      }
+      // p = exp((s - m) * scale), summed unrounded into l and rounded to
+      // bf16 in the A-fragment layout of P.V (keys are its depth)
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = (vis >> (4 * n + e)) & 1u
+                     ? exp2f((s[n][e] - m[e >> 1]) * sl2)
+                     : 0.f;
+          rs[e >> 1] += p[e];
+        }
+        pa[n / 2][2 * (n & 1)] = pack_bf16(p[0], p[1]);
+        pa[n / 2][2 * (n & 1) + 1] = pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l[r] = l[r] * corr[r] + rs[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
+      // O += P . V
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int j = 0; j < D / 16; ++j) {
+          uint32_t vb[4];
+          ldsm_x4_t(vb, sV + obt + c * 16 * TT::LDS * 2 + j * 32);
+          mma(acc[2 * j], pa[c], vb[0], vb[1]);
+          mma(acc[2 * j + 1], pa[c], vb[2], vb[3]);
+        }
+    }
+    __syncthreads();  // this stage is free for the load two tiles on
+  }
+  cp_wait<0>();
+  bf16* out = static_cast<bf16*>(a.out);
+  const long long row = (static_cast<long long>(b) * a.H + h) * a.Lq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + 8 * r;
+    if (i >= a.Lq) continue;
+    const float ls = fmaxf(l[r], 1e-30f);
+    uint32_t* orow = reinterpret_cast<uint32_t*>(
+        out + ((static_cast<long long>(b) * a.Lq + i) * a.H + h) * D);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      orow[4 * n + tq] = pack_bf16(acc[n][2 * r] / ls, acc[n][2 * r + 1] / ls);
+    if (tq == 0) a.lse_out[row + i] = m[r] * a.scale + logf(ls);
+  }
+}
+
 // dQ: one block per (q head, batch, q tile of 64), heavy causal tiles
 // first; warp w owns queries q0 + 16w .. +15 and walks the visible k tiles,
 // K/V double-buffered by cp.async.
@@ -1011,6 +1190,10 @@ __global__ void __launch_bounds__(256)
 }
 
 template <int D>
+constexpr size_t fwd_tc_smem() {
+  return 5 * TcTile<D>::BYTES;  // Q, two stages of K and V
+}
+template <int D>
 constexpr size_t dq_tc_smem() {
   return 6 * TcTile<D>::BYTES;  // Q, dO, two stages of K and V
 }
@@ -1033,12 +1216,16 @@ int launch(K kern, dim3 grid, int threads, size_t smem, cudaStream_t stream,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the bf16 backward: dQ (which 1), or dK/dV (2) with its query group
-// split over `splits` blocks and their partials in `part`
+// bf16 on the tensor cores: the forward (which 0), dQ (1), or dK/dV (2)
+// with its query group split over `splits` blocks and their partials in
+// `part`
 template <int D>
 int run_tc(int which, const Args& a, float* part, int splits,
            cudaStream_t st) {
   const unsigned nq = (a.Lq + BQ - 1) / BQ, nk = (a.Lk + BK - 1) / BK;
+  if (which == 0)
+    return launch(fwd_kernel_tc<D>, dim3(a.H, a.B, nq), TC_THREADS,
+                  fwd_tc_smem<D>(), st, a);
   if (which == 1)
     return launch(dq_kernel_tc<D>, dim3(a.H, a.B, nq), TC_THREADS,
                   dq_tc_smem<D>(), st, a);
@@ -1062,14 +1249,14 @@ int run(int which, const Args& a, float* part, int splits,
         cudaStream_t st) {
   constexpr size_t LD = D + 1;
   const unsigned nq = (a.Lq + BQ - 1) / BQ, nk = (a.Lk + BK - 1) / BK;
-  if (which == 0)
-    return launch(fwd_kernel<T, D>, dim3(nq, a.H, a.B), THREADS,
-                  (BQ * LD + BK * LD + BK * D + BQ * (BK + 1)) *
-                      sizeof(float),
-                  st, a);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     return run_tc<D>(which, a, part, splits, st);
   } else {
+    if (which == 0)
+      return launch(fwd_kernel<T, D>, dim3(nq, a.H, a.B), THREADS,
+                    (BQ * LD + BK * LD + BK * D + BQ * (BK + 1)) *
+                        sizeof(float),
+                    st, a);
     if (which == 1)
       return launch(dq_kernel<T, D>, dim3(nq, a.H, a.B), THREADS,
                     (2 * BQ * LD + 2 * BK * LD + BQ * (BK + 1)) *
@@ -1102,9 +1289,9 @@ int resources(K kern, size_t smem, int* smem_out, int* blocks) {
 // null; seg is null without segments. For bf16 dK/dV, splits (a divisor
 // of H / KVH) blocks share each KV head's query group; with splits > 1,
 // part is fp32 scratch of 2 * splits * B * Lk * KVH * D elements (the
-// fp32 kernels take splits = 1). The bf16 backward reads 16-byte rows:
-// its q, k, v and dO must be 16-byte aligned with strides that are
-// multiples of 8. Returns cudaGetLastError() after the launch (0 =
+// fp32 kernels take splits = 1). The bf16 kernels read 16-byte rows: q,
+// k, v and dO must be 16-byte aligned with strides that are multiples of
+// 8. Returns cudaGetLastError() after the launch (0 =
 // launched), or -1 for a dtype, head dim or split the kernels are not
 // built for.
 extern "C" int tony_flash_attention(
@@ -1145,13 +1332,19 @@ extern "C" int tony_flash_attention(
   return -1;
 }
 
-// The bf16 tensor-core backward kernel `which` (1 = dQ, 2 = dK/dV) at head
-// dim D: its dynamic shared memory in bytes and how many of its blocks fit
-// on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns a
-// CUDA error, or -1 for a kernel that is not built.
+// The bf16 tensor-core kernel `which` (0 = forward, 1 = dQ, 2 = dK/dV) at
+// head dim D: its dynamic shared memory in bytes and how many of its
+// blocks fit on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// Returns a CUDA error, or -1 for a kernel that is not built.
 extern "C" int tony_flash_attention_resources(int which, int D,
                                               int* smem_bytes,
                                               int* blocks_per_sm) {
+  if (which == 0 && D == 64)
+    return resources(fwd_kernel_tc<64>, fwd_tc_smem<64>(), smem_bytes,
+                     blocks_per_sm);
+  if (which == 0 && D == 128)
+    return resources(fwd_kernel_tc<128>, fwd_tc_smem<128>(), smem_bytes,
+                     blocks_per_sm);
   if (which == 1 && D == 64)
     return resources(dq_kernel_tc<64>, dq_tc_smem<64>(), smem_bytes,
                      blocks_per_sm);

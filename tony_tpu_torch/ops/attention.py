@@ -12,8 +12,9 @@ group, never repeated), causal, a sliding ``window`` and packed
 backward computes ``delta = rowsum(dO * O)`` in PyTorch and launches the
 dQ and dK/dV kernels; on a CPU tensor it runs
 ``flash_attention_reference``, whose gradient comes from autograd. The
-bf16 backward runs on the tensor cores; the fp32 build keeps SIMT fp32
-kernels (the tensor cores have no fp32 mode that meets its limit).
+bf16 forward and backward run on the tensor cores; the fp32 build keeps
+SIMT fp32 kernels (the tensor cores have no fp32 mode that meets its
+limit).
 
 Deliberate divergences from the JAX function (ROADMAP queue 3):
 - the kernels take any sequence length with bounds checks, so the
@@ -48,14 +49,14 @@ def _kernel():
 
 
 def kernel_resources() -> dict:
-    """The bf16 tensor-core backward kernels at each head dim: their
-    dynamic shared memory (bytes) and blocks per SM, as
+    """The bf16 tensor-core kernels (forward, dQ, dK/dV) at each head
+    dim: their dynamic shared memory (bytes) and blocks per SM, as
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports them."""
     from tony_tpu_torch.ops import _build
 
     fn = _build.load("flash_attention").tony_flash_attention_resources
     out = {}
-    for which, name in ((1, "dq"), (2, "dkv")):
+    for which, name in ((0, "fwd"), (1, "dq"), (2, "dkv")):
         for d in HEAD_DIMS:
             smem, blocks = ctypes.c_int(), ctypes.c_int()
             err = fn(which, d, ctypes.byref(smem), ctypes.byref(blocks))
@@ -296,7 +297,7 @@ def _prepare(q, k, v, segment_ids):
 
 
 def _rows16(t):
-    """``t`` if the bf16 backward's 16-byte row copies can read it (a
+    """``t`` if the bf16 kernels' 16-byte row copies can read it (a
     16-byte aligned base, strides of 8-element multiples), else a
     contiguous copy."""
     if t.data_ptr() % 16 == 0 and all(
@@ -340,6 +341,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True, window: int = 0,
             return flash_attention_reference(q, k, v, causal, window,
                                              segment_ids, return_lse=True)
     seg = _prepare(q, k, v, segment_ids)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_rows16(t) for t in (q, k, v))
     b, lq, h, d = q.shape
     out = torch.empty(b, lq, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b * h, lq, dtype=torch.float32, device=q.device)

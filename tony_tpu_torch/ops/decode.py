@@ -5,7 +5,10 @@ Counterpart of ``tony_tpu/ops/decode.py``, whose two Pallas kernels
 (``_decode_kernel``, the GQA form, and ``_decode_kernel_mha``) compute
 the one function ported here. ``flash_decode`` launches the CUDA kernel
 for a CUDA tensor and runs ``flash_decode_reference`` only for a tensor
-on the CPU; a CUDA call that cannot launch raises.
+on the CPU; a CUDA call that cannot launch raises. A bf16 q over a bf16
+or int8 cache at head dim 64 or 128 takes the kernel's tensor-core route;
+the other pairs take its SIMT route (the CUDA source decides; ``plan``
+reports it).
 
 ``quantize_kv`` / ``dequantize_kv`` are the int8 cache's
 quantize-on-write recipe, bit for bit the JAX package's.
@@ -14,11 +17,18 @@ quantize-on-write recipe, bit for bit the JAX package's.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 NEG_INF = -1e30
 TILE_KEYS = 64  # keys per tile in csrc/flash_decode.cu (TK)
+STAGES = 2      # K/V tiles a tensor-core block keeps in flight (STAGES)
+TC_HEAD_DIMS = (64, 128)
+# K/V bytes an SM keeps in flight to draw its share of the card's memory
+# rate: 3.35 TB/s over 132 SMs is about 25 KB a microsecond, and a load
+# under full traffic takes a microsecond or two, so 64 KiB leaves room
+IN_FLIGHT_BYTES = 64 * 1024
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -51,12 +61,71 @@ def _kernel():
     return fn
 
 
-def _n_splits(b: int, kvh: int, extent: int, device) -> int:
-    """KV splits per (row, KV head): about two blocks per SM, and no
-    split shorter than one tile of the most keys a row can see."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-2 * sms // max(1, b * kvh))
+@functools.lru_cache(maxsize=None)
+def _kernel_route(kv_dtype, q_dtype, d: int) -> int:
+    """The CUDA source's route for a dtype pair and head dim: 1 the
+    tensor cores, 0 SIMT, -1 not built."""
+    from tony_tpu_torch.ops import _build
+
+    fn = _build.load("flash_decode").tony_flash_decode_route
+    return fn(_DTYPE_CODES[kv_dtype], _DTYPE_CODES[q_dtype], d)
+
+
+def kernel_resources() -> dict:
+    """The tensor-core kernel for each cache dtype at each head dim: its
+    dynamic shared memory (bytes) and blocks per SM, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports them."""
+    from tony_tpu_torch.ops import _build
+
+    fn = _build.load("flash_decode").tony_flash_decode_resources
+    out = {}
+    for code, name in ((1, "bf16"), (2, "int8")):
+        for d in TC_HEAD_DIMS:
+            smem, blocks = ctypes.c_int(), ctypes.c_int()
+            err = fn(code, d, ctypes.byref(smem), ctypes.byref(blocks))
+            if err != 0:
+                raise RuntimeError(f"occupancy query for the {name} cache "
+                                   f"at D={d} failed: CUDA error {err}")
+            out[(name, d)] = {"smem": smem.value, "blocks": blocks.value}
+    return out
+
+
+def block_bytes(kv_dtype, d: int) -> int:
+    """The K/V (and int8 scale) bytes one tensor-core block keeps in
+    flight: STAGES tiles of TILE_KEYS keys."""
+    scales = 2 * TILE_KEYS * 4 if kv_dtype == torch.int8 else 0
+    return STAGES * (2 * TILE_KEYS * d * kv_dtype.itemsize + scales)
+
+
+def n_splits(b: int, kvh: int, extent: int, sm_count: int,
+             in_flight: int | None = None, mtiles: int = 1) -> int:
+    """KV splits per (row, KV head, m-tile of 16 query rows), the rule of
+    both routes: enough blocks that every SM holds its share of loads in
+    flight, and no split shorter than one tile of the most keys a row can
+    see (``extent``).
+
+    The tensor-core route double-buffers its tiles, so an SM needs
+    ceil(IN_FLIGHT_BYTES / ``in_flight``) of its blocks, ``in_flight``
+    being a block's ``block_bytes``: 1 for a bf16 cache at D = 128 (64
+    KiB a block), 2 for an int8 one (33 KiB). The SIMT route (``in_flight`` None) keeps no load in flight while it
+    computes and takes two blocks an SM."""
+    per_sm = 2 if in_flight is None else -(-IN_FLIGHT_BYTES // in_flight)
+    want = -(-per_sm * sm_count // max(1, b * kvh * mtiles))
     return max(1, min(want, -(-extent // TILE_KEYS)))
+
+
+def plan(q, k, window: int = 0) -> tuple[bool, int]:
+    """(tensor-core route, KV splits) for a CUDA call on these tensors:
+    ``n_splits`` with the card's SM count."""
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    tc = _kernel_route(k.dtype, q.dtype, d) == 1
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    extent = min(s, window) if window > 0 else s
+    if not tc:
+        return False, n_splits(b, kvh, extent, sms)
+    return True, n_splits(b, kvh, extent, sms, block_bytes(k.dtype, d),
+                          mtiles=-(-(h // kvh) // 16))
 
 
 def _lengths(length, b: int, device) -> torch.Tensor:
@@ -172,28 +241,32 @@ def flash_decode(q, k, v, length, *, window: int = 0, k_scale=None,
     if d % vec:
         raise ValueError(f"head dim {d} must be a multiple of {vec} for "
                          f"16-byte loads of a {k.dtype} cache")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_decode reads k and v in 16-byte chunks: "
+                         "they must be 16-byte aligned")
     # a length past the cache's S positions sees all S of them, a
-    # negative one sees none (the JAX kernels' mask): clamping on the
-    # device keeps the kernel inside the buffer without a host sync
-    lengths = torch.clamp(_lengths(length, b, dev), 0, s)
+    # negative one sees none (the JAX kernels' mask): the kernels clamp
+    lengths = _lengths(length, b, dev)
     out = torch.empty_like(q)
     if b == 0:
         return out
-    nsplit = _n_splits(b, kvh, min(s, window) if window > 0 else s, dev)
+    _, nsplit = plan(q, k, window)
     # the split-KV partials: (max, sum) and the accumulator per query row
-    g = h // kvh
-    part_ml = torch.empty(b * kvh * nsplit * g * 2, dtype=torch.float32,
-                          device=dev)
-    part_acc = torch.empty(b * kvh * nsplit * g * d, dtype=torch.float32,
+    part_ml = part_acc = None
+    if nsplit > 1:
+        n_ml = b * kvh * nsplit * (h // kvh) * 2
+        part = torch.empty(n_ml * (1 + d // 2), dtype=torch.float32,
                            device=dev)
+        part_ml, part_acc = part[:n_ml], part[n_ml:]
     err = _kernel()(
         _DTYPE_CODES[k.dtype], _DTYPE_CODES[q.dtype], q.data_ptr(),
         k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
-        lengths.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
-        part_acc.data_ptr(), b, h, kvh, s, d, int(window),
-        float(d ** -0.5), nsplit,
+        lengths.data_ptr(), out.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(),
+        None if part_acc is None else part_acc.data_ptr(), b, h, kvh, s, d,
+        int(window), float(d ** -0.5), nsplit,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA "
