@@ -5,7 +5,8 @@ exits non-zero.
 1. Build: compile every CUDA kernel of ``tony_tpu_torch/csrc`` with nvcc,
    one process a source, all at once; print each kernel's registers and
    spills, and for the tensor-core kernels (flash attention forward, dQ,
-   dK/dV; flash-decode) their dynamic shared memory and blocks per SM.
+   dK/dV; flash-decode) and every q8_matmul instance their dynamic
+   shared memory and blocks per SM.
 2. Kernel against its plain version: flash-decode at Qwen2.5-1.5B shapes
    (B=8, H=12, KVH=2, D=128, S in {64, 1024, 4096}; bf16, fp32 and int8
    caches; mixed lengths with a 0; a window; one MHA shape), held per
@@ -31,9 +32,11 @@ exits non-zero.
    D=128 in bf16 (the training path's call), and fp32 at L=1024, a
    512-key window, three packed segments, L=2047 and an MHA shape with
    D=64, each output held per element to ``ops.attention.error_bound``;
-   fused AdamW over the model's whole 1.54 B-parameter leaf set (bf16
-   grads, fp32 master and moments, bf16 copy) held to one fp32 step.
-   Each kernel is timed beside its plain version, a PyTorch call that
+   fused AdamW over the model's whole 1.54 B-parameter leaf set (the
+   grads' dtype phase 8 gives it, fp32 master and moments, bf16 copy),
+   bit-equal to its plain version, with the wrapper's host time a call
+   (its table cached, and built anew) and three rounds of the kernel and
+   the library call in turn. Each kernel is timed beside its plain version, a PyTorch call that
    the port never makes (``scaled_dot_product_attention`` forward and
    backward, ``torch.optim.AdamW(fused=True)``) and its bound, with its
    achieved TFLOP/s at the training call; a second run of the bf16
@@ -51,7 +54,10 @@ exits non-zero.
 9. int8 kernels against their plain versions: q8_matmul at the four
    (k, n) shapes of Qwen2.5-1.5B's seven projections, m in {1, 8, 4096},
    fp32 and bf16 x, and one ragged shape (257, 1000, 300), each output
-   held per element to ``ops.quant.error_bound``; rmsnorm and
+   held per element to ``ops.quant.error_bound`` and a rerun bit-equal,
+   with its route, grid and K splits, the achieved TB/s or TFLOP/s
+   beside the bound and its device time by kernel from torch.profiler;
+   rmsnorm and
    add_rmsnorm at rows {8, 8192}, D=1536, bf16 and fp32. Each is timed
    beside its plain version, one PyTorch call the port never makes
    (``torch._weight_int8pack_mm`` where it runs, else ``F.linear`` on
@@ -66,8 +72,10 @@ exits non-zero.
    its RMSNorm module.
 11. int8 generation: ``generate`` at batch 8, 512-token prompts, 128
    greedy tokens, on the int8 model (bf16 activations) and on phase 4's
-   bf16 model: tokens/s, ms a decode step, launches, and the host share
-   from an untimed profiled probe.
+   bf16 model: tokens/s, ms a decode step, q8_matmul's launches by route
+   (decode steps on the decode route, prefills on the tensor cores), and
+   the host share and device busy time a step from an untimed profiled
+   probe.
 12. int8 CLI: over a 2-layer full-width checkpoint, ``cli.generate
    --int8 --token-ids``, ``cli.score --int8`` and ``cli.score``; the
    int8 nll/token within 5% of the fp32 one; ``--serve --int8`` refused.
@@ -85,6 +93,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -159,6 +168,28 @@ def cuda_time_ms(fn, reps: int, flush) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times[2:])
+
+
+def kernel_breakdown(fn, reps: int, flush, mark: str) -> dict:
+    """{kernel: (device us a call, launches a call)} of the kernels whose
+    name holds ``mark``, from ``cuda_time_ms`` run under torch.profiler
+    (device activity only): splits an event time into its kernels and
+    the gaps between them. Empty when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cuda_time_ms(fn, reps, flush)
+    calls = reps + 2  # cuda_time_ms's calls, the two warm ones included
+    out = {}
+    for r in prof.key_averages():
+        us = getattr(r, "self_device_time_total",
+                     getattr(r, "self_cuda_time_total", 0.0))
+        if mark in r.key and us > 0:
+            name = re.search(r"\w*" + re.escape(mark) + r"\w*",
+                             r.key).group(0)
+            t, n = out.get(name, (0.0, 0.0))
+            out[name] = (t + us / calls, n + r.count / calls)
+    return out
 
 
 def decode_bound(q, k, length, window: int) -> tuple[float, str]:
@@ -322,10 +353,13 @@ def ptxas_entries(report: str) -> dict:
 
 
 def phase_build(ctx) -> None:
+    import torch
+
     from tony_tpu_torch.ops import _build
     from tony_tpu_torch.ops.attention import kernel_resources
     from tony_tpu_torch.ops.decode import \
         kernel_resources as decode_resources
+    from tony_tpu_torch.ops.quant import kernel_resources as q8_resources
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -356,6 +390,24 @@ def phase_build(ctx) -> None:
               f"{info[0] if info else 'ptxas report not captured (built before)'}"
               f"; {r['smem']} B dynamic shared memory, {r['blocks']} "
               f"block(s) of 128 threads per SM")
+    # q8_matmul's instances (bf16 output): the decode route per x dtype
+    # and row count, the tensor-core route and the SIMT tile
+    entries = ptxas_entries(_build.ptxas_report.get("q8_matmul", ""))
+    for (route, dt, rows), r in q8_resources().items():
+        kern = (f"q8_decode_kernelI13__nv_bfloat16Li{rows}EE"
+                if dt == torch.float32 else
+                f"q8_decode_tc_kernelI13__nv_bfloat16Li{rows // 8}EE")
+        name, key = {
+            0: (f"decode<{str(dt)[6:]} x, {rows} rows>", kern),
+            1: ("tensor cores<bf16 x>", "q8_tc_kernelI13__nv_bfloat16E"),
+            2: ("SIMT tile<fp32 x>",
+                "q8_matmul_kernelIf13__nv_bfloat16Li128ELi128ELi32E"),
+        }[route]
+        info = ["; ".join(v) for e, v in entries.items() if key in e]
+        print(f"phase 1 q8_matmul {name} (bf16 out): "
+              f"{info[0] if info else 'ptxas report not captured (built before)'}"
+              f"; {r['smem']} B dynamic shared memory, {r['blocks']} "
+              f"block(s) of 256 threads per SM")
 
 
 def phase_kernel(ctx) -> None:
@@ -1046,6 +1098,7 @@ def measure_adamw(flush) -> dict:
                   f"{excess:.3g}")
             err = max(err, diff.max().item())
             bit_equal = bit_equal and torch.equal(got, want)
+    check(bit_equal, "fused AdamW is not bit-equal to its plain version")
     n_el = sum(t.numel() for t in params.values())
     # read g, p, mu, nu; write p, mu, nu and the bf16 copy
     nbytes = n_el * (gdt.itemsize + 3 * 4 + 3 * 4 + 2)
@@ -1063,22 +1116,42 @@ def measure_adamw(flush) -> dict:
                 b1=opt.b1, b2=opt.b2, eps=opt.eps, wd=opt.weight_decay,
                 copy=ref_s.compute_params[n])
 
-    ms = cuda_time_ms(kernel, 5, flush)
+    def host_ms(reps: int, rebuild: bool) -> float:
+        """The wrapper's host time a call, a sync on each side; with
+        ``rebuild`` its table cache emptied first, so the call builds
+        and uploads the table, as every call did before the cache."""
+        host = []
+        for _ in range(reps):
+            if rebuild:
+                adw._tables.clear()
+            sync()
+            t0 = time.perf_counter()
+            kernel()
+            host.append(time.perf_counter() - t0)
+            sync()
+        return statistics.median(host) * 1e3
+
+    host = {"cached": host_ms(10, False), "built": host_ms(5, True)}
     plain_ms = cuda_time_ms(plain, 3, flush)
-    del kernel, plain, state, ref_s
+    del plain, ref_s
     # the yardstick: PyTorch's fused AdamW on the same params and grads
     # (fp32: its fused path needs grads of the params' dtype), no copy
     lib_params = list(ref_p.values())
     for n, t in zip(ref_p, lib_params):
         t.grad = grads[n].float()
-    del grads
     lib = torch.optim.AdamW(lib_params, lr=3e-4, weight_decay=1e-4,
                             fused=True)
     lib.step()
-    library_ms = cuda_time_ms(lib.step, 5, flush)
-    del lib, lib_params, ref_p, params
-    return {"max_abs_err": err, "bit_equal": bit_equal, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "n": n_el,
+    # kernel and library in turn, three rounds: the spread between
+    # rounds of one call says how far apart two readings may fall
+    rounds = [(cuda_time_ms(kernel, 5, flush),
+               cuda_time_ms(lib.step, 5, flush)) for _ in range(3)]
+    del kernel, lib, lib_params, ref_p, params, state, grads
+    return {"max_abs_err": err, "bit_equal": bit_equal,
+            "ms": statistics.median(r[0] for r in rounds),
+            "library_ms": statistics.median(r[1] for r in rounds),
+            "rounds": rounds, "host_ms": host["cached"],
+            "host_built_ms": host["built"], "plain_ms": plain_ms, "n": n_el,
             "nbytes": nbytes,
             "bound": (t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations")}
@@ -1153,7 +1226,13 @@ def phase_train_kernels(ctx) -> None:
           f"{a['bit_equal']}; kernel {a['ms']:.3f} ms, plain "
           f"{a['plain_ms']:.3f} ms, torch AdamW(fused) {a['library_ms']:.3f}"
           f" ms, bound {a['bound'][0]:.3f} ms ({a['bound'][1]}, "
-          f"{a['nbytes'] / 1e9:.1f} GB) [{ctx['card']}]")
+          f"{a['nbytes'] / 1e9:.1f} GB), {a['nbytes'] / a['ms'] / 1e9:.3f} "
+          f"TB/s ({a['bound'][0] / a['ms']:.3f} of the bound); the "
+          f"wrapper's host time {a['host_ms']:.3f} ms a call, "
+          f"{a['host_built_ms']:.3f} ms when it builds its table "
+          f"[{ctx['card']}]")
+    print("  kernel / AdamW(fused) by round (medians of 5 calls): "
+          + ", ".join(f"{k:.3f} / {lib:.3f} ms" for k, lib in a["rounds"]))
     torch.cuda.empty_cache()
 
 
@@ -1490,6 +1569,9 @@ def measure_q8(ctx, x, w_q, scale, reps=10) -> dict:
     del before
     want = quant.q8_matmul_reference(x, w_q, scale)
     limit = quant.error_bound(x, w_q, scale, want)
+    check(torch.equal(quant.q8_matmul(x, w_q, scale), got),
+          f"q8_matmul x{tuple(x.shape)} {x.dtype} w{tuple(w_q.shape)}: a "
+          f"rerun gave other bits")
     diff = (got.float() - want.float()).abs()
     check(bool(torch.isfinite(got.float()).all()), "q8_matmul not finite")
     worst = (diff / limit.clamp_min(1e-30)).max().item()
@@ -1505,8 +1587,24 @@ def measure_q8(ctx, x, w_q, scale, reps=10) -> dict:
         lambda: quant.q8_matmul_reference(x, w_q, scale), reps,
         ctx["flush"])
     library_ms = cuda_time_ms(lib, reps, ctx["flush"])
+    parts = kernel_breakdown(lambda: quant.q8_matmul(x, w_q, scale), reps,
+                             ctx["flush"], "q8_")
     bound_ms, bound_by = q8_bound(x, w_q, x.dtype)
+    m, k = x.shape
+    n = w_q.shape[1]
+    p = quant.plan(m, n, k, x.dtype, quant._sms(x.device.index))
+    check(quant.kernel_route(x.dtype, m) == p.route,
+          f"q8_matmul m={m} {x.dtype}: the CUDA source routes "
+          f"{quant.kernel_route(x.dtype, m)}, the plan {p.route}")
+    # achieved: bytes (x, weights, scales, out) or flops over the time
+    nbytes = x.numel() * x.element_size() + k * n + 4 * n \
+        + m * n * x.element_size()
+    rate = (f"{nbytes / ms / 1e9:.3f} TB/s" if bound_by == "bytes"
+            else f"{2.0 * m * k * n / ms / 1e9:.1f} TFLOP/s")
     return {"max_abs_err": err, "of_limit": worst, "ms": ms,
+            "route": ("decode", "tensor cores", "SIMT tile")[p.route],
+            "grid": p.grid, "splits": p.splits, "rate": rate,
+            "parts": parts,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library": route, "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1593,13 +1691,21 @@ def phase_int8_kernels(ctx) -> None:
                 rows.append({"proj": name, "m": m, "k": k, "n": n,
                              "dtype": str(dtype).split(".")[-1], **r})
                 print(f"phase 9 q8_matmul {name} m={m} k={k} n={n} "
-                      f"{rows[-1]['dtype']}: max abs err "
+                      f"{rows[-1]['dtype']}: route {r['route']}, grid "
+                      f"{r['grid']} ({r['splits']} K splits); max abs err "
                       f"{r['max_abs_err']:.3g} ({r['of_limit']:.3f} of its "
-                      f"limit); kernel {r['ms'] * 1e3:.1f} us, plain "
+                      f"limit), rerun bit-equal; kernel "
+                      f"{r['ms'] * 1e3:.1f} us = {r['rate']} "
+                      f"({r['bound_ms'] / r['ms']:.3f} of the bound), plain "
                       f"{r['plain_ms'] * 1e3:.1f} us, {r['library']} "
                       f"{r['library_ms'] * 1e3:.1f} us, bound "
                       f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}) "
                       f"[{ctx['card']}]")
+                parts = "; ".join(
+                    f"{k_} {t:.1f} us x {c:.0f}"
+                    for k_, (t, c) in r["parts"].items()) or "not measured"
+                print(f"  device time by kernel (torch.profiler, a call): "
+                      f"{parts}; events {r['ms'] * 1e3:.1f} us")
                 del x
         del w_q, scale
     ctx["q8_rows"] = rows
@@ -1839,32 +1945,44 @@ def phase_int8_generate(ctx) -> None:
                            device=DEVICE, generator=gen)
     res = {}
     q8_matmul.launches = 0
+    q8_matmul.route_launches[:] = [0, 0, 0]
     res["int8"] = time_generate(ctx, q16, prompt)
     launches = q8_matmul.launches
-    # the timed run: warm-up (2 forwards), generate, prefill, 16 probe steps
-    fwds = 2 + INT8_NEW + 1 + 16
-    check(launches == 7 * cfg.n_layers * fwds,
-          f"q8_matmul launched {launches} times, expected 7 x "
-          f"{cfg.n_layers} x {fwds} forwards")
-    ctx["q8_launches"] = launches
-    # the largest decode call of the path (wg/wi at m = batch), captured
-    # from one more step for the kernel line
+    routes = list(q8_matmul.route_launches)
+    # the timed run: warm-up (a 16-token prefill and a step), generate (a
+    # prefill and INT8_NEW - 1 steps), a prefill, 16 probe steps; every
+    # step (m = batch) takes the decode route, every prefill (bf16 x) the
+    # tensor cores
+    prefills, steps = 3, 1 + INT8_NEW - 1 + 16
+    per = 7 * cfg.n_layers
+    check(launches == per * (prefills + steps) and routes == [
+        per * steps, per * prefills, 0],
+          f"q8_matmul launched {launches} times, by route {routes}; "
+          f"expected 7 x {cfg.n_layers} x ({steps} decode + {prefills} "
+          f"prefill forwards)")
+    ctx["q8_launches"] = routes
+    # the largest decode and prefill calls of the path (wg/wi at m =
+    # batch and m = batch x prompt), captured from one more step and one
+    # more prefill for the kernel line
     captured = {}
     real = tmod.q8_matmul
 
     def capture(x, w_q, scale):
-        if x.shape[0] == INT8_BATCH and w_q.shape[1] > captured.get("n", 0):
-            captured.update(n=w_q.shape[1], args=(x.clone(), w_q, scale))
+        key = x.shape[0]
+        if w_q.shape[1] > captured.get(key, (0,))[0]:
+            captured[key] = (w_q.shape[1], (x.clone(), w_q, scale))
         return real(x, w_q, scale)
 
-    cache = init_cache(q16, INT8_BATCH, 16)
     tmod.q8_matmul = capture
     try:
-        single_decode_step(q16, cache, prompt[:, 0])
+        single_decode_step(q16, init_cache(q16, INT8_BATCH, 16), prompt[:, 0])
+        with torch.no_grad():
+            q16(prompt, decode=True, cache=init_cache(q16, INT8_BATCH))
     finally:
         tmod.q8_matmul = real
-    ctx["q8_captured"] = captured["args"]
-    del q16, cache
+    ctx["q8_captured"] = {"decode": captured[INT8_BATCH][1],
+                          "prefill": captured[INT8_BATCH * INT8_PROMPT][1]}
+    del q16
     torch.cuda.empty_cache()
     bf16 = Transformer(qwen_config(dtype=torch.bfloat16), device=DEVICE) \
         .init_weights(torch.Generator(device=DEVICE).manual_seed(SEED))
@@ -1882,7 +2000,8 @@ def phase_int8_generate(ctx) -> None:
               f"step under the profiler, {r['probe_ms']:.2f} ms a step "
               f"unprofiled) [{ctx['card']}]")
     print(f"phase 11 q8_matmul launches in the int8 run: {launches} = 7 x "
-          f"{cfg.n_layers} x {fwds} forwards")
+          f"{cfg.n_layers} x ({steps} decode steps on the decode route + "
+          f"{prefills} prefills on the tensor cores)")
     ctx["int8_generate"] = res
 
 
@@ -1955,23 +2074,30 @@ def phase_int8_cli(ctx) -> None:
 
 
 def int8_kernel_lines(ctx) -> list[dict]:
-    """q8_matmul at the path's largest decode call (wg/wi, m = batch,
-    bf16 x), replayed; the norms at rows 8192, bf16."""
-    x, w_q, scale = ctx["q8_captured"]
-    m = measure_q8(ctx, x, w_q, scale)
-    print(f"q8_matmul at the int8 path's largest decode call (m={x.shape[0]}"
-          f" k={x.shape[1]} n={w_q.shape[1]} {x.dtype}): max abs err "
-          f"{m['max_abs_err']:.3g} ({m['of_limit']:.3f} of its limit); "
-          f"kernel {m['ms'] * 1e3:.1f} us, plain {m['plain_ms'] * 1e3:.1f} "
-          f"us, {m['library']} {m['library_ms'] * 1e3:.1f} us, bound "
-          f"{m['bound_ms'] * 1e3:.2f} us ({m['bound_by']}) [{ctx['card']}]")
-    lines = [{"name": "q8_matmul", "route": "cuda",
-              "source": "tony_tpu_torch/csrc/q8_matmul.cu",
-              "replaces": "tony_tpu/ops/quant.py:42",
-              "launches": ctx["q8_launches"],
-              "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-              "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-              "bound_by": m["bound_by"], "library_ms": m["library_ms"]}]
+    """q8_matmul at the path's largest decode call (wg/wi, m = batch, bf16
+    x: the decode route) and its largest prefill call (wg/wi, m = batch x
+    prompt: the tensor cores), replayed; the norms at rows 8192, bf16."""
+    lines = []
+    for i, call in enumerate(("decode", "prefill")):
+        x, w_q, scale = ctx["q8_captured"][call]
+        m = measure_q8(ctx, x, w_q, scale, reps=10 if i == 0 else 5)
+        print(f"q8_matmul at the int8 path's largest {call} call "
+              f"(m={x.shape[0]} k={x.shape[1]} n={w_q.shape[1]} {x.dtype}, "
+              f"route {m['route']}, grid {m['grid']}): max abs err "
+              f"{m['max_abs_err']:.3g} ({m['of_limit']:.3f} of its limit); "
+              f"kernel {m['ms'] * 1e3:.1f} us = {m['rate']}, plain "
+              f"{m['plain_ms'] * 1e3:.1f} us, {m['library']} "
+              f"{m['library_ms'] * 1e3:.1f} us, bound "
+              f"{m['bound_ms'] * 1e3:.2f} us ({m['bound_by']}) "
+              f"[{ctx['card']}]")
+        lines.append({"name": f"q8_matmul_{call}", "route": "cuda",
+                      "source": "tony_tpu_torch/csrc/q8_matmul.cu",
+                      "replaces": "tony_tpu/ops/quant.py:42",
+                      "launches": ctx["q8_launches"][i],
+                      "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                      "bound_by": m["bound_by"],
+                      "library_ms": m["library_ms"]})
     for i, (name, site) in enumerate((
             ("rmsnorm", "tony_tpu/ops/fused.py:19"),
             ("add_rmsnorm", "tony_tpu/ops/fused.py:26"))):

@@ -561,6 +561,86 @@ def test_fused_adamw_kernel_writes_only_its_leaves(copy):
                                        atol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("copy", [None, torch.bfloat16])
+def test_fused_adamw_vector_and_scalar_paths_are_bit_equal(gdt, mdt, copy):
+    """Leaves of 1, 3, 5 and 65,537 elements (no whole vector, a ragged
+    tail, a tail past a chunk), a leaf whose every array starts at an odd
+    element (a scalar head before the vectors) and one whose param alone
+    does (arrays misaligned against each other: all scalar), over two
+    steps: every param, moment and copy bit-equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    sizes = {"one": 1, "three": 3, "five": 5, "chunk+1": 65537,
+             "odd": 4099, "param-odd": 1029}
+
+    def make(n, dtype, scale, odd):  # odd: a view from element 1
+        t = scale * torch.randn(n + 1, device="cuda", generator=g)
+        return t.to(dtype)[1:] if odd else t[:n].to(dtype).contiguous()
+
+    def tree(dtype, scale, which):
+        return {n: make(s, dtype, scale, n == "odd" or n == which)
+                for n, s in sizes.items()}
+
+    opt = adw.FusedAdamW(learning_rate=3e-3, weight_decay=1e-2,
+                         moment_dtype=mdt)
+    params = tree(torch.float32, 1.0, "param-odd")
+    state = adw.FusedAdamWState(
+        count=torch.zeros((), dtype=torch.int32, device="cuda"),
+        mu=tree(mdt, 1e-2, None),
+        nu={n: t.abs_() for n, t in tree(mdt, 1e-4, None).items()},
+        compute_params=None if copy is None else tree(copy, 0.0, None))
+    assert params["odd"].data_ptr() % 16 != 0
+    assert adw.vector_head([(params["odd"].data_ptr(), 4),
+                            (state.mu["odd"].data_ptr(), mdt.itemsize)]) > 0
+
+    def clone(d):
+        return None if d is None else {n: t.clone() for n, t in d.items()}
+
+    ref_p, ref_mu, ref_nu, ref_c = (clone(params), clone(state.mu),
+                                    clone(state.nu),
+                                    clone(state.compute_params))
+    for step in range(2):
+        grads = tree(gdt, 0.1, None)
+        lr, c1, c2 = adw._hyper(opt, state.count)
+        n0 = adw.fused_adamw_update.launches
+        params, state = adw.fused_adamw_update(opt, grads, state, params)
+        assert adw.fused_adamw_update.launches == n0 + 1
+        for n in sizes:
+            adw.leaf_update_reference(
+                grads[n], ref_p[n], ref_mu[n], ref_nu[n], lr, c1, c2,
+                b1=opt.b1, b2=opt.b2, eps=opt.eps, wd=opt.weight_decay,
+                copy=None if ref_c is None else ref_c[n])
+        torch.cuda.synchronize()
+        for n in sizes:
+            assert torch.equal(params[n], ref_p[n]), (step, n)
+            assert torch.equal(state.mu[n], ref_mu[n]), (step, n)
+            assert torch.equal(state.nu[n], ref_nu[n]), (step, n)
+            if copy is not None:
+                assert torch.equal(state.compute_params[n], ref_c[n]), n
+
+
+@pytest.mark.cuda
+def test_fused_adamw_cached_table_rechecks_shapes():
+    """After a step has cached the group's table, a grad shortened by a
+    view at the same address is refused, as it is on a first call, and
+    launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    opt = adw.FusedAdamW(learning_rate=3e-3)
+    params = {"w": torch.randn(4099, device="cuda")}
+    state = opt.init(params)
+    grads = {"w": torch.randn(4099, device="cuda")}
+    params, state = adw.fused_adamw_update(opt, grads, state, params)
+    n0 = adw.fused_adamw_update.launches
+    with pytest.raises(ValueError):
+        adw.fused_adamw_update(opt, {"w": grads["w"][:4095]}, state, params)
+    assert adw.fused_adamw_update.launches == n0
+
+
 # ------------------------------------------------------ int8 q8_matmul
 # Per element |got - want| <= ops.quant.error_bound: 2^-7 |want| for a
 # bf16 output (the two roundings may land one bf16 step apart) plus
@@ -568,9 +648,12 @@ def test_fused_adamw_kernel_writes_only_its_leaves(copy):
 
 from tony_tpu_torch.ops import quant as q8  # noqa: E402
 
-Q8_SHAPES = [  # m, k, n: decode and prefill tiles, ragged edges, splits
+Q8_SHAPES = [  # m, k, n: every route and x-row count, ragged edges,
+    # splits, a k that is not a multiple of a stage (64 or 32 rows)
     (1, 1536, 256), (8, 1536, 8960), (16, 8960, 1536), (17, 1000, 300),
-    (257, 1000, 300), (300, 96, 40), (5, 7, 3), (128, 1536, 1536)]
+    (257, 1000, 300), (300, 96, 40), (5, 7, 3), (128, 1536, 1536),
+    (2, 1536, 8960), (9, 1536, 8960), (15, 1536, 8960), (16, 1536, 8960),
+    (17, 1536, 8960), (8, 1000, 1536), (200, 1000, 1536)]
 
 
 def _q8_inputs(m, k, n, dtype, seed=0):
@@ -626,7 +709,8 @@ def test_q8_matmul_limit_catches_a_dropped_slice_or_scale(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 1536, 8960), (17, 1000, 300),
-                                   (257, 96, 40)])
+                                   (257, 96, 40), (257, 1000, 40),
+                                   (1, 1536, 256)])
 def test_q8_matmul_kernel_writes_only_its_outputs(shape):
     """The C entry point gets the output and the split-K scratch as
     windows into larger buffers with a canary on both sides: the
@@ -636,7 +720,7 @@ def test_q8_matmul_kernel_writes_only_its_outputs(shape):
     m, k, n = shape
     x, w_q, scale = _q8_inputs(m, k, n, torch.bfloat16, seed=1)
     want = q8.q8_matmul(x, w_q, scale)
-    skinny, splits, kps = q8.plan(m, n, k, x.device)
+    p = q8.plan(m, n, k, x.dtype, q8._sms(x.device.index))
     pad = 4096
 
     def guarded(count, dtype):
@@ -645,16 +729,76 @@ def test_q8_matmul_kernel_writes_only_its_outputs(shape):
         return buf, buf[pad:pad + count]
 
     out_buf, out = guarded(m * n, torch.bfloat16)
-    part_buf, part = guarded(splits * m * n, torch.float32)
-    err = q8._kernel()[0](
+    part_buf, part = guarded(p.splits * m * n, torch.float32)
+    err = q8._lib().tony_q8_matmul(
         1, 1, x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), part.data_ptr(), m, n, k, splits, kps, int(skinny),
+        out.data_ptr(), part.data_ptr(), m, n, k, p.route, p.splits, p.kps,
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
     for buf in (out_buf, part_buf):
         assert (buf[:pad] == -7.25).all() and (buf[-pad:] == -7.25).all()
     assert torch.equal(out.view(m, n), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1536, 8960), (1, 1536, 256),
+                                   (16, 8960, 1536), (4096, 1536, 8960),
+                                   (17, 1000, 300), (300, 1000, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8_matmul_rerun_gives_the_same_bits(shape, dtype):
+    """Split-K sums add in split order and the warps' sums in warp order
+    (no float atomics): a second and third call give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x, w_q, scale = _q8_inputs(*shape, dtype, seed=3)
+    first = q8.q8_matmul(x, w_q, scale)
+    for _ in range(2):
+        assert torch.equal(q8.q8_matmul(x, w_q, scale), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,dtype,route", [
+    (8, torch.bfloat16, 0), (4096, torch.bfloat16, 1),
+    (8, torch.float32, 0), (4096, torch.float32, 2), (16, torch.bfloat16, 0),
+    (17, torch.bfloat16, 1)])
+def test_q8_matmul_route_by_rows_and_dtype(m, dtype, route):
+    """The CUDA source's route (tony_q8_matmul_route) is the plan's: the
+    decode route at m = 8, the tensor cores at m = 4096 for a bf16 x."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    assert q8.kernel_route(dtype, m) == route
+    assert q8.plan(m, 8960, 1536, dtype, 132).route == route
+    x, w_q, scale = _q8_inputs(m, 1536, 8960, dtype, seed=4)
+    got = q8.q8_matmul(x, w_q, scale)
+    want = q8.q8_matmul_reference(x, w_q, scale)
+    _within(got, want, q8.error_bound(x, w_q, scale, want), "q8_matmul")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 1536, 8960), (1, 1000, 300),
+                                   (300, 1536, 1536), (33, 999, 257)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8_matmul_reads_x_at_an_odd_offset(m, k, n, dtype):
+    """x a contiguous view whose base sits one element into its buffer
+    (not 16-byte aligned), and the weights one byte into theirs: the
+    kernel takes its element-wise loads, agrees with the plain version
+    and gives the bits of an aligned call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x0, w0, scale = _q8_inputs(m, k, n, dtype, seed=5)
+    xb = torch.empty(m * k + 1, dtype=dtype, device="cuda")
+    xb[1:].copy_(x0.reshape(-1))
+    x = xb[1:].view(m, k)
+    wb = torch.empty(k * n + 1, dtype=torch.int8, device="cuda")
+    wb[1:].copy_(w0.reshape(-1))
+    w_q = wb[1:].view(k, n)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got = q8.q8_matmul(x, w_q, scale)
+    want = q8.q8_matmul_reference(x, w_q, scale)
+    _within(got, want, q8.error_bound(x, w_q, scale, want), "q8_matmul")
+    # the same values land in shared memory either way: the same bits
+    assert torch.equal(got, q8.q8_matmul(x0, w0, scale))
 
 
 @pytest.mark.cuda

@@ -31,6 +31,7 @@ Differences from the JAX module, each deliberate:
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -112,6 +113,13 @@ def leaf_update_reference(g, p, mu, nu, lr, c1, c2, *, b1, b2, eps, wd,
                    else p)
 
 
+# the kernel's constants (csrc/adamw.cu), mirrored for the tables; the
+# loaded library is checked against them
+CHUNK = 65536  # elements a chunk of the table
+VEC = 4  # elements a vector load
+_TABLE_CACHE = 8  # device tables kept, by the group's pointers and sizes
+
+
 def _kernel():
     from tony_tpu_torch.ops import _build
 
@@ -123,68 +131,145 @@ def _kernel():
             + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_float] * 6 \
             + [ctypes.c_void_p]
         lib.tony_adamw_chunk.restype = ctypes.c_longlong
-    return fn, int(lib.tony_adamw_chunk())
+        if (lib.tony_adamw_chunk(), lib.tony_adamw_vec()) != (CHUNK, VEC):
+            raise RuntimeError("csrc/adamw.cu and ops/adamw.py disagree on "
+                               "CHUNK or VEC")
+    return fn, CHUNK
 
 
-def _table(group: list, device, chunk: int) -> tuple[torch.Tensor, int]:
-    """(device table, chunk count) for one launch, in one int64 tensor:
-    six words a leaf (its pointers and size, as ``Leaf`` in the kernel),
-    then each chunk's leaf, then each chunk's offset in its leaf. It is
-    built from this call's pointers (a step's grads are new tensors) and
-    goes up by one asynchronous copy from page-locked memory, so the host
-    does not wait for the card."""
-    sizes = np.array([p.numel() for _, p, _, _, _ in group], dtype=np.int64)
-    counts = -(-sizes // chunk)
+def vector_head(arrays: list[tuple[int, int]]) -> int:
+    """The first element at which every array of a leaf, given as (data
+    pointer, element size), sits on a VEC-element boundary: the start of
+    the kernel's vector body. -1 when no element does (arrays misaligned
+    against each other); the whole leaf then takes the scalar loop."""
+    heads = {(-(ptr // size)) % VEC for ptr, size in arrays}
+    if len(heads) != 1 or any(ptr % size for ptr, size in arrays):
+        return -1
+    return heads.pop()
+
+
+def chunk_table(sizes, heads) -> tuple[np.ndarray, np.ndarray]:
+    """(leaf, offset) of every chunk of a group: a leaf of n elements
+    with vector head h takes max(1, ceil((n - h) / CHUNK)) chunks (none
+    if n is 0), at offsets 0, CHUNK, 2 CHUNK, ... (see ``chunk_span``)."""
+    sizes = np.asarray(sizes, dtype=np.int64)
+    h = np.maximum(np.asarray(heads, dtype=np.int64), 0)
+    counts = np.where(sizes > 0,
+                      np.maximum(1, -(-(sizes - h) // CHUNK)), 0)
     n_chunks = int(counts.sum())
-    leaf_of = np.repeat(np.arange(len(group), dtype=np.int64), counts)
+    leaf_of = np.repeat(np.arange(len(sizes), dtype=np.int64), counts)
     first = np.cumsum(counts) - counts
-    offset = (np.arange(n_chunks, dtype=np.int64) - first[leaf_of]) * chunk
-    leaves = np.array(
-        [[g.data_ptr(), p.data_ptr(), mu.data_ptr(), nu.data_ptr(),
-          0 if c is None else c.data_ptr(), p.numel()]
-         for g, p, mu, nu, c in group], dtype=np.int64)
-    host = torch.from_numpy(np.concatenate([leaves.ravel(), leaf_of,
-                                            offset])).pin_memory()
-    return host.to(device, non_blocking=True), n_chunks
+    offset = (np.arange(n_chunks, dtype=np.int64) - first[leaf_of]) * CHUNK
+    return leaf_of, offset
 
 
-def _launch_groups(opt: FusedAdamW, items: list, hyp: torch.Tensor) -> None:
-    """One kernel launch per (grad, moment, copy) dtype group of float
-    leaves on the GPU."""
-    groups: dict[tuple, list] = {}
-    for g, p, mu, nu, c in items:
-        if p.dtype != torch.float32:
-            raise ValueError(f"fused AdamW keeps fp32 master params, got "
-                             f"{p.dtype}")
-        if g.dtype not in _DTYPE_CODES or mu.dtype not in _DTYPE_CODES \
-                or nu.dtype != mu.dtype \
-                or (c is not None and c.dtype not in _DTYPE_CODES):
-            raise ValueError(f"fused AdamW takes fp32/bf16 grads, moments "
-                             f"and copies, got {g.dtype}, {mu.dtype}, "
-                             f"{nu.dtype}, {None if c is None else c.dtype}")
-        ts = [g, p, mu, nu] + ([c] if c is not None else [])
+def chunk_span(offset: int, head: int, n: int) -> tuple[int, int, int, int]:
+    """The kernel's split of one chunk of a leaf (n elements, vector head
+    ``head`` or -1): (start, vector start, whole vectors, end). The
+    chunk covers [start, end); [start, vector start) and what follows
+    the vectors run the scalar loop."""
+    h = max(head, 0)
+    start = 0 if offset == 0 else offset + h
+    end = min(offset + CHUNK + h, n)
+    vs = max(start, h) if head >= 0 else start
+    nv = (end - vs) // VEC if head >= 0 and end > vs else 0
+    return start, vs, nv, end
+
+
+_tables: OrderedDict = OrderedDict()
+
+
+def _check_group(group: list) -> None:
+    """The kernel's rules for one dtype group's leaves: fp32 masters,
+    fp32/bf16 grads, moments and copies, one device and one shape a
+    leaf, all contiguous."""
+    g, p, mu, nu, c = group[0]
+    if p.dtype != torch.float32:
+        raise ValueError(f"fused AdamW keeps fp32 master params, got "
+                         f"{p.dtype}")
+    if g.dtype not in _DTYPE_CODES or mu.dtype not in _DTYPE_CODES \
+            or nu.dtype != mu.dtype \
+            or (c is not None and c.dtype not in _DTYPE_CODES):
+        raise ValueError(f"fused AdamW takes fp32/bf16 grads, moments "
+                         f"and copies, got {g.dtype}, {mu.dtype}, "
+                         f"{nu.dtype}, {None if c is None else c.dtype}")
+    for leaf in group:
+        p = leaf[1]
+        ts = [t for t in leaf if t is not None]
         if any(t.device != p.device for t in ts):
             raise ValueError("a leaf's grad, param, moments and copy must "
                              "share one device")
         if any(t.shape != p.shape or not t.is_contiguous() for t in ts):
             raise ValueError("fused AdamW needs contiguous leaves of one "
                              "shape")
-        key = (g.dtype, mu.dtype, None if c is None else c.dtype)
-        groups.setdefault(key, []).append((g, p, mu, nu, c))
+
+
+def table_key(key: tuple, group: list) -> tuple[tuple, tuple]:
+    """(cache key, words) of one dtype group: ``words`` holds each leaf's
+    pointers and size, as the device table does; the key adds the shape
+    of every array, so a key seen before names the very group that
+    passed ``_check_group`` then (device pointers are unique across
+    devices), but for contiguity, which a view at the same address can
+    lose."""
+    words = tuple((g.data_ptr(), p.data_ptr(), mu.data_ptr(), nu.data_ptr(),
+                   0 if c is None else c.data_ptr(), p.numel())
+                  for g, p, mu, nu, c in group)
+    shapes = tuple(t.shape for leaf in group for t in leaf if t is not None)
+    return (group[0][1].device, key, words, shapes), words
+
+
+def _table(key: tuple, group: list) -> tuple[torch.Tensor, int]:
+    """(device table, chunk count) for one launch, in one int64 tensor:
+    seven words a leaf (its pointers, size and vector head, as ``Leaf``
+    in the kernel), then each chunk's leaf, then each chunk's offset in
+    its leaf. A table is kept by ``table_key``, which fixes all it holds
+    and all ``_check_group`` checks but contiguity, so a step whose
+    tensors did not move checks only that, and builds and uploads
+    nothing; a new one goes up by one asynchronous copy from page-locked
+    memory, so the host does not wait for the card."""
+    key, words = table_key(key, group)
+    hit = _tables.get(key)
+    if hit is not None and all(t.is_contiguous() for leaf in group
+                               for t in leaf if t is not None):
+        _tables.move_to_end(key)
+        return hit
+    _check_group(group)
+    heads = [vector_head([(t.data_ptr(), t.element_size())
+                          for t in leaf if t is not None]) for leaf in group]
+    leaf_of, offset = chunk_table([w[5] for w in words], heads)
+    leaves = np.array([w + (h,) for w, h in zip(words, heads)],
+                      dtype=np.int64)
+    host = torch.from_numpy(np.concatenate([leaves.ravel(), leaf_of,
+                                            offset])).pin_memory()
+    _tables[key] = hit = (host.to(key[0], non_blocking=True), len(leaf_of))
+    if len(_tables) > _TABLE_CACHE:
+        _tables.popitem(last=False)
+    return hit
+
+
+def _launch_groups(opt: FusedAdamW, items: list, hyp: torch.Tensor) -> None:
+    """One kernel launch per (grad, moment, copy) dtype group of float
+    leaves on the GPU."""
+    groups: dict[tuple, list] = {}
+    for leaf in items:
+        g, p, mu, nu, c = leaf
+        key = (g.dtype, p.dtype, mu.dtype, nu.dtype,
+               None if c is None else c.dtype)
+        groups.setdefault(key, []).append(leaf)
     if not groups:
         return
-    fn, chunk = _kernel()
+    fn = _kernel()[0]
     omb1, omb2 = 1.0 - opt.b1, 1.0 - opt.b2
-    for (gdt, mdt, cdt), group in groups.items():
-        dev = group[0][1].device
-        table, n_chunks = _table(group, dev, chunk)
+    for key, group in groups.items():
+        table, n_chunks = _table(key, group)
+        gdt, _, mdt, _, cdt = key
         at = table.data_ptr()
-        chunk_leaf = at + 8 * 6 * len(group)
+        chunk_leaf = at + 8 * 7 * len(group)
         err = fn(_DTYPE_CODES[gdt], _DTYPE_CODES[mdt],
                  -1 if cdt is None else _DTYPE_CODES[cdt], at, chunk_leaf,
                  chunk_leaf + 8 * n_chunks, n_chunks, hyp.data_ptr(), opt.b1,
                  opt.b2, omb1, omb2, opt.eps, opt.weight_decay,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 torch.cuda.current_stream(table.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"fused AdamW kernel launch failed: CUDA "
                                f"error {err}")

@@ -9,6 +9,12 @@ per-column scale once per output. ``q8_matmul`` launches the kernel for
 a CUDA tensor and runs ``q8_matmul_reference`` only for a tensor on the
 CPU; a CUDA call that cannot launch raises.
 
+The kernel has three routes (``plan``, ``route_of``): DECODE streams
+the weight once for m <= DEC_ROWS, TENSOR_CORES runs a bf16 x above it
+on ``mma.sync``, SIMT_TILE an fp32 x above it. The launch plan is a pure
+function of the shape, x's dtype and the SM count, with the kernel's
+tile constants mirrored here (``tests/test_torch_q8_plan.py`` pins it).
+
 Unlike the JAX ``q8_matmul`` it takes any m, n and k: there is no
 m-padding (the kernel checks its bounds) and no XLA fallback for an n
 without a divisor of at least 64 (nothing in the kernel depends on one).
@@ -18,12 +24,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-SKINNY_ROWS = 16  # m at or below which the decode tile runs
-MIN_SPLIT_K = 256  # no K split shorter than this
+# the kernel's routes and tile constants (csrc/q8_matmul.cu), mirrored
+# for the plan; the loaded library is checked against them
+DECODE, TENSOR_CORES, SIMT_TILE = 0, 1, 2
+DEC_ROWS = 16  # m at or below which the decode route runs
+DEC_BN, DEC_BK, DEC_STAGES = 128, 64, 4
+DEC_MAX_SPLITS = 16  # K splits of a slab: one thread-block cluster
+DEC_BLOCKS_PER_SM = 3  # decode blocks an SM holds: the grid is one wave
+TILE_M, TILE_N, TILE_K = 128, 128, 32
+# weight bytes an SM should keep in flight on the decode route
+IN_FLIGHT_BYTES = 32 * 1024
+MIN_SPLIT_K = 256  # no K split shorter than this on routes 1 and 2
 
 
 def quantize_q8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -72,18 +88,54 @@ def error_bound(x, w_q, scale, want) -> torch.Tensor:
     return rel * want.float().abs() + 2.0 ** -14 * mag
 
 
-def _kernel():
+def _lib():
+    """The built ``csrc/q8_matmul.cu``, its entry point typed and its
+    tile constants checked against the ones mirrored here."""
     from tony_tpu_torch.ops import _build
 
     lib = _build.load("q8_matmul")
     fn = lib.tony_q8_matmul
     if fn.argtypes is None:
+        mirrored = (DEC_ROWS, DEC_BN, DEC_BK, DEC_STAGES, DEC_MAX_SPLITS,
+                    TILE_M, TILE_N, TILE_K, DEC_BLOCKS_PER_SM)
+        if tuple(lib.tony_q8_matmul_const(i) for i in range(9)) != mirrored:
+            raise RuntimeError("csrc/q8_matmul.cu and ops/quant.py disagree "
+                               "on the tile constants")
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 \
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.tony_q8_matmul_tile.restype = ctypes.c_int
-        lib.tony_q8_matmul_tile.argtypes = [ctypes.c_int, ctypes.c_int]
-    return fn, lib.tony_q8_matmul_tile
+    return lib
+
+
+def kernel_route(x_dtype, m: int) -> int:
+    """The route the CUDA source takes for x's dtype at m rows
+    (``tony_q8_matmul_route``): DECODE, TENSOR_CORES or SIMT_TILE."""
+    return _lib().tony_q8_matmul_route(_DTYPE_CODES[x_dtype], m)
+
+
+def kernel_resources() -> dict:
+    """Each instance's dynamic shared memory (bytes) and blocks per SM,
+    as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports them,
+    keyed (route, x dtype, x rows): the decode route for an fp32 x (SIMT)
+    at 1, 4, 8 and 16 rows and for a bf16 x (tensor cores) at 8 and 16,
+    the tensor-core route (bf16 x) and the SIMT tile (fp32 x), each with
+    rows 0."""
+    fn = _lib().tony_q8_matmul_resources
+    cases = [(DECODE, torch.float32, r) for r in (1, 4, 8, 16)]
+    cases += [(DECODE, torch.bfloat16, r) for r in (8, 16)]
+    cases += [(TENSOR_CORES, torch.bfloat16, 0),
+              (SIMT_TILE, torch.float32, 0)]
+    out = {}
+    for route, dt, rows in cases:
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        err = fn(route, _DTYPE_CODES[dt], rows, ctypes.byref(smem),
+                 ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"occupancy query for q8_matmul route "
+                               f"{route} ({dt}, rows {rows}) failed: CUDA "
+                               f"error {err}")
+        out[(route, dt, rows)] = {"smem": smem.value, "blocks": blocks.value}
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,20 +143,62 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan(m: int, n: int, k: int, device) -> tuple[bool, int, int]:
-    """(skinny, splits, k_per_split) for one call: the decode tile for
-    m <= SKINNY_ROWS; K split so that about two blocks run per SM, each
-    split at least MIN_SPLIT_K deep and a whole number of the tile's
-    K chunks."""
-    skinny = m <= SKINNY_ROWS
-    tile = _kernel()[1]
-    bm, bn, bk = (tile(int(skinny), i) for i in range(3))
-    tiles = -(-m // bm) * -(-n // bn)
-    want = -(-2 * _sms(device.index) // tiles)
+class Plan(NamedTuple):
+    route: int  # DECODE, TENSOR_CORES or SIMT_TILE
+    grid: tuple  # (column tiles, row tiles, K splits)
+    splits: int
+    kps: int  # K rows a split (decode: the longest), whole stages
+
+
+def route_of(m: int, x_dtype) -> int:
+    """DECODE for m <= DEC_ROWS, else TENSOR_CORES for a bf16 x and
+    SIMT_TILE for an fp32 one (the rule of ``tony_q8_matmul_route``)."""
+    if m <= DEC_ROWS:
+        return DECODE
+    return TENSOR_CORES if x_dtype == torch.bfloat16 else SIMT_TILE
+
+
+def split_stages(z: int, splits: int, k: int) -> range:
+    """The DEC_BK-row stages of k that decode split z of ``splits`` takes:
+    z, z + splits, ... (``dec_load``/``dec_nst`` in the kernel)."""
+    return range(z, -(-k // DEC_BK), splits)
+
+
+def decode_in_flight(kps: int) -> int:
+    """Weight bytes one decode block keeps in flight: up to
+    DEC_STAGES - 1 of its stages."""
+    return min(DEC_STAGES - 1, kps // DEC_BK) * DEC_BK * DEC_BN
+
+
+def plan(m: int, n: int, k: int, x_dtype, sm_count: int) -> Plan:
+    """The launch of one call, a pure function of its shape, x's dtype
+    and the card's SM count.
+
+    Decode: a block a 128-column slab and K split, the splits of a slab
+    one cluster: as many splits as fill DEC_BLOCKS_PER_SM blocks an SM in
+    one wave, at most DEC_MAX_SPLITS and one stage a split, then evened
+    out so no split takes more stages than it must. Split z of S takes
+    the stages z, z + S, ... (the kernel's order); ``kps`` is the rows of
+    the longest. Routes 1 and 2: 128 x 128 tiles; K split so that about
+    two blocks run per SM, each split at least MIN_SPLIT_K deep and a
+    whole number of TILE_K."""
+    route = route_of(m, x_dtype)
+    if route == DECODE:
+        slabs = -(-n // DEC_BN)
+        stages = max(1, -(-k // DEC_BK))
+        splits = min(max(1, DEC_BLOCKS_PER_SM * sm_count // slabs),
+                     DEC_MAX_SPLITS, stages)
+        per = -(-stages // splits)
+        splits = -(-stages // per)
+        return Plan(route, (slabs, 1, splits), splits, per * DEC_BK)
+    tiles = -(-m // TILE_M) * -(-n // TILE_N)
+    want = -(-2 * sm_count // tiles)
     splits = max(1, min(want, k // MIN_SPLIT_K))
     kps = -(-max(k, 1) // splits)
-    kps = -(-kps // bk) * bk
-    return skinny, -(-max(k, 1) // kps), kps
+    kps = -(-kps // TILE_K) * TILE_K
+    splits = -(-max(k, 1) // kps)
+    return Plan(route, (-(-n // TILE_N), -(-m // TILE_M), splits), splits,
+                kps)
 
 
 def q8_matmul(x, w_q, scale, *, out_dtype=None) -> torch.Tensor:
@@ -113,7 +207,8 @@ def q8_matmul(x, w_q, scale, *, out_dtype=None) -> torch.Tensor:
     default x's dtype), ``cast((x @ w_q) * scale)`` with fp32 sums.
 
     CPU tensors run ``q8_matmul_reference``; CUDA tensors launch the
-    kernel (``q8_matmul.launches`` counts the calls) or raise."""
+    kernel (``q8_matmul.launches`` counts the calls, and
+    ``q8_matmul.route_launches`` them by route) or raise."""
     _check(x, w_q, scale)
     out_dtype = out_dtype or x.dtype
     dev = x.device
@@ -136,19 +231,24 @@ def q8_matmul(x, w_q, scale, *, out_dtype=None) -> torch.Tensor:
     out = torch.empty(m, n, dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    skinny, splits, kps = plan(m, n, k, dev)
-    part = torch.empty(splits * m * n if splits > 1 else 0,
-                       dtype=torch.float32, device=dev)
-    err = _kernel()[0](
+    p = plan(m, n, k, x.dtype, _sms(dev.index))
+    # split-K scratch of routes 1 and 2 (the decode route adds its splits
+    # in shared memory)
+    part = torch.empty(p.splits * m * n if p.route != DECODE
+                       and p.splits > 1 else 0, dtype=torch.float32,
+                       device=dev)
+    err = _lib().tony_q8_matmul(
         _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], x.data_ptr(),
         w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        part.data_ptr() if splits > 1 else None, m, n, k, splits, kps,
-        int(skinny), torch.cuda.current_stream(dev).cuda_stream)
+        part.data_ptr() if part.numel() else None, m, n, k, p.route,
+        p.splits, p.kps, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"q8_matmul kernel launch failed: CUDA error "
                            f"{err}")
     q8_matmul.launches += 1
+    q8_matmul.route_launches[p.route] += 1
     return out
 
 
 q8_matmul.launches = 0
+q8_matmul.route_launches = [0, 0, 0]  # by route: DECODE, TENSOR_CORES, SIMT
