@@ -5,8 +5,9 @@ exits non-zero.
 1. Build: compile every CUDA kernel of ``tony_tpu_torch/csrc`` with nvcc,
    one process a source, all at once; print each kernel's registers and
    spills, and for the tensor-core kernels (flash attention forward, dQ,
-   dK/dV; flash-decode) and every q8_matmul instance their dynamic
-   shared memory and blocks per SM.
+   dK/dV; flash-decode), every q8_matmul instance and the norms'
+   one-pass instances at phase 9's widths their blocks per SM (and
+   dynamic shared memory).
 2. Kernel against its plain version: flash-decode at Qwen2.5-1.5B shapes
    (B=8, H=12, KVH=2, D=128, S in {64, 1024, 4096}; bf16, fp32 and int8
    caches; mixed lengths with a 0; a window; one MHA shape), held per
@@ -57,11 +58,15 @@ exits non-zero.
    held per element to ``ops.quant.error_bound`` and a rerun bit-equal,
    with its route, grid and K splits, the achieved TB/s or TFLOP/s
    beside the bound and its device time by kernel from torch.profiler;
-   rmsnorm and
-   add_rmsnorm at rows {8, 8192}, D=1536, bf16 and fp32. Each is timed
-   beside its plain version, one PyTorch call the port never makes
-   (``torch._weight_int8pack_mm`` where it runs, else ``F.linear`` on
-   weights dequantized ahead of time; ``F.rms_norm``) and its bound.
+   rmsnorm and add_rmsnorm at 8 and 8192 rows of D=1536 and 4096 rows
+   of D=4096 and 8192, bf16 and fp32, each held per element to
+   ``norm_limit`` with ``summed`` and a rerun bit-equal, with its launch
+   plan and its kernel time from torch.profiler beside the events. Each
+   is timed beside its plain version, one PyTorch call the port never
+   makes (``torch._weight_int8pack_mm`` where it runs, else ``F.linear``
+   on weights dequantized ahead of time; ``F.rms_norm``) and its bound;
+   rmsnorm also beside a ``copy_`` of its bytes, what this timing lets
+   the card reach.
 10. int8 model: Qwen2.5-1.5B at full width and depth, seeded random fp32
    weights converted by ``quantize_for_serving``, prefill of 8 x 512
    tokens and 16 teacher-forced decode steps with fp32 activations and
@@ -355,7 +360,7 @@ def ptxas_entries(report: str) -> dict:
 def phase_build(ctx) -> None:
     import torch
 
-    from tony_tpu_torch.ops import _build
+    from tony_tpu_torch.ops import _build, fused
     from tony_tpu_torch.ops.attention import kernel_resources
     from tony_tpu_torch.ops.decode import \
         kernel_resources as decode_resources
@@ -368,7 +373,8 @@ def phase_build(ctx) -> None:
         _build.load(name)
         for entry, info in ptxas_entries(
                 _build.ptxas_report.get(name, "")).items():
-            print(f"  {name}: {entry[:72]}: {'; '.join(info)}")
+            if "norm_onepass" not in entry:  # its instances: below
+                print(f"  {name}: {entry[:72]}: {'; '.join(info)}")
     print(f"phase 1 build: {len(_build.sources())} source(s) in "
           f"{ctx['build_s']:.1f} s (nvcc, sm_90a)")
     # the tensor-core kernels: ptxas's registers and spills, the dynamic
@@ -390,6 +396,23 @@ def phase_build(ctx) -> None:
               f"{info[0] if info else 'ptxas report not captured (built before)'}"
               f"; {r['smem']} B dynamic shared memory, {r['blocks']} "
               f"block(s) of 128 threads per SM")
+    # the norms' one-pass instances at the smoke's widths: registers,
+    # spills and blocks an SM
+    entries = ptxas_entries(_build.ptxas_report.get("fused_norms", ""))
+    mangled = {torch.float32: "f", torch.bfloat16: "13__nv_bfloat16"}
+    for d in sorted({d for _, d in NORM_CALLS}):
+        for (xd, rd), blocks in fused.kernel_resources(d).items():
+            p = fused.plan(8192, d, xd, rd, 1)
+            rt = "f" if rd in (None, torch.float32) else "S1_"
+            key = (f"norm_onepassI{mangled[xd]}{rt}Lb{int(rd is not None)}"
+                   f"ELi{p.lane_vectors}EE")
+            info = ["; ".join(v) for e, v in entries.items() if key in e]
+            print(f"phase 1 {'add_rmsnorm' if rd else 'rmsnorm'} "
+                  f"<{str(xd)[6:]}> D={d} ({p.row_warps} warp(s) a row x "
+                  f"{p.lane_vectors} vectors a lane): "
+                  f"{info[0] if info else 'ptxas report not captured (built before)'}"
+                  f"; {blocks} block(s) of {p.block_rows * p.row_warps * 32} "
+                  f"threads per SM")
     # q8_matmul's instances (bf16 output): the decode route per x dtype
     # and row count, the tensor-core route and the SIMT tile
     entries = ptxas_entries(_build.ptxas_report.get("q8_matmul", ""))
@@ -1622,17 +1645,21 @@ def norm_limit(want):
     return 2.0 ** -20 * want.abs() + 1e-7
 
 
-def measure_norms(ctx, rows: int, dtype) -> dict:
-    """rmsnorm and add_rmsnorm against their plain versions at [rows,
-    1536] (residual and output in ``dtype``, fp32 scale), inputs
-    unchanged and ``summed`` bit-equal; then the times beside the bytes
-    bound and ``F.rms_norm``."""
+NORM_CALLS = ((8, 1536), (8192, 1536), (4096, 4096), (4096, 8192))
+
+
+def measure_norms(ctx, rows: int, d: int, dtype) -> dict:
+    """rmsnorm and add_rmsnorm against their plain versions at [rows, d]
+    (residual and output in ``dtype``, fp32 scale), inputs unchanged,
+    ``summed`` bit-equal and a rerun bit-equal; then the times by events
+    beside the profiler's kernel time, the bytes bound, ``F.rms_norm``
+    and (rmsnorm) a ``copy_`` of the same bytes, with each call's
+    plan."""
     import torch
     import torch.nn.functional as F
 
     from tony_tpu_torch.ops import fused
 
-    d = QWEN25_15B["hidden_size"]
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + rows)
     x = torch.randn(rows, d, device=DEVICE, generator=gen).to(dtype)
     r = torch.randn(rows, d, device=DEVICE, generator=gen).to(dtype)
@@ -1643,6 +1670,13 @@ def measure_norms(ctx, rows: int, dtype) -> dict:
     sync()
     check(all(torch.equal(a, b) for a, b in zip((x, r, scale), before)),
           "a norm kernel wrote into its inputs")
+    del before
+    check(torch.equal(fused.rmsnorm(x, scale), out),
+          f"rmsnorm rows={rows} D={d} {dtype}: a rerun gave other bits")
+    again_n, again_s = fused.add_rmsnorm(x, r, scale)
+    check(torch.equal(again_n, normed) and torch.equal(again_s, summed),
+          f"add_rmsnorm rows={rows} D={d} {dtype}: a rerun gave other bits")
+    del again_n, again_s
     want = fused.rmsnorm_reference(x, scale)
     want_n, want_s = fused.add_rmsnorm_reference(x, r, scale)
     check(torch.equal(summed, want_s), "add_rmsnorm: summed not bit-equal")
@@ -1651,26 +1685,32 @@ def measure_norms(ctx, rows: int, dtype) -> dict:
                          ("add_rmsnorm", normed, want_n)):
         diff = (got.float() - w.float()).abs()
         worst = (diff / norm_limit(w).clamp_min(1e-30)).max().item()
-        check(worst <= 1.0, f"{name} rows={rows} {dtype}: |got - want| "
-              f"reaches {worst:.3g} of its limit")
+        check(worst <= 1.0, f"{name} rows={rows} D={d} {dtype}: |got - "
+              f"want| reaches {worst:.3g} of its limit")
         res[name] = {"max_abs_err": diff.max().item(), "of_limit": worst}
+    del want, want_n, want_s, diff
     es = x.element_size()
     w_lib = scale.to(dtype)
     flush = ctx["flush"]
-    for name, kern, plain, lib, nbytes in (
+    sms = fused._sms(x.device.index)
+    for name, kern, plain, lib, nbytes, r_dt in (
             ("rmsnorm", lambda: fused.rmsnorm(x, scale),
              lambda: fused.rmsnorm_reference(x, scale),
              lambda: F.rms_norm(x, (d,), w_lib, 1e-6),
-             rows * d * 2 * es + 4 * d),
+             rows * d * 2 * es + 4 * d, None),
             ("add_rmsnorm", lambda: fused.add_rmsnorm(x, r, scale),
              lambda: fused.add_rmsnorm_reference(x, r, scale),
              lambda: F.rms_norm(x + r, (d,), w_lib, 1e-6),
-             rows * d * 4 * es + 4 * d)):
+             rows * d * 4 * es + 4 * d, dtype)):
         res[name].update(
             ms=cuda_time_ms(kern, 10, flush),
             plain_ms=cuda_time_ms(plain, 10, flush),
             library_ms=cuda_time_ms(lib, 10, flush),
+            parts=kernel_breakdown(kern, 10, flush, "norm_"),
+            plan=fused.plan(rows, d, dtype, r_dt, sms),
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    # what this timing lets a plain copy of rmsnorm's bytes reach
+    res["rmsnorm"]["copy_ms"] = cuda_time_ms(lambda: out.copy_(x), 10, flush)
     return res
 
 
@@ -1710,17 +1750,28 @@ def phase_int8_kernels(ctx) -> None:
         del w_q, scale
     ctx["q8_rows"] = rows
     norms = {}
-    for nrows in (8, 8192):
+    for nrows, d in NORM_CALLS:
         for dtype in (torch.bfloat16, torch.float32):
-            res = measure_norms(ctx, nrows, dtype)
+            res = measure_norms(ctx, nrows, d, dtype)
             dt = str(dtype).split(".")[-1]
-            norms[(nrows, dt)] = res
+            norms[(nrows, d, dt)] = res
             for name, r in res.items():
-                print(f"phase 9 {name} rows={nrows} D=1536 {dt}: max abs "
-                      f"err {r['max_abs_err']:.3g} ({r['of_limit']:.3f} of "
-                      f"its limit); kernel {r['ms'] * 1e3:.1f} us, plain "
+                p = r["plan"]
+                route = ("one pass", "two passes")[p.route]
+                kern_us = sum(t for t, _ in r["parts"].values())
+                prof = f"{kern_us:.1f} us" if r["parts"] else "not measured"
+                copy = f", copy_ of its bytes {r['copy_ms'] * 1e3:.1f} us" \
+                    if "copy_ms" in r else ""
+                print(f"phase 9 {name} rows={nrows} D={d} {dt}: {route}, "
+                      f"{p.row_warps} warp(s) a row x {p.lane_vectors} "
+                      f"vectors a lane, {p.block_rows} row(s) a block, grid "
+                      f"{p.grid}; max abs err {r['max_abs_err']:.3g} "
+                      f"({r['of_limit']:.3f} of its limit), rerun "
+                      f"bit-equal; kernel {r['ms'] * 1e3:.1f} us by events "
+                      f"({r['bound_ms'] / r['ms']:.3f} of the bound), "
+                      f"{prof} by torch.profiler; plain "
                       f"{r['plain_ms'] * 1e3:.1f} us, F.rms_norm "
-                      f"{r['library_ms'] * 1e3:.1f} us, bound "
+                      f"{r['library_ms'] * 1e3:.1f} us{copy}, bound "
                       f"{r['bound_ms'] * 1e3:.2f} us (bytes) "
                       f"[{ctx['card']}]")
     ctx["norms"] = norms
@@ -2076,7 +2127,8 @@ def phase_int8_cli(ctx) -> None:
 def int8_kernel_lines(ctx) -> list[dict]:
     """q8_matmul at the path's largest decode call (wg/wi, m = batch, bf16
     x: the decode route) and its largest prefill call (wg/wi, m = batch x
-    prompt: the tensor cores), replayed; the norms at rows 8192, bf16."""
+    prompt: the tensor cores), replayed; the norms at 8192 bf16 rows of
+    D = 1536."""
     lines = []
     for i, call in enumerate(("decode", "prefill")):
         x, w_q, scale = ctx["q8_captured"][call]
@@ -2101,7 +2153,7 @@ def int8_kernel_lines(ctx) -> list[dict]:
     for i, (name, site) in enumerate((
             ("rmsnorm", "tony_tpu/ops/fused.py:19"),
             ("add_rmsnorm", "tony_tpu/ops/fused.py:26"))):
-        r = ctx["norms"][(8192, "bfloat16")][name]
+        r = ctx["norms"][(8192, 1536, "bfloat16")][name]
         lines.append({
             "name": name, "route": "cuda",
             "source": "tony_tpu_torch/csrc/fused_norms.cu",

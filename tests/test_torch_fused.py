@@ -39,7 +39,8 @@ def _assert_close(got: torch.Tensor, want, name: str):
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("shape", [(4, 32, 64), (8, 1536), (3, 100)])
+@pytest.mark.parametrize("shape", [(4, 32, 64), (8, 1536), (3, 100),
+                                   (2, 4096)])
 def test_rmsnorm_plain_version_matches_jax(dtype, shape):
     rng = np.random.default_rng(len(shape) + shape[-1])
     xj, xt = _pair(rng.standard_normal(shape).astype(np.float32), dtype)

@@ -828,21 +828,39 @@ def _norm_limit(want):
     return 2.0 ** -20 * want.abs() + 1e-7
 
 
+# widths on each side of every route boundary of ``fused.plan``: one warp
+# a row up to 1024 (both dtypes), two to 2048, ..., eight to 8192 (the
+# widest one-pass row), the two-pass route above it
+NORM_WIDTHS = [(8, 1536), (37, 1000), (5, 100), (1, 7), (3, 1024),
+               (2, 1025), (4, 2048), (3, 2049), (1, 4096), (2, 4097),
+               (6, 8192), (3, 8193), (2, 12289), (1, 1536)]
+
+
+def _norm_inputs(rows, d, x_dt, r_dt, s_dt, seed, offset=0):
+    """x, r and scale; with ``offset``, x and r are views one element
+    past a 16-byte boundary, so every row takes the scalar head and
+    tail (or runs element by element beside its aligned outputs)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bufs = [torch.randn(offset + rows * d, device="cuda", generator=g)
+            .to(dt) for dt in (x_dt, r_dt)]
+    x, r = (b[offset:].view(rows, d) for b in bufs)
+    scale = (1 + 0.1 * torch.randn(d, device="cuda", generator=g)).to(s_dt)
+    return x, r, scale
+
+
+NORM_DTYPES = [(torch.float32, torch.float32, torch.float32),
+               (torch.bfloat16, torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.float32, torch.bfloat16),
+               (torch.float32, torch.bfloat16, torch.float32)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d", [(8, 1536), (37, 1000), (5, 100),
-                                    (1, 7)])
-@pytest.mark.parametrize("x_dt,r_dt,s_dt", [
-    (torch.float32, torch.float32, torch.float32),
-    (torch.bfloat16, torch.bfloat16, torch.float32),
-    (torch.bfloat16, torch.float32, torch.bfloat16),
-    (torch.float32, torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("rows,d", NORM_WIDTHS)
+@pytest.mark.parametrize("x_dt,r_dt,s_dt", NORM_DTYPES)
 def test_norm_kernels_match_plain_version(rows, d, x_dt, r_dt, s_dt):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    g = torch.Generator(device="cuda").manual_seed(rows + d)
-    x = torch.randn(rows, d, device="cuda", generator=g).to(x_dt)
-    r = torch.randn(rows, d, device="cuda", generator=g).to(r_dt)
-    scale = (1 + 0.1 * torch.randn(d, device="cuda", generator=g)).to(s_dt)
+    x, r, scale = _norm_inputs(rows, d, x_dt, r_dt, s_dt, rows + d)
     before = [t.clone() for t in (x, r, scale)]
     n0 = (fused.rmsnorm.launches, fused.add_rmsnorm.launches)
     out = fused.rmsnorm(x, scale)
@@ -860,7 +878,52 @@ def test_norm_kernels_match_plain_version(rows, d, x_dt, r_dt, s_dt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1536, 100])
+@pytest.mark.parametrize("rows,d", [(9, 1536), (5, 1001), (3, 4096),
+                                    (2, 8192), (2, 12289)])
+@pytest.mark.parametrize("x_dt,r_dt,s_dt", NORM_DTYPES)
+def test_norm_kernels_take_misaligned_rows(rows, d, x_dt, r_dt, s_dt):
+    """Inputs one element off a 16-byte boundary (and, at D = 1001,
+    rows that start at every offset): the scalar head and tail, or the
+    element-by-element rows, meet the same limits, ``summed`` bit-equal,
+    and a rerun gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x, r, scale = _norm_inputs(rows, d, x_dt, r_dt, s_dt, d, offset=1)
+    assert x.data_ptr() % 16 != 0
+    out = fused.rmsnorm(x, scale)
+    normed, summed = fused.add_rmsnorm(x, r, scale)
+    want = fused.rmsnorm_reference(x, scale)
+    want_n, want_s = fused.add_rmsnorm_reference(x, r, scale)
+    assert torch.equal(summed, want_s)
+    _within(out, want, _norm_limit(want), "rmsnorm")
+    _within(normed, want_n, _norm_limit(want_n), "add_rmsnorm")
+    assert torch.equal(fused.rmsnorm(x, scale), out)
+    again_n, again_s = fused.add_rmsnorm(x, r, scale)
+    assert torch.equal(again_n, normed) and torch.equal(again_s, summed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,dtype", [(8192, 1536, torch.bfloat16),
+                                          (8192, 1536, torch.float32),
+                                          (300, 8192, torch.float32),
+                                          (64, 12289, torch.bfloat16)])
+def test_norm_kernels_rerun_bit_equal(rows, d, dtype):
+    """Many rows a block in turn (the grid is one wave, so the blocks
+    loop): a second call gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x, r, scale = _norm_inputs(rows, d, dtype, dtype, torch.float32, rows)
+    out = fused.rmsnorm(x, scale)
+    normed, summed = fused.add_rmsnorm(x, r, scale)
+    assert torch.equal(fused.rmsnorm(x, scale), out)
+    again_n, again_s = fused.add_rmsnorm(x, r, scale)
+    assert torch.equal(again_n, normed) and torch.equal(again_s, summed)
+    want = fused.rmsnorm_reference(x, scale)
+    _within(out, want, _norm_limit(want), "rmsnorm")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1536, 100, 4096])
 def test_norm_kernels_write_only_their_outputs(d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -876,14 +939,42 @@ def test_norm_kernels_write_only_their_outputs(d):
     views = [b[pad:pad + rows * d] for b in bufs]
     lib = fused._kernels()
     stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = fused.plan(rows, d, x.dtype, None, sms)
     assert lib.tony_rmsnorm(1, 0, x.data_ptr(), scale.data_ptr(),
-                            views[0].data_ptr(), rows, d, 1e-6, stream) == 0
+                            views[0].data_ptr(), rows, d, 1e-6, *p,
+                            stream) == 0
+    p = fused.plan(rows, d, x.dtype, r.dtype, sms)
     assert lib.tony_add_rmsnorm(1, 0, 0, x.data_ptr(), r.data_ptr(),
                                 scale.data_ptr(), views[1].data_ptr(),
-                                views[2].data_ptr(), rows, d, 1e-6,
+                                views[2].data_ptr(), rows, d, 1e-6, *p,
                                 stream) == 0
     torch.cuda.synchronize()
     for buf in bufs:
         assert (buf[:pad] == -7.25).all() and (buf[-pad:] == -7.25).all()
     for view, w in zip(views, (want, want_n, want_s)):
         assert torch.equal(view.view(rows, d), w)
+
+
+@pytest.mark.cuda
+def test_norm_kernels_refuse_a_plan_they_do_not_take():
+    """The entry points check the plan they are given against their own
+    rule and return -1 without launching; the library's constants are
+    the plan's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x = torch.randn(16, 1536, device="cuda")
+    scale = torch.ones(1536, device="cuda")
+    out = torch.empty_like(x)
+    lib = fused._kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    p = fused.plan(16, 1536, x.dtype, None, 132)
+    blocks = -(-16 // p.block_rows)
+    for bad in (p._replace(lane_vectors=p.lane_vectors - 1),
+                p._replace(row_warps=p.row_warps + 1),
+                p._replace(block_rows=2 * p.block_rows),
+                p._replace(route=fused.TWO_PASS), p._replace(grid=0),
+                p._replace(grid=blocks + 1)):
+        assert lib.tony_rmsnorm(0, 0, x.data_ptr(), scale.data_ptr(),
+                                out.data_ptr(), 16, 1536, 1e-6, *bad,
+                                stream) == -1
