@@ -21,11 +21,16 @@ exits non-zero.
    the plain full forward, with the float and the int8 KV cache.
 4. Serve: one Server (batch 8, paged, prefix store, flash-decode, bf16)
    answers 24 requests; every request must finish as its budget and the
-   eos ids say, the store must hit, and the kernel must have launched
-   n_layers times per decode micro-step; an untimed second pass of 8
-   long requests reads the device's busy time under torch.profiler for
-   the host share and keeps the largest flash-decode call for the
-   kernel line.
+   eos ids say, the store must hit, every decode chunk and prefill must
+   be a CUDA-graph replay or the first call at its key (none eager),
+   and the kernel must have launched n_layers times per decode
+   micro-step, replays included; the captures, their seconds and the
+   graphs' shared pool are printed. An untimed second pass of 8 long
+   requests: on one saved state, a chunk run eagerly and one replayed
+   must give the same tokens and pool bytes (4b), both are timed, and
+   the eager one keeps the largest flash-decode call for the kernel
+   line; then the device's busy time under torch.profiler gives the
+   host share with replays.
 5. CLI: a 2-layer full-width checkpoint directory read by
    ``tony_tpu_torch.cli.generate --serve`` from a pipe.
 6. Training kernels against their plain versions at Qwen2.5-1.5B shapes:
@@ -77,10 +82,12 @@ exits non-zero.
    its RMSNorm module.
 11. int8 generation: ``generate`` at batch 8, 512-token prompts, 128
    greedy tokens, on the int8 model (bf16 activations) and on phase 4's
-   bf16 model: tokens/s, ms a decode step, q8_matmul's launches by route
-   (decode steps on the decode route, prefills on the tensor cores), and
-   the host share and device busy time a step from an untimed profiled
-   probe.
+   bf16 model, its decode step replayed as a CUDA graph (every step
+   after the warm-up's first a replay) and launched eagerly, the tokens
+   equal: tokens/s, ms a decode step, q8_matmul's launches by route
+   (decode steps on the decode route, replays included, prefills on the
+   tensor cores), and the host share and device busy time a step, each
+   way, from an untimed profiled probe.
 12. int8 CLI: over a 2-layer full-width checkpoint, ``cli.generate
    --int8 --token-ids``, ``cli.score --int8`` and ``cli.score``; the
    int8 nll/token within 5% of the fp32 one; ``--serve --int8`` refused.
@@ -95,6 +102,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -599,7 +607,8 @@ def phase_serve(ctx) -> None:
             prompt = rng.integers(0, 151643, n).tolist()
         reqs.append(Request(prompt, budget, id=i))
 
-    # the timed run: serving work only (no profiler, no capture)
+    # the timed run: serving work only (no profiler, no kernel-argument
+    # capture; the graphs' first calls and captures are inside it)
     results, first = {}, {}
     flash_decode.launches = 0
     sync()
@@ -635,6 +644,16 @@ def phase_serve(ctx) -> None:
     check(launches == cfg.n_layers * c["decode_steps"] > 0,
           f"flash_decode launched {launches} times, expected "
           f"{cfg.n_layers} x {c['decode_steps']} micro-steps")
+    # every request is greedy: every chunk and every prefill is the first
+    # call at its key (eager, then captured) or a replay
+    for kind, total in (("decode", c["dispatches"]),
+                        ("prefill", c["prefills"])):
+        caps, reps = c[f"graph_{kind}_captures"], c[f"graph_{kind}_replays"]
+        check(c[f"graph_{kind}_eager"] == 0 and caps + reps == total
+              and reps > 0,
+              f"{kind}: {caps} captures + {reps} replays + "
+              f"{c[f'graph_{kind}_eager']} eager of {total} calls")
+    pool = srv.graphs.pool_bytes()
     gen_tokens = sum(len(res.tokens) for res in results.values())
     ttft = sorted(first[r.id] for r in reqs)
     p50 = ttft[len(ttft) // 2]
@@ -647,25 +666,61 @@ def phase_serve(ctx) -> None:
           f"hits {c['prefix_hits']} ({c['prefix_hit_tokens']} tokens); "
           f"flash_decode launches {launches} = {cfg.n_layers} x "
           f"{c['decode_steps']} [{ctx['card']}]")
+    print(f"phase 4 graphs: {c['graph_decode_captures']} chunk keys "
+          f"captured, {c['graph_decode_replays']} chunk replays; "
+          f"{c['graph_prefill_captures']} prefill keys captured, "
+          f"{c['graph_prefill_replays']} prefill replays; 0 eager; "
+          f"{c['graph_capture_s']:.2f} s capturing (inside the timed "
+          f"run); shared pool "
+          + ("not measured" if pool is None else f"{pool / 2**30:.3f} GiB")
+          + f" [{ctx['card']}]")
     ctx["launches"] = launches
     ctx["captured"] = probe_pass(ctx, srv, rng)
     del srv, model
     torch.cuda.empty_cache()
 
 
+def device_busy(prof) -> tuple[float, int]:
+    """(device microseconds, device ops) of a torch.profiler trace: the
+    self device time summed over its events, and how many of them ran
+    on the device (kernels, copies and fills)."""
+    us = n = 0
+    for r in prof.key_averages():
+        t = getattr(r, "self_device_time_total",
+                    getattr(r, "self_cuda_time_total", 0.0))
+        if t > 0:
+            us += t
+            n += r.count
+    return us, n
+
+
+def pool_leaves(srv) -> list:
+    """Every leaf of the Server's page pool."""
+    import torch
+
+    return [leaf for key, layer in srv.slots.cache.items()
+            if key.startswith("block_") for leaf in layer.values()
+            if isinstance(leaf, torch.Tensor)]
+
+
 def probe_pass(ctx, srv, rng) -> dict:
     """A second, untimed pass on the same Server: 8 requests with
-    1500-token prompts fill the batch; three steps are timed as they
-    run, the next three run under torch.profiler (device activity only)
-    for the device's busy time, and the host share of wall is one less
-    the busy time over the unprofiled steps' wall (the profiler slows
-    the host several times over, so its own wall is not used). The
-    largest flash-decode call is kept for the kernel line."""
+    1500-token prompts fill the batch. On the state after their first
+    chunk (the pool saved and put back before each run): one chunk
+    eagerly and one replayed must give the same tokens and pool bytes
+    (4b); then three of each are timed, and the eager one keeps the
+    largest flash-decode call for the kernel line. Then three steps are
+    timed as they run and the next three run under torch.profiler
+    (device activity only) for the device's busy time; the host share
+    of wall is one less the busy time over the unprofiled steps' wall
+    (the profiler slows the host several times over, so its own wall is
+    not used)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import tony_tpu_torch.models.transformer as tmod
     from tony_tpu_torch.serve import Request
+    from tony_tpu_torch.serve.engine import _decode_chunk
 
     captured = {}
     real = tmod.flash_decode
@@ -679,38 +734,89 @@ def probe_pass(ctx, srv, rng) -> dict:
                     for n, x in kw.items()})
         return real(q, k, v, length, **kw)
 
+    for i in range(8):
+        srv.submit(Request(rng.integers(0, 151643, 1500).tolist(), 64,
+                           id=f"probe{i}"))
+    srv.step()  # admits all 8 and decodes one chunk
+    check(srv.n_active == 8, f"probe pass: {srv.n_active} of 8 live")
+    s = srv.slots
+    k, cols, flat = srv._prepare_chunk()
+    leaves = pool_leaves(srv)
+    saved = [leaf.clone() for leaf in leaves]
+    n = s.pool.n_pages
+
+    def restore():
+        for leaf, keep in zip(leaves, saved):
+            leaf.copy_(keep)
+        sync()
+
+    def eager():
+        return _decode_chunk(
+            srv.model, s.cache, torch.as_tensor(flat, device=DEVICE),
+            s.batch_size, cols, s.temperature.copy(), s.top_k.copy(),
+            list(s.generators), k, srv.eos_ids).cpu().numpy()
+
+    if ("decode", k, cols) not in srv.graphs.entries:
+        srv._run_chunk(flat, k, cols)  # its first call: eager, captured
+        restore()
     tmod.flash_decode = capture
     try:
-        for i in range(8):
-            srv.submit(Request(rng.integers(0, 151643, 1500).tolist(), 64,
-                               id=f"probe{i}"))
-        srv.step()  # admits all 8 and decodes one chunk
-        check(srv.n_active == 8, f"probe pass: {srv.n_active} of 8 live")
-        sync()
-        w0 = time.perf_counter()
+        want = eager()
+    finally:
+        tmod.flash_decode = real
+    want_pool = [leaf[:n].clone() for leaf in leaves]
+    restore()
+    replays = srv.graphs.calls["decode", "replays"]
+    got = srv._run_chunk(flat, k, cols)
+    check(srv.graphs.calls["decode", "replays"] == replays + 1,
+          "4b: the chunk was not a replay")
+    check((got == want).all(), "4b: replayed chunk tokens differ from the "
+          "eager chunk's")
+    check(all(torch.equal(leaf[:n], w) for leaf, w in zip(leaves,
+                                                           want_pool)),
+          "4b: replayed chunk pool bytes differ from the eager chunk's")
+    del want_pool
+    print(f"phase 4b one chunk ({k} micro-steps, {cols} page columns, "
+          f"batch 8) replayed and eager on one saved state: tokens and "
+          f"pool bytes ({n} pages, junk page aside) bit-equal "
+          f"[{ctx['card']}]")
+    times = {"eager": [], "replayed": []}
+    for _ in range(3):
+        for name, run in (("eager", eager),
+                          ("replayed", lambda: srv._run_chunk(flat, k,
+                                                              cols))):
+            restore()
+            t0 = time.perf_counter()
+            run()
+            times[name].append(time.perf_counter() - t0)
+    restore()
+    chunk_ms = {name: statistics.median(t) * 1e3
+                for name, t in times.items()}
+    sync()
+    w0 = time.perf_counter()
+    for _ in range(3):
+        srv.step()
+    sync()
+    wall = time.perf_counter() - w0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             srv.step()
         sync()
-        wall = time.perf_counter() - w0
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                srv.step()
-            sync()
-        check(srv.n_active == 8, f"probe pass: {srv.n_active} of 8 live "
-              "after the profiled steps")
-        while not srv.done:
-            srv.step()
-    finally:
-        tmod.flash_decode = real
-    dev_us = sum(getattr(r, "self_device_time_total",
-                         getattr(r, "self_cuda_time_total", 0.0))
-                 for r in prof.key_averages())
+    check(srv.n_active == 8, f"probe pass: {srv.n_active} of 8 live "
+          "after the profiled steps")
+    while not srv.done:
+        srv.step()
+    del saved
+    dev_us, ops = device_busy(prof)
     host = "not measured" if dev_us <= 0 else \
         f"{max(0.0, 1.0 - dev_us * 1e-6 / wall):.3f}"
     print(f"phase 4 probe (untimed pass, batch 8 at 1500-token prompts): "
-          f"host share of wall {host} (device busy {dev_us * 1e-3:.1f} ms "
-          f"over 3 profiled steps; 3 unprofiled steps {wall * 1e3:.1f} ms)"
-          f" [{ctx['card']}]")
+          f"one chunk of {k} micro-steps on one state, median of 3: "
+          f"eager {chunk_ms['eager']:.1f} ms, replayed "
+          f"{chunk_ms['replayed']:.1f} ms; with replays, host share of "
+          f"wall {host} (device busy {dev_us * 1e-3:.1f} ms in {ops} "
+          f"device ops over 3 profiled steps; 3 unprofiled steps "
+          f"{wall * 1e3:.1f} ms) [{ctx['card']}]")
     return captured
 
 
@@ -1929,27 +2035,42 @@ def phase_int8_model(ctx) -> None:
 
 
 def time_generate(ctx, model, prompt) -> dict:
-    """One greedy ``generate`` of INT8_NEW tokens, timed on the host
-    around synchronised ends; a prefill alone, timed the same way; then
-    an untimed probe: 8 decode steps unprofiled for their wall and 8
-    under torch.profiler for the device's busy time (the host share, as
-    in phase 4)."""
+    """Greedy ``generate`` of INT8_NEW tokens, replayed and eager, each
+    timed on the host around synchronised ends, tokens equal; a prefill
+    alone, timed the same way; then an untimed probe of each step, the
+    replayed one (the captured step's graph) and the eager one: 8 steps
+    unprofiled for their wall and 8 under torch.profiler for the
+    device's busy time (the host share, as in phase 4)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tony_tpu_torch.models.generate import (generate, init_cache,
+    from tony_tpu_torch.models.generate import (_generate_eager, generate,
+                                                init_cache,
                                                 single_decode_step)
 
-    generate(model, prompt[:, :16], max_new_tokens=2)  # warm-up
-    sync()
-    t0 = time.perf_counter()
-    out = generate(model, prompt, max_new_tokens=INT8_NEW)
-    sync()
-    wall = time.perf_counter() - t0
+    generate(model, prompt[:, :16], max_new_tokens=2)  # captures the step
+    runs = {}
+    greedy = functools.partial(torch.argmax, dim=-1)
+    for name, run in (("replayed", generate), ("eager", functools.partial(
+            _generate_eager, pick=greedy, eos_ids=()))):
+        sync()
+        t0 = time.perf_counter()
+        out = run(model, prompt, max_new_tokens=INT8_NEW)
+        sync()
+        runs[name] = (time.perf_counter() - t0, out)
+        if run is generate:
+            c = model.graphs.counters(("generate",))
+            check(c["generate_captures"] == 1
+                  and c["generate_replays"] == INT8_NEW - 1,
+                  f"generate: {c} (every step after the warm-up's "
+                  "first must be a replay)")
+    out = runs["replayed"][1]
     check(out.shape == (INT8_BATCH, INT8_NEW), f"generate gave "
           f"{tuple(out.shape)}")
     check(bool(((out >= 0) & (out < model.cfg.vocab_size)).all()),
           "generated ids out of range")
+    check(torch.equal(out, runs["eager"][1]),
+          "replayed generate's tokens differ from eager generate's")
     cache = init_cache(model, INT8_BATCH)
     sync()
     t0 = time.perf_counter()
@@ -1958,27 +2079,34 @@ def time_generate(ctx, model, prompt) -> dict:
     sync()
     prefill = time.perf_counter() - t0
     tok = out[:, 0]
-    sync()
-    w0 = time.perf_counter()
-    for _ in range(8):
-        cache, _ = single_decode_step(model, cache, tok)
-    sync()
-    probe_wall = time.perf_counter() - w0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(8):
-            cache, _ = single_decode_step(model, cache, tok)
-        sync()
-    dev_us = sum(getattr(r, "self_device_time_total",
-                         getattr(r, "self_cuda_time_total", 0.0))
-                 for r in prof.key_averages())
-    host = "not measured" if dev_us <= 0 else \
-        f"{max(0.0, 1.0 - dev_us * 1e-6 / probe_wall):.3f}"
+    (entry,) = [e for key, e in model.graphs.entries.items()
+                if key[0] == "generate"]
+    steps = {"replayed": lambda: model.graphs.run(entry, None),
+             "eager": lambda: single_decode_step(model, cache, tok)}
+    res = {}
     tokens = INT8_BATCH * INT8_NEW
-    return {"wall": wall, "tok_s": tokens / wall, "prefill": prefill,
+    for name, step in steps.items():
+        sync()
+        w0 = time.perf_counter()
+        for _ in range(8):
+            step()
+        sync()
+        probe_wall = time.perf_counter() - w0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                step()
+            sync()
+        dev_us, ops = device_busy(prof)
+        host = "not measured" if dev_us <= 0 else \
+            f"{max(0.0, 1.0 - dev_us * 1e-6 / probe_wall):.3f}"
+        wall = runs[name][0]
+        res[name] = {
+            "wall": wall, "tok_s": tokens / wall, "prefill": prefill,
             "step_ms": (wall - prefill) / (INT8_NEW - 1) * 1e3,
             "decode_tok_s": INT8_BATCH * (INT8_NEW - 1) / (wall - prefill),
-            "host": host, "busy_ms": dev_us * 1e-3 / 8,
+            "host": host, "busy_ms": dev_us * 1e-3 / 8, "ops": ops / 8,
             "probe_ms": probe_wall * 1e3 / 8}
+    return res
 
 
 def phase_int8_generate(ctx) -> None:
@@ -2000,11 +2128,12 @@ def phase_int8_generate(ctx) -> None:
     res["int8"] = time_generate(ctx, q16, prompt)
     launches = q8_matmul.launches
     routes = list(q8_matmul.route_launches)
-    # the timed run: warm-up (a 16-token prefill and a step), generate (a
-    # prefill and INT8_NEW - 1 steps), a prefill, 16 probe steps; every
-    # step (m = batch) takes the decode route, every prefill (bf16 x) the
-    # tensor cores
-    prefills, steps = 3, 1 + INT8_NEW - 1 + 16
+    # the timed run: warm-up (a 16-token prefill and a step), generate
+    # replayed and eager (a prefill and INT8_NEW - 1 steps each), a
+    # prefill, 16 probe steps each way; every step (m = batch) takes the
+    # decode route, replayed or not, every prefill (bf16 x) the tensor
+    # cores
+    prefills, steps = 4, 1 + 2 * (INT8_NEW - 1) + 2 * 16
     per = 7 * cfg.n_layers
     check(launches == per * (prefills + steps) and routes == [
         per * steps, per * prefills, 0],
@@ -2040,19 +2169,25 @@ def phase_int8_generate(ctx) -> None:
     res["bf16"] = time_generate(ctx, bf16, prompt)
     del bf16
     torch.cuda.empty_cache()
-    for name, r in res.items():
-        print(f"phase 11 generate Qwen2.5-1.5B {name} weights (bf16 "
-              f"activations), {cfg.n_layers} layers, batch {INT8_BATCH}, "
-              f"{INT8_PROMPT}-token prompts, {INT8_NEW} greedy tokens: "
-              f"{r['wall']:.3f} s = {r['tok_s']:.1f} tok/s; prefill "
-              f"{r['prefill'] * 1e3:.1f} ms, then {r['step_ms']:.2f} ms a "
-              f"decode step = {r['decode_tok_s']:.1f} decode tok/s; host "
-              f"share {r['host']} (device busy {r['busy_ms']:.2f} ms a "
-              f"step under the profiler, {r['probe_ms']:.2f} ms a step "
-              f"unprofiled) [{ctx['card']}]")
+    for name, runs in res.items():
+        for how, r in runs.items():
+            print(f"phase 11 generate Qwen2.5-1.5B {name} weights (bf16 "
+                  f"activations), {cfg.n_layers} layers, batch "
+                  f"{INT8_BATCH}, {INT8_PROMPT}-token prompts, {INT8_NEW} "
+                  f"greedy tokens, steps {how}: {r['wall']:.3f} s = "
+                  f"{r['tok_s']:.1f} tok/s; prefill "
+                  f"{r['prefill'] * 1e3:.1f} ms, then {r['step_ms']:.2f} "
+                  f"ms a decode step = {r['decode_tok_s']:.1f} decode "
+                  f"tok/s; host share {r['host']} (device busy "
+                  f"{r['busy_ms']:.2f} ms in {r['ops']:.0f} device ops a "
+                  f"step under the profiler, "
+                  f"{r['probe_ms']:.2f} ms a step unprofiled) "
+                  f"[{ctx['card']}]")
+        print(f"phase 11 {name}: replayed tokens equal eager tokens")
     print(f"phase 11 q8_matmul launches in the int8 run: {launches} = 7 x "
-          f"{cfg.n_layers} x ({steps} decode steps on the decode route + "
-          f"{prefills} prefills on the tensor cores)")
+          f"{cfg.n_layers} x ({steps} decode steps on the decode route, "
+          f"replays counted from their captures + {prefills} prefills on "
+          f"the tensor cores)")
     ctx["int8_generate"] = res
 
 

@@ -1,0 +1,117 @@
+"""Replayed CUDA graphs against the same calls launched eagerly, on the
+card. These tests import no JAX, so they run on a GPU machine without
+it; with no CUDA device they skip (a CUDA graph has no CPU mode):
+
+    python -m pytest --noconftest tests/test_torch_graphs_card.py -q
+
+- The ``Server`` with its graphs and the same ``Server`` with none
+  (every chunk and prefill eager) serve one request mix, with more
+  requests than slots so slots are re-admitted between replays of a
+  key, over a bf16 and an int8 KV cache: equal tokens, equal pool bytes
+  (the junk page aside: dropped writes collide there in any order), and
+  flash-decode launches of n_layers per micro-step in both.
+- ``generate`` replayed (capturing on its first call, replaying every
+  step of its second) and launched eagerly, with bf16 and int8 weights:
+  equal tokens, and q8_matmul launches of 7 x n_layers a forward.
+
+Tolerance: none (bit-equal).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from tony_tpu_torch.models import quantize_for_serving
+from tony_tpu_torch.models.generate import _generate_eager, generate
+from tony_tpu_torch.models.transformer import Transformer, TransformerConfig
+from tony_tpu_torch.ops.decode import flash_decode
+from tony_tpu_torch.ops.quant import q8_matmul
+from tony_tpu_torch.serve import Request, Server
+
+CFG = dict(vocab_size=512, d_model=256, n_heads=4, n_kv_heads=2,
+           n_layers=2, d_ff=512, max_seq_len=256, qkv_bias=True,
+           gated_mlp=True, activation="silu", norm="rms", rope_theta=1e6,
+           decode_attention="flash", attention_backend="reference")
+
+
+def _model(**kw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph has no CPU mode)")
+    cfg = TransformerConfig(**{**CFG, "dtype": torch.bfloat16, **kw})
+    return Transformer(cfg, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(0))
+
+
+def _serve(model, graphs: bool):
+    rng = np.random.default_rng(0)
+    pre = rng.integers(0, 512, 40).tolist()
+    srv = Server(model, batch_size=3, eos_id=(5, 7), chunk_steps=8,
+                 min_bucket=16, kv_page_size=16, prefix_cache_mb=8.0)
+    if not graphs:
+        srv.graphs = None
+    before = flash_decode.launches
+    for i in range(8):
+        n = int(rng.integers(3, 90))
+        prompt = (pre if i % 2 else []) + rng.integers(0, 512, n).tolist()
+        srv.submit(Request(prompt, int(rng.integers(4, 40)), id=i))
+    out = {}
+    while not srv.done:
+        for r in srv.step():
+            out[r.id] = (r.tokens, r.finish_reason)
+    torch.cuda.synchronize()
+    return out, srv, flash_decode.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["bf16", "int8"])
+def test_replayed_server_bit_equal_to_eager(kv_int8):
+    model = _model(kv_cache_quant=kv_int8)
+    want, eager, eager_launches = _serve(model, graphs=False)
+    got, srv, launches = _serve(model, graphs=True)
+    assert got == want
+    c = srv.counters()
+    assert c["graph_decode_eager"] == 0 and c["graph_decode_replays"] > 0
+    assert c["graph_decode_captures"] + c["graph_decode_replays"] \
+        == c["dispatches"]
+    assert c["graph_prefill_captures"] + c["graph_prefill_replays"] \
+        == c["prefills"]
+    assert launches == eager_launches \
+        == model.cfg.n_layers * c["decode_steps"] > 0
+    n = srv.slots.pool.n_pages
+    for key, layer in srv.slots.cache.items():
+        if key.startswith("block_"):
+            for name, leaf in layer.items():
+                if isinstance(leaf, torch.Tensor):
+                    assert torch.equal(leaf[:n],
+                                       eager.slots.cache[key][name][:n]), \
+                        (key, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_replayed_generate_bit_equal_to_eager(int8):
+    model = _model()
+    if int8:
+        fp32 = _model(dtype=torch.float32)
+        q = quantize_for_serving(fp32)
+        model = Transformer(dataclasses.replace(q.cfg, dtype=torch.bfloat16),
+                            device="cuda")
+        model.load_state_dict(q.state_dict())
+    prompt = torch.randint(0, 512, (4, 30), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    want = _generate_eager(model, prompt, 24,
+                           lambda x: torch.argmax(x, -1), (5,))
+    before = q8_matmul.launches
+    for call in range(2):
+        got = generate(model, prompt, max_new_tokens=24, eos_id=5)
+        assert torch.equal(got, want), call
+    torch.cuda.synchronize()
+    c = model.graphs.counters(("generate",))
+    assert c["generate_captures"] == 1 and c["generate_replays"] == 45
+    if int8:
+        # two prefills and 2 x 23 steps, each 7 projections a layer
+        assert q8_matmul.launches - before \
+            == 7 * model.cfg.n_layers * (2 + 46)

@@ -2,8 +2,19 @@
 of ``tony_tpu/models/generate.py``.
 
 The JAX package runs prefill and a ``lax.scan`` of decode steps inside
-one jitted program; here each step is a Python iteration that launches
-eagerly (CUDA graphs are a later step). The cache is a dict of tensors
+one jitted program. Here the prefill is one eager forward, and on the
+card a greedy ``generate`` replays its decode step as a CUDA graph
+(``models.graphs``), one replay a token: the step carries the token,
+the position and the frozen rows in its own buffers and reads its
+position from the device (the per-slot mode, every row at one
+position, bit-equal to the scalar-index step). The graph owns its KV
+cache, one per batch size, cache length and eos ids, kept on the model
+(``model.graphs``) so a later call at the same shape replays what an
+earlier one captured. A sampled ``generate``, a sliding-window model
+whose decode attention is not flash (the scalar step attends over a
+slice there, so the per-slot step is not bit-equal to it) and any CPU
+run launch every step eagerly; on the card those steps are counted as
+eager. The cache is a dict of tensors
 (``init_cache``) written in place. Greedy decoding is token-exact
 against the JAX package on the same weights; sampled decoding draws
 from ``torch.Generator``s and matches it in distribution only. Beam
@@ -12,7 +23,11 @@ search is ported in a later slice.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from tony_tpu_torch.models.graphs import GraphCache
 
 
 def init_cache(model, batch_size: int, length: int | None = None) -> dict:
@@ -116,6 +131,35 @@ def multi_decode_step(model, cache: dict, toks, positions, page_table=None):
     return cache, logits
 
 
+def model_graphs(model) -> GraphCache | None:
+    """The model's graph cache, made at first use on the card (None on
+    the CPU, unless a caller set one)."""
+    if model.graphs is None and model.device.type == "cuda":
+        model.graphs = GraphCache(model.device)
+    return model.graphs
+
+
+def _replayable(cfg) -> bool:
+    """Whether the per-slot step is bit-equal to the scalar-index one:
+    everywhere but a windowed scalar step on the einsum path, which
+    attends over a slice of the cache."""
+    return not cfg.sliding_window or cfg.decode_attention == "flash"
+
+
+def _greedy_step(model, freeze: int, eos_ids: tuple, cache, tok, pos,
+                 done):
+    """One greedy decode step on the step's own buffers, advanced in
+    place (the scan carry): feed ``tok`` at ``pos``, freeze the rows
+    already ``done``; returns ``tok``, now the next token."""
+    _, last = single_decode_step(model, cache, tok, positions=pos)
+    nxt = torch.argmax(last, dim=-1)
+    nxt = torch.where(done, torch.full_like(nxt, freeze), nxt)
+    done.logical_or_(_is_eos(nxt, eos_ids))
+    tok.copy_(nxt)
+    pos.add_(1)
+    return tok
+
+
 @torch.no_grad()
 def generate(model, prompt, *, max_new_tokens: int,
              temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
@@ -124,25 +168,80 @@ def generate(model, prompt, *, max_new_tokens: int,
     """Generate ``max_new_tokens`` continuations of ``prompt`` [b, Lp]
     on the model's device; returns [b, max_new_tokens] int64. Rows that
     hit an eos id re-emit the first eos id after it (the JAX package's
-    frozen-row contract). The JAX ``repetition_penalty`` is not ported
-    yet."""
+    frozen-row contract). On the card a greedy call replays its decode
+    step as a CUDA graph (the module docstring). The JAX
+    ``repetition_penalty`` is not ported yet."""
     eos_ids = normalize_eos_ids(eos_id)
-    freeze = eos_ids[0] if eos_ids else -1
     prompt = torch.as_tensor(prompt, device=model.device).long()
-    b, prompt_len = prompt.shape
-    if prompt_len + max_new_tokens > model.cfg.max_seq_len:
+    cfg = model.cfg
+    if prompt.shape[1] + max_new_tokens > cfg.max_seq_len:
         raise ValueError(
-            f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
-            f"exceeds cfg.max_seq_len ({model.cfg.max_seq_len}): the KV "
-            "cache would overflow")
-    cache = init_cache(model, b)
+            f"prompt ({prompt.shape[1]}) + max_new_tokens "
+            f"({max_new_tokens}) exceeds cfg.max_seq_len "
+            f"({cfg.max_seq_len}): the KV cache would overflow")
+    graphs = model_graphs(model)
+    if graphs is not None and temperature == 0.0 and _replayable(cfg):
+        return _generate_replayed(model, graphs, prompt, max_new_tokens,
+                                  eos_ids)
+    pick = functools.partial(sample_logits, generator=generator,
+                             temperature=temperature, top_k=top_k,
+                             top_p=top_p)
+    return _generate_eager(model, prompt, max_new_tokens, pick, eos_ids,
+                           graphs)
+
+
+def _generate_replayed(model, graphs: GraphCache, prompt,
+                       max_new_tokens: int, eos_ids: tuple):
+    """Greedy generation: an eager prefill into the step graph's own
+    cache, then one replay a token."""
+    b, prompt_len = prompt.shape
+    dev = model.device
+    entry = graphs.entry(
+        ("generate", b, model.cfg.max_seq_len, eos_ids),
+        lambda: (init_cache(model, b),
+                 torch.zeros(b, dtype=torch.long, device=dev),
+                 torch.zeros(b, dtype=torch.long, device=dev),
+                 torch.zeros(b, dtype=torch.bool, device=dev)))
+    cache, tok, pos, done = entry.statics
+    for key, layer in cache.items():
+        if key.startswith("block_"):
+            layer["cache_index"] = 0
+    if "pos_index" in cache:
+        cache["pos_index"] = 0
+    # positions past the prompt may hold an earlier call's K/V: the
+    # visibility mask hides them, and a masked key adds exactly 0
     logits = model(prompt, decode=True, cache=cache)
-    nxt = sample_logits(logits[:, -1], generator, temperature, top_k, top_p)
+    out = torch.empty(b, max_new_tokens, dtype=torch.long, device=dev)
+    tok.copy_(torch.argmax(logits[:, -1], dim=-1))
+    out[:, 0] = tok
+    pos.fill_(prompt_len)
+    done.copy_(_is_eos(tok, eos_ids))
+    step = functools.partial(_greedy_step, model,
+                             eos_ids[0] if eos_ids else -1, eos_ids)
+    for t in range(1, max_new_tokens):
+        out[:, t] = graphs.run(entry, step)
+    return out
+
+
+def _generate_eager(model, prompt, max_new_tokens: int, pick,
+                    eos_ids: tuple, graphs: GraphCache | None = None):
+    """Generation launching every step eagerly: a prefill, then one
+    scalar-index forward a token; ``pick`` chooses each token from the
+    logits [b, V]; ``graphs``, when given, counts each step as an eager
+    call."""
+    freeze = eos_ids[0] if eos_ids else -1
+    cache = init_cache(model, prompt.shape[0])
+    logits = model(prompt, decode=True, cache=cache)
+    nxt = pick(logits[:, -1])
     done = _is_eos(nxt, eos_ids)
     out = [nxt]
     for _ in range(max_new_tokens - 1):
-        cache, last = single_decode_step(model, cache, nxt)
-        nxt = sample_logits(last, generator, temperature, top_k, top_p)
+        if graphs is not None:
+            cache, last = graphs.eager("generate", single_decode_step,
+                                       model, cache, nxt)
+        else:
+            cache, last = single_decode_step(model, cache, nxt)
+        nxt = pick(last)
         nxt = torch.where(done, torch.full_like(nxt, freeze), nxt)
         done = done | _is_eos(nxt, eos_ids)
         out.append(nxt)

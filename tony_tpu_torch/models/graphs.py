@@ -1,0 +1,188 @@
+"""Engine calls replayed as CUDA graphs: a shape-keyed cache of captured
+callables, the port's form of the JAX package's jitted programs (the
+serving decode chunk's ``lax.scan`` and paged prefill in
+``tony_tpu/serve/engine.py``, ``generate``'s decode scan in
+``tony_tpu/models/generate.py``). The JAX package has no module like
+this one: ``jax.jit`` keeps its own cache.
+
+A key names one static shape, as a jitted function's static arguments
+do. The key's static buffers (``Entry.statics``) are made once; the
+caller fills them before each call. The FIRST call at a key runs the
+function eagerly, on a side stream, on those buffers, and its result is
+the call's result; the capture that follows records the same function
+on the same buffers and launches nothing. Every later call at the key
+is one replay, and returns the capture's output tensor, which the next
+replay overwrites: callers copy it out first. A capture or replay that
+fails raises; nothing falls back to eager in silence.
+
+All graphs of one cache share one memory pool
+(``torch.cuda.graph_pool_handle``). Graphs replay one at a time and
+each output is read before the next replay, so one graph's scratch may
+be another's: a decode chunk's gathered page view alone is about a GB
+at full width, and the serving engine holds tens of keys.
+
+Launch counts: each kernel wrapper counts its launches in Python
+(``flash_decode.launches``, ``q8_matmul.launches`` and
+``route_launches``, ...). A capture calls the wrappers but launches
+nothing, and a replay launches with no call, so a capture records what
+it added to the counts and restores them, and each replay adds that
+record back: the counts stay the launches on the card.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import Counter
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import torch
+
+from tony_tpu_torch.ops.decode import flash_decode
+from tony_tpu_torch.ops.quant import q8_matmul
+
+# the counting wrappers a captured call reaches (the decode forward)
+COUNTED = (flash_decode, q8_matmul)
+
+
+def launch_counts() -> list[int]:
+    """Every wrapper's launch count, then its counts by route, flat."""
+    out = []
+    for w in COUNTED:
+        out.append(w.launches)
+        out.extend(getattr(w, "route_launches", ()))
+    return out
+
+
+def set_launch_counts(counts) -> None:
+    """Set the counts ``launch_counts`` reads (route lists in place)."""
+    it = iter(counts)
+    for w in COUNTED:
+        w.launches = next(it)
+        routes = getattr(w, "route_launches", None)
+        if routes is not None:
+            routes[:] = [next(it) for _ in routes]
+
+
+class CudaGraphs:
+    """What the cache needs of the card: a side stream, on which the
+    first call at a key runs and its capture is taken, and the pool the
+    graphs share."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+        self.pool = torch.cuda.graph_pool_handle()
+
+    @contextlib.contextmanager
+    def eager(self):
+        """The first call at a key: on the side stream, ordered after
+        the caller's stream and before what it enqueues next. A host
+        sync in it raises (``set_sync_debug_mode``): it would break the
+        capture that follows."""
+        caller = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(caller)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(self.stream):
+                yield
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+            caller.wait_stream(self.stream)
+
+    def capture(self, fn: Callable[..., Any], statics: tuple):
+        """``(graph, output)``: ``fn(*statics)`` recorded, not run."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            out = fn(*statics)
+        return graph, out
+
+    def pool_bytes(self) -> int | None:
+        """Bytes the caching allocator holds for the shared pool; None
+        where its snapshot does not name pools."""
+        segs = torch.cuda.memory_snapshot()
+        if not any("segment_pool_id" in s for s in segs):
+            return None
+        return sum(s["total_size"] for s in segs
+                   if tuple(s.get("segment_pool_id") or ()) ==
+                   tuple(self.pool))
+
+
+@dataclass
+class Entry:
+    """One key: its static buffers and, once captured, the graph, its
+    output and the launch counts a replay adds."""
+
+    key: tuple
+    statics: tuple
+    graph: Any = None
+    out: Any = None
+    delta: list = field(default_factory=list)
+
+
+class GraphCache:
+    """Captured callables by key, sharing one pool. The first element of
+    every key names its kind (``"decode"``, ``"prefill"``,
+    ``"generate"``); ``calls`` counts captures, replays and eager calls
+    by kind. ``backend`` defaults to ``CudaGraphs`` on ``device``;
+    anything with the same three methods stands in for it."""
+
+    def __init__(self, device, backend=None):
+        self.device = torch.device(device)
+        self.backend = backend if backend is not None \
+            else CudaGraphs(self.device)
+        self.entries: dict[tuple, Entry] = {}
+        self.calls: Counter = Counter()
+        self.capture_seconds = 0.0
+
+    def entry(self, key: tuple, make: Callable[[], tuple]) -> Entry:
+        """The key's entry; ``make()`` gives its static buffers the first
+        time."""
+        e = self.entries.get(key)
+        if e is None:
+            e = self.entries[key] = Entry(key, tuple(make()))
+        return e
+
+    def run(self, e: Entry, fn: Callable[..., Any]):
+        """``fn(*e.statics)``: eagerly and then captured at a new key,
+        replayed after that."""
+        if e.graph is not None:
+            e.graph.replay()
+            set_launch_counts(
+                [a + d for a, d in zip(launch_counts(), e.delta)])
+            self.calls[e.key[0], "replays"] += 1
+            return e.out
+        with self.backend.eager():
+            out = fn(*e.statics)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        try:
+            e.graph, e.out = self.backend.capture(fn, e.statics)
+        except BaseException:
+            del self.entries[e.key]
+            raise
+        finally:
+            e.delta = [a - b for a, b in zip(launch_counts(), before)]
+            set_launch_counts(before)
+        self.capture_seconds += time.perf_counter() - t0
+        self.calls[e.key[0], "captures"] += 1
+        return out
+
+    def eager(self, kind: str, fn: Callable[..., Any], *args):
+        """``fn(*args)`` with no graph (a call the cache does not
+        capture), counted as an eager call of ``kind``."""
+        self.calls[kind, "eager"] += 1
+        return fn(*args)
+
+    def counters(self, kinds) -> dict:
+        """``{kind}_{captures|replays|eager}`` for each of ``kinds``, and
+        the seconds spent capturing."""
+        out = {f"{kind}_{what}": self.calls[kind, what] for kind in kinds
+               for what in ("captures", "replays", "eager")}
+        out["capture_s"] = self.capture_seconds
+        return out
+
+    def pool_bytes(self) -> int | None:
+        return self.backend.pool_bytes()

@@ -15,8 +15,10 @@ they lie, which saves a cache-sized copy per step. The three cache
 modes of ``_decode_attention`` are ported: the scalar index, per-slot
 positions ``[b]`` / ``[b, l]``, and paged tables with sentinel entries.
 Writes that the JAX package drops (negative positions, positions past
-the buffer, sentinel pages) are filtered out before every index write,
-never clamped.
+the buffer, sentinel pages) never reach a live address: every index
+write covers the whole window, and a dropped entry lands on a page
+pool's junk page or rewrites the bytes its address ends up holding
+anyway (``WritePlan``). No write takes a host sync.
 
 The training forward takes ``segment_ids`` and three attention
 backends: ``pallas`` hands q and the grouped (unrepeated) K/V to
@@ -342,35 +344,77 @@ def _dense(cfg: TransformerConfig, in_features: int, out_features: int,
 
 @dataclass
 class WritePlan:
-    """Where a decode window's K/V land, filtered once per forward: the
-    ``(row, token)`` entries that write, and their buffer coordinates —
-    ``(page, offset)`` in a page pool, or ``position`` in a per-slot
-    buffer. Entries the JAX package drops are simply absent."""
+    """Where a decode window's K/V land: index tensors over all ``b x l``
+    entries, built once per forward with no host sync and no shape that
+    depends on the data, so a forward can be captured in a CUDA graph.
+    Entries the JAX package drops still write, each to an address whose
+    final value no kept entry of the same call changes (``put``).
 
-    rows: torch.Tensor
-    toks: torch.Tensor
+    Paged (``page``, ``off`` [b, l]): a dropped entry writes to the
+    pool's junk page, its last (``serve.slots.paged_cache`` adds it),
+    which no table entry names and so no kept entry writes.
+
+    Per-slot (``rows``, ``pos``, ``src`` [b, l], ``keep`` [b, 1]): entry
+    (i, j) writes token ``src[i, j]``'s value at ``pos[i, j]``. A dropped
+    entry in a row with a kept entry writes that entry's value to that
+    entry's address, so the two write the same bytes; in a row with
+    none (``keep``) every entry writes back the value at position 0 of
+    its own row. In a one-token window an entry is its row's only one,
+    so ``src`` is None: every entry writes its own token.
+
+    ``reads`` (one-token windows): each row's visible cache length,
+    ``max(pos + 1, 0)`` as int32, for flash-decode; made once a forward
+    rather than once a layer."""
+
     page: torch.Tensor | None = None
     off: torch.Tensor | None = None
+    rows: torch.Tensor | None = None
     pos: torch.Tensor | None = None
+    src: torch.Tensor | None = None
+    keep: torch.Tensor | None = None
+    reads: torch.Tensor | None = None
+
+    def put(self, buf: torch.Tensor, val: torch.Tensor) -> None:
+        """Write ``val`` [b, l, ...] into ``buf`` in place."""
+        if self.page is not None:
+            buf[self.page, self.off] = val
+            return
+        new = val if self.src is None else val[self.rows, self.src]
+        old = buf[self.rows, self.pos]
+        keep = self.keep.view(*self.keep.shape, *[1] * (new.dim() - 2))
+        buf[self.rows, self.pos] = torch.where(keep, old, new)
 
 
-def write_plan(pos2d, page_table=None, n_pages: int = 0,
+def write_plan(pos2d, page_table=None, junk_page: int = 0,
                page_size: int = 0, buf_len: int = 0) -> WritePlan:
-    """Drop negative positions (padding, empty or frozen slots),
-    positions past the table's span or the buffer, and sentinel table
-    entries (>= ``n_pages``); one host sync for the whole model."""
+    """The forward's ``WritePlan``. Dropped, as in the JAX package:
+    negative positions (padding, empty or frozen slots), positions past
+    the table's span or the buffer, and table entries at or past
+    ``junk_page`` (the unallocated sentinels)."""
+    b, l = pos2d.shape
+    zero = torch.zeros_like(pos2d)
+    reads = torch.clamp(pos2d[:, 0] + 1, min=0).to(torch.int32) \
+        if l == 1 else None
     if page_table is not None:
         span = page_table.shape[1] * page_size
         valid = (pos2d >= 0) & (pos2d < span)
-        safe = torch.where(valid, pos2d, torch.zeros_like(pos2d))
+        safe = torch.where(valid, pos2d, zero)
         page = torch.gather(page_table, 1, safe // page_size)
-        valid = valid & (page < n_pages)
-        rows, toks = valid.nonzero(as_tuple=True)
-        return WritePlan(rows, toks, page=page[rows, toks],
-                         off=safe[rows, toks] % page_size)
+        valid = valid & (page < junk_page)
+        page = torch.where(valid, page, torch.full_like(page, junk_page))
+        return WritePlan(page=page, off=safe % page_size, reads=reads)
     valid = (pos2d >= 0) & (pos2d < buf_len)
-    rows, toks = valid.nonzero(as_tuple=True)
-    return WritePlan(rows, toks, pos=pos2d[rows, toks])
+    rows = torch.arange(b, device=pos2d.device)[:, None].expand(b, l)
+    if l == 1:
+        return WritePlan(rows=rows, pos=torch.where(valid, pos2d, zero),
+                         keep=~valid, reads=reads)
+    kept = valid.any(dim=1, keepdim=True)
+    first = torch.argmax(valid.to(torch.int32), dim=1, keepdim=True)
+    to = torch.where(kept, torch.gather(pos2d, 1, first), zero[:, :1])
+    toks = torch.arange(l, device=pos2d.device).expand(b, l)
+    return WritePlan(rows=rows, pos=torch.where(valid, pos2d, to),
+                     src=torch.where(valid, toks, first), keep=~kept,
+                     reads=reads)
 
 
 class Attention(nn.Module):
@@ -428,10 +472,10 @@ class Attention(nn.Module):
         scalar ``cache_index`` (all rows in lockstep), per-slot
         ``positions`` [b] or [b, l] (negative = nothing written, nothing
         visible), and ``page_table`` [b, cols] over page pools
-        ``[n_pages, page_size, kvh, dh]`` (each row attends over the
-        gather of its own pages; sentinel entries clamp on the gather).
-        ``plan`` is the forward's filtered ``write_plan`` (per-slot and
-        paged modes)."""
+        ``[n_pages + 1, page_size, kvh, dh]`` (the last is the junk
+        page; each row attends over the gather of its own pages;
+        sentinel entries clamp on the gather). ``plan`` is the forward's
+        ``write_plan`` (per-slot and paged modes)."""
         cfg = self.cfg
         b, l, h, dh = q.shape
         kvh = cfg.kv_heads
@@ -469,15 +513,14 @@ class Attention(nn.Module):
         ck, cv = cache["cached_key"], cache["cached_value"]
         ks = cache.get("cached_key_scale")
         vs = cache.get("cached_value_scale")
+        if per_slot:
+            plan.put(ck, k)
+            plan.put(cv, v)
+            if quant:
+                plan.put(ks, k_sc)
+                plan.put(vs, v_sc)
         if paged:
             n_pages, ps = ck.shape[0], ck.shape[1]
-            idx = (plan.page, plan.off)
-            src = (plan.rows, plan.toks)
-            ck[idx] = k[src]
-            cv[idx] = v[src]
-            if quant:
-                ks[idx] = k_sc[src]
-                vs[idx] = v_sc[src]
             span = page_table.shape[1] * ps
             tab = torch.clamp(page_table, 0, n_pages - 1)
             keys = ck[tab].reshape(b, span, kvh, dh)
@@ -486,13 +529,6 @@ class Attention(nn.Module):
                 ksc = ks[tab].reshape(b, span, kvh)
                 vsc = vs[tab].reshape(b, span, kvh)
         elif per_slot:
-            idx = (plan.rows, plan.pos)
-            src = (plan.rows, plan.toks)
-            ck[idx] = k[src]
-            cv[idx] = v[src]
-            if quant:
-                ks[idx] = k_sc[src]
-                vs[idx] = v_sc[src]
             keys, values = ck, cv
             if quant:
                 ksc, vsc = ks, vs
@@ -519,8 +555,7 @@ class Attention(nn.Module):
             # the decode hot loop: the hand-written kernel over the
             # (possibly int8) cache; it masks length/window itself, and
             # a length-0 row (empty or frozen slot) gives exact zeros
-            length = torch.clamp(pos2d[:, 0] + 1, min=0) if per_slot \
-                else cur + 1
+            length = plan.reads if per_slot else cur + 1
             out = flash_decode(q[:, 0].contiguous(), keys, values, length,
                                window=win,
                                k_scale=ksc if quant else None,
@@ -672,6 +707,9 @@ class Transformer(nn.Module):
         if cfg.lm_head_bias:
             self.lm_head_bias = nn.Parameter(
                 torch.zeros(cfg.vocab_size, **f32))
+        # generate's captured decode steps (models.graphs.GraphCache),
+        # made at first use on the card
+        self.graphs = None
 
     @property
     def device(self) -> torch.device:
@@ -738,7 +776,7 @@ class Transformer(nn.Module):
                 else positions
             ck = cache["block_0"]["cached_key"]
             if page_table is not None:
-                plan = write_plan(pos2d, page_table, ck.shape[0],
+                plan = write_plan(pos2d, page_table, ck.shape[0] - 1,
                                   ck.shape[1])
             else:
                 plan = write_plan(pos2d, buf_len=ck.shape[1])

@@ -213,7 +213,9 @@ def flash_decode(q, k, v, length, *, window: int = 0, k_scale=None,
     Returns [B, H, D] in q's dtype.
 
     CPU tensors run ``flash_decode_reference``; CUDA tensors launch the
-    kernel (``flash_decode.launches`` counts the launches) or raise."""
+    kernel (``flash_decode.launches`` counts the launches; inside a
+    replayed CUDA graph ``models.graphs`` keeps the count true) or
+    raise."""
     quant = _check(q, k, v, k_scale, v_scale)
     dev = q.device
     if dev.type == "cpu":

@@ -207,8 +207,9 @@ def q8_matmul(x, w_q, scale, *, out_dtype=None) -> torch.Tensor:
     default x's dtype), ``cast((x @ w_q) * scale)`` with fp32 sums.
 
     CPU tensors run ``q8_matmul_reference``; CUDA tensors launch the
-    kernel (``q8_matmul.launches`` counts the calls, and
-    ``q8_matmul.route_launches`` them by route) or raise."""
+    kernel (``q8_matmul.launches`` counts the launches, and
+    ``q8_matmul.route_launches`` them by route; inside a replayed CUDA
+    graph ``models.graphs`` keeps the counts true) or raise."""
     _check(x, w_q, scale)
     out_dtype = out_dtype or x.dtype
     dev = x.device

@@ -5,12 +5,21 @@ Each ``step()`` admits pending prompts into free slots — a prefill is
 one multi-token window written straight into the slot's pages, or, on
 an exact prefix-store hit, no model call at all — then runs a CHUNK of
 K decode micro-steps for every slot, and evicts the slots that finished.
-The JAX package runs the chunk as one ``lax.scan`` dispatch; here it is
-a Python loop of eager micro-steps over the gathered page view
-(``paged_view``), whose writes return to the pool at the end
-(``paged_write_back``). A slot that samples EOS or spends its budget
-mid-chunk FREEZES: its later micro-steps write nothing, draw nothing,
-and re-emit its last token.
+The JAX package runs the chunk as one ``lax.scan`` dispatch and jits
+the prefill per bucket. On the card the port replays each as a CUDA
+graph (``models.graphs``): a chunk keyed by ``(K, page columns)`` holds
+the page gather (``paged_view``), the K micro-steps with their sampling
+and frozen-row carry, and the write-back to the pool
+(``paged_write_back``); a prefill keyed by ``(bucket, page columns)``
+holds the forward and the pick of the last real position's logits. The
+host packs each call's inputs into one buffer, copies it up, replays,
+and reads the result back. The first call at a key runs eagerly and is
+then captured. A chunk with a live sampled row runs eagerly (its
+per-request generators and the host read of the frozen rows cannot be
+captured) and is counted so (``counters()``); a prefill's first-token
+sample runs after the graph. On the CPU every call runs eagerly. A
+slot that samples EOS or spends its budget mid-chunk FREEZES: its later
+micro-steps write nothing, draw nothing, and re-emit its last token.
 
 Greedy outputs are token-exact against the JAX ``Server`` on the same
 weights and request mix (tests/test_torch_serve.py). Sampled requests
@@ -26,6 +35,7 @@ handoff and the timeline/goodput ledger.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import logging
 import threading
@@ -39,6 +49,7 @@ import torch
 from tony_tpu_torch.models.generate import (_is_eos, multi_decode_step,
                                             normalize_eos_ids,
                                             single_decode_step)
+from tony_tpu_torch.models.graphs import GraphCache
 from tony_tpu_torch.ops.platform import resolve_device
 from tony_tpu_torch.serve.prefix import PrefixStore
 from tony_tpu_torch.serve.slots import (PagePool, SlotCache,
@@ -99,29 +110,32 @@ def _sample_first(logits, temp: float, top_k: int, generator) -> int:
 
 
 @torch.no_grad()
-def _paged_prefill_admit(model, cache, window, positions, length: int,
-                         table, temp: float, top_k: int, generator):
-    """The paged admit: ``window`` [1, Lb] (the prompt's suffix,
-    right-padded to its bucket) at absolute ``positions`` [1, Lb]
-    (padding = -1, whose writes drop) goes through the pool in one
-    forward; the first token is sampled from the last REAL position's
-    logits. Returns ``(token, last_logits [1, V])``."""
-    cache, logits = multi_decode_step(model, cache, window, positions,
-                                      page_table=table)
-    last = logits[:, length - 1]
-    return _sample_first(last, temp, top_k, generator), last
+def _prefill_last(model, cache, flat, lb: int, cols: int):
+    """The paged admit's forward on its packed inputs ``flat`` = window
+    [lb] | positions [lb] | table row [cols] | last real index [1]: the
+    window (the prompt's suffix, right-padded to its bucket; padding at
+    position -1, whose writes drop) goes through the pool in one
+    forward. Returns the last real position's logits [1, V]."""
+    window, positions = flat[:lb][None], flat[lb:2 * lb][None]
+    table = flat[2 * lb:2 * lb + cols][None]
+    _, logits = multi_decode_step(model, cache, window, positions,
+                                  page_table=table)
+    return logits[0].index_select(0, flat[-1:])
 
 
 @torch.no_grad()
-def _decode_chunk(model, cache, tok, positions, temps, top_ks, generators,
-                  rem, table, *, n_steps: int, eos_ids: tuple):
+def _decode_chunk(model, cache, flat, b: int, cols: int, temps, top_ks,
+                  generators, n_steps: int, eos_ids: tuple):
     """``n_steps`` decode micro-steps for every slot over the page view,
-    with in-dispatch EOS: carry ``(tok, positions, done, rem)``; a row
-    that emitted an eos id or spent its budget freezes — its later
-    micro-steps write to position -1 (dropped), take the greedy path,
-    and re-emit its token. Empty slots (position < 0) start frozen.
-    Returns the emitted tokens [b, n_steps]; the pool is updated in
-    place."""
+    with in-dispatch EOS, on packed inputs ``flat`` = tokens [b] |
+    positions [b] | remaining budgets [b] | page table [b, cols]: carry
+    ``(tok, positions, done, rem)``; a row that emitted an eos id or
+    spent its budget freezes — its later micro-steps write to position
+    -1 (dropped), take the greedy path, and re-emit its token. Empty
+    slots (position < 0) start frozen. Returns the emitted tokens [b,
+    n_steps]; the pool is updated in place."""
+    tok, positions, rem = flat[:b], flat[b:2 * b], flat[2 * b:3 * b]
+    table = flat[3 * b:].view(b, cols)
     max_len = model.cfg.max_seq_len
     start = positions
     view = paged_view(cache, table, max_len)
@@ -254,6 +268,9 @@ class Server:
         self.steps = 0       # decode micro-steps, summed over dispatches
         self.dispatches = 0  # decode chunks
         self.prefills = 0    # prefill forwards (exact hits skip one)
+        # decode chunks and prefills replayed as CUDA graphs on the card
+        self.graphs = GraphCache(self.device) \
+            if self.device.type == "cuda" else None
         self.prefix = PrefixStore(int(prefix_cache_mb * (1 << 20)),
                                   self.slots.pool) \
             if prefix_cache_mb > 0 else None
@@ -389,17 +406,21 @@ class Server:
                 suffix = p[off:]
                 lb = bucket_len(len(suffix), max_len, self.min_bucket)
                 s.ensure_pages(slot, len(p))
-                window = np.zeros((1, lb), np.int64)
-                window[0, :len(suffix)] = suffix
-                positions = np.full((1, lb), -1, np.int64)
-                positions[0, :len(suffix)] = off + np.arange(len(suffix))
                 # the view spans the prompt's page bucket, not max_len
                 cols = min(_bucket_pow2(-(-len(p) // ps)), s.max_pages)
-                tok, last = _paged_prefill_admit(
-                    self.model, s.cache, self._tensor(window),
-                    self._tensor(positions), len(suffix),
-                    self._tensor(s.page_table[slot:slot + 1, :cols]),
-                    req.temperature, req.top_k, gen)
+                flat = np.full(2 * lb + cols + 1, -1, np.int64)
+                flat[:lb] = 0
+                flat[:len(suffix)] = suffix
+                flat[lb:lb + len(suffix)] = off + np.arange(len(suffix))
+                flat[2 * lb:2 * lb + cols] = s.page_table[slot, :cols]
+                flat[-1] = len(suffix) - 1
+                # a copy: a replay's output is overwritten by the next
+                last = self._dispatch("prefill", (lb, cols), flat,
+                                      functools.partial(
+                                          _prefill_last, self.model,
+                                          s.cache, lb=lb,
+                                          cols=cols)).clone()
+                tok = _sample_first(last, req.temperature, req.top_k, gen)
                 self.prefills += 1
                 if self.prefix is not None:
                     self.prefix.insert(p, s.slot_pages(slot, len(p)),
@@ -425,6 +446,33 @@ class Server:
 
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.int64, device=self.device)
+
+    def _dispatch(self, kind: str, shape: tuple, flat: np.ndarray, fn):
+        """``fn`` on the packed int64 inputs ``flat``, copied to the
+        device in one transfer: replayed at the key ``(kind, *shape)``
+        (its first call eager, then captured), or eager on the CPU."""
+        if self.graphs is None:
+            return fn(self._tensor(flat))
+        e = self.graphs.entry((kind, *shape), lambda: (torch.empty(
+            flat.size, dtype=torch.int64, device=self.device),))
+        e.statics[0].copy_(torch.from_numpy(flat))
+        return self.graphs.run(e, fn)
+
+    def _run_chunk(self, flat: np.ndarray, k: int, cols: int) -> np.ndarray:
+        """One decode chunk of ``k`` micro-steps over the first ``cols``
+        page columns, on packed inputs (``_decode_chunk``); returns the
+        tokens [b, k] on the host. A chunk with a live sampled row runs
+        eagerly and is counted so."""
+        s = self.slots
+        fn = functools.partial(
+            _decode_chunk, self.model, s.cache, b=s.batch_size, cols=cols,
+            temps=s.temperature.copy(), top_ks=s.top_k.copy(),
+            generators=list(s.generators), n_steps=k, eos_ids=self.eos_ids)
+        if self.graphs is not None and (s.temperature > 0).any():
+            toks = self.graphs.eager("decode", fn, self._tensor(flat))
+        else:
+            toks = self._dispatch("decode", (k, cols), flat, fn)
+        return toks.cpu().numpy()
 
     def _chunk_size(self) -> int:
         """Micro-steps for this round: enough for the longest-remaining
@@ -456,13 +504,14 @@ class Server:
             finished.extend(self._decode_round())
         return finished
 
-    def _decode_round(self) -> list[Result]:
-        """One decode chunk over the live slots + EOS/evict. The page
-        table is fixed across the chunk, so every live slot is first
-        grown to cover the positions the chunk writes (capped at its
-        budget), and the table is column-sliced to a power-of-two
-        bucket of the live extent."""
-        finished: list[Result] = []
+    def _prepare_chunk(self) -> tuple[int, int, np.ndarray]:
+        """The next chunk's micro-steps ``k``, page columns ``cols`` and
+        packed inputs (``_decode_chunk``: the slots' last tokens,
+        positions, remaining budgets and the table's first ``cols``
+        columns). The page table is fixed across the chunk, so every
+        live slot is first grown to cover the positions the chunk writes
+        (capped at its budget), and the table is column-sliced to a
+        power-of-two bucket of the live extent."""
         s = self.slots
         k = self._chunk_size()
         hi = 0
@@ -476,15 +525,18 @@ class Server:
                 rem[slot] = live.request.max_new_tokens \
                     - len(live.generated)
         cols = min(_bucket_pow2(-(-hi // s.pool.page_size)), s.max_pages)
-        toks = _decode_chunk(
-            self.model, s.cache, self._tensor(s.last_token),
-            self._tensor(s.positions()), s.temperature.copy(),
-            s.top_k.copy(), list(s.generators), self._tensor(rem),
-            self._tensor(s.page_table[:, :cols]), n_steps=k,
-            eos_ids=self.eos_ids)
+        flat = np.concatenate([s.last_token, s.positions(), rem,
+                               s.page_table[:, :cols].ravel()])
+        return k, cols, flat.astype(np.int64)
+
+    def _decode_round(self) -> list[Result]:
+        """One decode chunk over the live slots + EOS/evict."""
+        finished: list[Result] = []
+        s = self.slots
+        k, cols, flat = self._prepare_chunk()
+        toks = self._run_chunk(flat, k, cols)
         self.steps += k
         self.dispatches += 1
-        toks = toks.cpu().numpy()  # [b, k]
         for slot in range(s.batch_size):
             live = self._live[slot]
             if live is None:
@@ -540,7 +592,10 @@ class Server:
 
     def counters(self) -> dict:
         """Engine counters: dispatch/step totals, frozen-step accounting,
-        prefix-store and page-pool state."""
+        prefix-store and page-pool state; on the card also the graphs:
+        ``graph_{decode|prefill}_{captures|replays|eager}`` (a capture is
+        the first call at its key, so captures + replays + eager equals
+        ``dispatches`` or ``prefills``) and ``graph_capture_s``."""
         out = {
             "prefills": self.prefills,
             "decode_steps": self.steps,
@@ -558,6 +613,10 @@ class Server:
             out["prefix_bytes"] = st["bytes"]
             out["prefix_budget_bytes"] = st["budget_bytes"]
             out["prefix_evictions"] = st["evictions"]
+        if self.graphs is not None:
+            for name, n in self.graphs.counters(("decode",
+                                                  "prefill")).items():
+                out["graph_" + name] = n
         ps = self.slots.pool.stats()
         out["kv_pages_total"] = ps["total"]
         out["kv_pages_used"] = ps["used"]

@@ -3,11 +3,15 @@ per-slot decode state. The counterpart of the paged half of
 ``tony_tpu/serve/slots.py``.
 
 Device side: one cache dict (``models.generate.init_cache``) whose K/V
-leaves are page POOLS ``[n_pages, page_size, kvh, dh]`` (int8 scales
-``[n_pages, page_size, kvh]``), written in place. Host side: numpy page
-tables, a free list, refcounts and a reservation ledger. A table entry
-``>= n_pages`` is an unallocated SENTINEL: gathers clamp it to a junk
-page the visibility mask hides, writes through it are dropped.
+leaves are page POOLS ``[n_pages + 1, page_size, kvh, dh]`` (int8
+scales ``[n_pages + 1, page_size, kvh]``), written in place. Host side:
+numpy page tables, a free list, refcounts and a reservation ledger. A
+table entry ``>= n_pages`` is an unallocated SENTINEL. Page ``n_pages``
+is the JUNK page: the allocator never hands it out and no count
+includes it; gathers clamp a sentinel onto it (the visibility mask
+hides what they read), and every write the JAX package drops lands on
+it, so the writes keep one shape whatever they drop (the JAX package's
+``mode="drop"`` scatter) and a CUDA graph can hold them.
 """
 
 from __future__ import annotations
@@ -28,10 +32,10 @@ def _layers(cache: dict):
 
 
 def paged_cache(model, n_pages: int, page_size: int) -> dict:
-    """A page-pool cache dict: every K/V leaf ``[n_pages, page_size,
-    ...]``; the shared counters ride along unused (per-slot decode
-    neither reads nor advances them)."""
-    return init_cache(model, n_pages, page_size)
+    """A page-pool cache dict: every K/V leaf ``[n_pages + 1, page_size,
+    ...]``, the last page the junk page; the shared counters ride along
+    unused (per-slot decode neither reads nor advances them)."""
+    return init_cache(model, n_pages + 1, page_size)
 
 
 def default_page_size(cfg) -> int:
@@ -52,7 +56,8 @@ def kv_page_nbytes(cfg, page_size: int) -> int:
 
 
 def page_nbytes(cache: dict) -> int:
-    """Bytes one page occupies across a pool's leaves (all layers)."""
+    """Bytes one page occupies across a pool's leaves (all layers; the
+    junk page is not counted anywhere)."""
     total = 0
     for layer in _layers(cache):
         for name in _POOL_LEAVES:
@@ -74,11 +79,11 @@ def copy_page(cache: dict, src: int, dst: int) -> None:
 
 def paged_view(cache: dict, table: torch.Tensor, max_len: int) -> dict:
     """Gather each slot's pages into an unpaged-looking cache: every
-    pool leaf ``[n_pages, ps, ..]`` becomes ``[b, span, ..]`` through
-    ``table`` [b, cols] (sentinels clamp to junk pages the visibility
-    mask hides), with ``span = min(cols * ps, max_len)``. A decode chunk
-    runs its micro-steps on this view and ``paged_write_back`` returns
-    their writes to the pool."""
+    pool leaf ``[n_pages + 1, ps, ..]`` becomes ``[b, span, ..]``
+    through ``table`` [b, cols] (sentinels clamp to the junk page, which
+    the visibility mask hides), with ``span = min(cols * ps, max_len)``.
+    A decode chunk runs its micro-steps on this view and
+    ``paged_write_back`` returns their writes to the pool."""
     out: dict = {}
     for key, layer in cache.items():
         if not key.startswith("block_"):
@@ -108,9 +113,10 @@ def paged_write_back(pool: dict, view: dict, table: torch.Tensor,
     place: slot i's micro-step j wrote position ``start[i] + j``
     (``start < 0`` = empty slot), so only those ``b x n_steps`` entries
     move. Positions past the view or the table, and sentinel entries,
-    are dropped — filtered out, never clamped."""
+    are dropped, as the JAX package drops them: they land on the junk
+    page, which no kept entry writes. Fixed shape, no host sync."""
     first = _layers(pool)[0]["cached_key"]
-    n_pg, ps = first.shape[0], first.shape[1]
+    junk, ps = first.shape[0] - 1, first.shape[1]
     span = _layers(view)[0]["cached_key"].shape[1]
     steps = torch.arange(n_steps, dtype=start.dtype, device=start.device)
     pos_w = torch.where(start[:, None] >= 0, start[:, None] + steps,
@@ -119,15 +125,15 @@ def paged_write_back(pool: dict, view: dict, table: torch.Tensor,
     valid = (pos_w >= 0) & (pos_w < limit)
     safe = torch.where(valid, pos_w, torch.zeros_like(pos_w))
     page = torch.gather(table, 1, safe // ps)
-    valid = valid & (page < n_pg)
-    rows, cols = valid.nonzero(as_tuple=True)
-    pos = safe[rows, cols]
-    dst = (page[rows, cols], pos % ps)
+    valid = valid & (page < junk)
+    page = torch.where(valid, page, torch.full_like(page, junk))
+    dst = (page, safe % ps)
+    rows = torch.arange(table.shape[0], device=table.device)[:, None]
     for pl, vl in zip(_layers(pool), _layers(view)):
         for name in _POOL_LEAVES:
             leaf = pl.get(name)
             if leaf is not None:
-                leaf[dst] = vl[name][rows, pos]
+                leaf[dst] = vl[name][rows, safe]
 
 
 class PagePool:
