@@ -32,7 +32,9 @@ exits non-zero.
    line; then the device's busy time under torch.profiler gives the
    host share with replays.
 5. CLI: a 2-layer full-width checkpoint directory read by
-   ``tony_tpu_torch.cli.generate --serve`` from a pipe.
+   ``tony_tpu_torch.cli.generate --serve`` from a pipe; then in fp32
+   with two repetitive prompts more, ``--speculate-k 4`` against the
+   same run without it: equal responses.
 6. Training kernels against their plain versions at Qwen2.5-1.5B shapes:
    flash attention forward, dQ and dK/dV at B=4, L=2048, H=12, KVH=2,
    D=128 in bf16 (the training path's call), and fp32 at L=1024, a
@@ -91,6 +93,28 @@ exits non-zero.
 12. int8 CLI: over a 2-layer full-width checkpoint, ``cli.generate
    --int8 --token-ids``, ``cli.score --int8`` and ``cli.score``; the
    int8 nll/token within 5% of the fp32 one; ``--serve --int8`` refused.
+13. Serving options, each on phase 4's configuration (a fresh Server a
+   part; every run held to ``check_run``: requests finished as budget
+   and eos say, no page leaked, flash-decode n_layers times a
+   single-token micro-step, every chunk, verify round, prefill and
+   prefill chunk a capture or a replay):
+   a. speculation: 16 greedy requests (a 5-16-token pattern repeated to
+      256-1024 tokens, budgets 64-256) with ``speculate_k`` 8, then
+      with 0: tok/s, rounds, drafts and acceptance; the streams equal,
+      or parting only at a near tie (``near_ties``: one plain forward
+      over the common prefix puts both tokens' logits within 2^-6 of
+      the row's largest |logit|);
+   b. on one saved pool state a verify round replayed and eager:
+      emit, accepted, cont and pool bytes bit-equal, both timed;
+   c. chunked prefill: four 3000-token prompts ahead of twelve of
+      32-256 tokens, with 512-token chunks and without: the short
+      requests' TTFT, the chunk graphs, near-tie equal streams; and a
+      512-token window timed with and without the LM head;
+   d. speculation with in-dispatch EOS off: streams near-tie equal to
+      13a's, wasted and frozen steps beside 13a's;
+   e. ``FaultPlan.fail_at(3)``: ``InjectedFault`` out of ``step()``
+      with 8 requests live, ``reset()`` leaving only the prefix store's
+      pages, the 16 requests again token-equal to 13a's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
@@ -579,21 +603,121 @@ def phase_model(ctx) -> None:
     torch.cuda.empty_cache()
 
 
+def serve_timed(srv, reqs) -> dict:
+    """Submit ``reqs`` at once and step ``srv`` until all finish, timed on
+    the host from a synchronised start to a synchronised end, with
+    flash-decode's launch count set to 0 just before: the Results by
+    id, the wall seconds, each request's first-token time (the end of
+    the step that gave it) and the launches."""
+    from tony_tpu_torch.ops.decode import flash_decode
+
+    results, first = {}, {}
+    flash_decode.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    for r in reqs:
+        srv.submit(r)
+    while not srv.done:
+        for r in srv.step():
+            results[r.id] = r
+        now = time.perf_counter() - t0
+        for rid in list(srv.live_progress()) + list(results):
+            first.setdefault(rid, now)
+    sync()
+    return {"results": results, "wall": time.perf_counter() - t0,
+            "first": first, "launches": flash_decode.launches}
+
+
+def percentiles(values) -> tuple[float, float]:
+    """(p50, p99) of ``values`` by rank."""
+    v = sorted(values)
+    return v[len(v) // 2], v[min(len(v) - 1, int(0.99 * len(v)))]
+
+
+def check_run(srv, reqs, run, part: str, base: dict | None = None) -> dict:
+    """What every serving run must show: every request finished as its
+    budget and the eos ids say; no page reservation left and no page
+    held but the prefix store's; no frozen row that re-emitted another
+    token; flash-decode launched n_layers times for each single-token
+    micro-step (chunks and verify continuations; a verify window runs
+    none); and, all requests greedy, every decode chunk, verify round,
+    prefill and intermediate prefill chunk the first call at its key or
+    a replay, none eager. ``base`` = the counters before the run, for a
+    server that served before it. Returns the run's counters."""
+    c = srv.counters()
+    base = base or {}
+
+    def d(key):
+        return c[key] - base.get(key, 0)
+
+    results = run["results"]
+    check(len(results) == len(reqs),
+          f"{part}: {len(results)} of {len(reqs)} requests finished")
+    eos = srv.eos_ids
+    for r in reqs:
+        res = results[r.id]
+        toks = res.tokens
+        hit = [j for j, t in enumerate(toks) if t in eos]
+        if res.finish_reason == "eos":
+            check(hit == [len(toks) - 1] and len(toks) <= r.max_new_tokens,
+                  f"{part} request {r.id}: eos finish with tokens "
+                  f"{toks[-3:]}")
+        else:
+            check(res.finish_reason == "length" and not hit
+                  and len(toks) == r.max_new_tokens,
+                  f"{part} request {r.id}: {res.finish_reason} after "
+                  f"{len(toks)} of {r.max_new_tokens} tokens")
+    pinned = len({p for e in srv.prefix._entries.values()
+                  for p in e.pages}) if srv.prefix is not None else 0
+    check(c["kv_pages_reserved"] == 0 and c["kv_pages_used"] == pinned,
+          f"{part}: {c['kv_pages_reserved']} pages reserved and "
+          f"{c['kv_pages_used']} used at the end, {pinned} pinned by the "
+          "prefix store")
+    check(c["freeze_faults"] == 0, f"{part}: frozen slots re-emitted "
+          "other tokens")
+    micro = d("decode_steps") - d("spec_window_steps")
+    layers = srv.model.cfg.n_layers
+    check(run["launches"] == layers * micro > 0,
+          f"{part}: flash_decode launched {run['launches']} times, "
+          f"expected {layers} x {micro} single-token micro-steps")
+    intermediate = d("prefill_chunk_dispatches") \
+        - d("prefill_chunked_requests")
+    for kind, total in (("decode", d("dispatches") - d("spec_rounds")),
+                        ("verify", d("spec_rounds")),
+                        ("prefill", d("prefills") - intermediate),
+                        ("prefill_chunk", intermediate)):
+        caps, reps = d(f"graph_{kind}_captures"), d(f"graph_{kind}_replays")
+        check(d(f"graph_{kind}_eager") == 0 and caps + reps == total,
+              f"{part} {kind}: {caps} captures + {reps} replays + "
+              f"{d(f'graph_{kind}_eager')} eager of {total} calls")
+    return c
+
+
+SERVE_EOS = (151643, 151645)  # the Qwen2.5 tokenizer's end-of-text ids
+
+
+def serve_server(model, **options):
+    """Phase 4's serving configuration with ``options``: batch 8, pages of
+    64, prefix store 64 MB, chunks of up to 8 micro-steps, the published
+    end-of-text ids."""
+    from tony_tpu_torch.serve import Server
+
+    return Server(model, batch_size=8, eos_id=SERVE_EOS,
+                  prefix_cache_mb=64.0, chunk_steps=8, device=DEVICE,
+                  **options)
+
+
 def phase_serve(ctx) -> None:
     import numpy as np
     import torch
 
     from tony_tpu_torch.models.transformer import Transformer
-    from tony_tpu_torch.ops.decode import flash_decode
-    from tony_tpu_torch.serve import Request, Server
+    from tony_tpu_torch.serve import Request
 
     cfg = qwen_config(dtype=torch.bfloat16)
     model = Transformer(cfg, device=DEVICE).init_weights(
         torch.Generator(device=DEVICE).manual_seed(SEED))
-    # published end-of-text ids of the Qwen2.5 tokenizer, fixed up front
-    eos = (151643, 151645)
-    srv = Server(model, batch_size=8, eos_id=eos, prefix_cache_mb=64.0,
-                 chunk_steps=8, device=DEVICE)
+    srv = serve_server(model)
     rng = np.random.default_rng(SEED)
     system = rng.integers(0, 151643, 512).tolist()
     reqs = []
@@ -609,55 +733,15 @@ def phase_serve(ctx) -> None:
 
     # the timed run: serving work only (no profiler, no kernel-argument
     # capture; the graphs' first calls and captures are inside it)
-    results, first = {}, {}
-    flash_decode.launches = 0
-    sync()
-    t0 = time.perf_counter()
-    for r in reqs:
-        srv.submit(r)
-    while not srv.done:
-        for r in srv.step():
-            results[r.id] = r
-        now = time.perf_counter() - t0
-        for rid in list(srv.live_progress()) + list(results):
-            first.setdefault(rid, now)
-    sync()
-    wall = time.perf_counter() - t0
-    launches = flash_decode.launches
-    c = srv.counters()
-    check(len(results) == 24, f"{len(results)} of 24 requests finished")
-    for r in reqs:
-        res = results[r.id]
-        toks = res.tokens
-        hit = [j for j, t in enumerate(toks) if t in eos]
-        if res.finish_reason == "eos":
-            check(hit == [len(toks) - 1] and len(toks) <= r.max_new_tokens,
-                  f"request {r.id}: eos finish with tokens {toks[-3:]}")
-        else:
-            check(res.finish_reason == "length" and not hit
-                  and len(toks) == r.max_new_tokens,
-                  f"request {r.id}: {res.finish_reason} after "
-                  f"{len(toks)} of {r.max_new_tokens} tokens")
+    run = serve_timed(srv, reqs)
+    c = check_run(srv, reqs, run, "phase 4")
+    launches, wall = run["launches"], run["wall"]
     check(c["prefix_hits"] > 0, "the prefix store recorded no hit")
-    check(c["freeze_faults"] == 0, "frozen slots re-emitted other tokens")
-    check(c["kv_pages_reserved"] == 0, "page reservations leaked")
-    check(launches == cfg.n_layers * c["decode_steps"] > 0,
-          f"flash_decode launched {launches} times, expected "
-          f"{cfg.n_layers} x {c['decode_steps']} micro-steps")
-    # every request is greedy: every chunk and every prefill is the first
-    # call at its key (eager, then captured) or a replay
-    for kind, total in (("decode", c["dispatches"]),
-                        ("prefill", c["prefills"])):
-        caps, reps = c[f"graph_{kind}_captures"], c[f"graph_{kind}_replays"]
-        check(c[f"graph_{kind}_eager"] == 0 and caps + reps == total
-              and reps > 0,
-              f"{kind}: {caps} captures + {reps} replays + "
-              f"{c[f'graph_{kind}_eager']} eager of {total} calls")
+    check(c["graph_decode_replays"] > 0 and c["graph_prefill_replays"] > 0,
+          "phase 4: no chunk or no prefill was replayed")
     pool = srv.graphs.pool_bytes()
-    gen_tokens = sum(len(res.tokens) for res in results.values())
-    ttft = sorted(first[r.id] for r in reqs)
-    p50 = ttft[len(ttft) // 2]
-    p99 = ttft[min(len(ttft) - 1, int(0.99 * len(ttft)))]
+    gen_tokens = sum(len(res.tokens) for res in run["results"].values())
+    p50, p99 = percentiles(run["first"][r.id] for r in reqs)
     print(f"phase 4 serve Qwen2.5-1.5B bf16 {cfg.n_layers} layers, batch 8, 24 "
           f"requests: {gen_tokens} tokens in {wall:.2f} s = "
           f"{gen_tokens / wall:.1f} tok/s; TTFT p50 {p50:.3f} s, p99 "
@@ -865,10 +949,49 @@ def write_checkpoint() -> str:
     return ckpt
 
 
+def serve_cli(ckpt: str, lines: list, *flags) -> dict:
+    """``cli.generate --serve`` over ``ckpt`` with ``flags``, the JSONL
+    ``lines`` piped in; its responses by id, each checked against its
+    request: the prompt echoed, a finish reason and the budget kept."""
+    from tony_tpu_torch.cli import generate as cli
+
+    rfd, wfd = os.pipe()
+    with os.fdopen(wfd, "w") as wf:
+        wf.write("\n".join(json.dumps(x) for x in lines) + "\n")
+    out = io.StringIO()
+    saved = sys.stdin
+    try:
+        sys.stdin = os.fdopen(rfd)
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--model", ckpt, "--serve", "--flash-decode",
+                           "--serve-batch", "4", "--kv-pages", "128",
+                           "--device", DEVICE, *flags])
+    finally:
+        sys.stdin.close()
+        sys.stdin = saved
+    check(rc == 0, f"cli {flags}: exit code {rc}")
+    got = {}
+    for line in out.getvalue().strip().splitlines():
+        doc = json.loads(line)
+        got[doc["id"]] = doc
+    check(set(got) == {x["id"] for x in lines},
+          f"cli {flags} answered {sorted(got)}")
+    for x in lines:
+        doc = got[x["id"]]
+        new = doc["token_ids"][len(x["token_ids"]):]
+        check(doc["token_ids"][:len(x["token_ids"])] == x["token_ids"],
+              f"{x['id']}: prompt not echoed")
+        check(doc["finish_reason"] in ("eos", "length")
+              and len(new) <= x["max_new_tokens"]
+              and (doc["finish_reason"] == "eos"
+                   or len(new) == x["max_new_tokens"]),
+              f"{x['id']}: {doc['finish_reason']} with {len(new)} "
+              f"of {x['max_new_tokens']} tokens")
+    return got
+
+
 def phase_cli(ctx) -> None:
     import numpy as np
-
-    from tony_tpu_torch.cli import generate as cli
 
     ckpt = write_checkpoint()
     try:
@@ -877,40 +1000,23 @@ def phase_cli(ctx) -> None:
                      0, 151643, n).tolist(), "max_new_tokens": m}
                  for i, (n, m) in enumerate(((40, 12), (300, 20), (5, 1),
                                              (900, 8)))]
-        rfd, wfd = os.pipe()
-        with os.fdopen(wfd, "w") as wf:
-            wf.write("\n".join(json.dumps(x) for x in lines) + "\n")
-        out = io.StringIO()
-        saved = sys.stdin
-        try:
-            sys.stdin = os.fdopen(rfd)
-            with contextlib.redirect_stdout(out):
-                rc = cli.main(["--model", ckpt, "--serve", "--flash-decode",
-                               "--dtype", "bf16", "--serve-batch", "4",
-                               "--kv-pages", "128", "--device", DEVICE])
-        finally:
-            sys.stdin.close()
-            sys.stdin = saved
-        check(rc == 0, f"cli exit code {rc}")
-        got = {}
-        for line in out.getvalue().strip().splitlines():
-            doc = json.loads(line)
-            got[doc["id"]] = doc
-        check(set(got) == {x["id"] for x in lines},
-              f"cli answered {sorted(got)}")
-        for x in lines:
-            doc = got[x["id"]]
-            new = doc["token_ids"][len(x["token_ids"]):]
-            check(doc["token_ids"][:len(x["token_ids"])] == x["token_ids"],
-                  f"{x['id']}: prompt not echoed")
-            check(doc["finish_reason"] in ("eos", "length")
-                  and len(new) <= x["max_new_tokens"]
-                  and (doc["finish_reason"] == "eos"
-                       or len(new) == x["max_new_tokens"]),
-                  f"{x['id']}: {doc['finish_reason']} with {len(new)} "
-                  f"of {x['max_new_tokens']} tokens")
+        got = serve_cli(ckpt, lines, "--dtype", "bf16")
         print(f"phase 5 cli --serve over a 2-layer full-width checkpoint: "
               f"{len(got)} of {len(lines)} JSONL responses checked")
+        # speculation leaves greedy outputs as they are; in fp32, where
+        # the window pass and the single step round alike, the responses
+        # must be equal. Two more lines repeat a short pattern, prompt
+        # lookup's best case
+        lines += [{"id": f"p{i}", "token_ids": np.resize(rng.integers(
+                      0, 151643, 7), n).tolist(), "max_new_tokens": 24}
+                  for i, n in enumerate((64, 200))]
+        plain = serve_cli(ckpt, lines, "--dtype", "fp32")
+        spec = serve_cli(ckpt, lines, "--dtype", "fp32", "--speculate-k", "4")
+        check(spec == plain, "cli --speculate-k 4: responses differ from "
+              "the run without it: " + ", ".join(
+                  k for k in plain if spec[k] != plain[k]))
+        print(f"phase 5 cli --serve --speculate-k 4 (fp32): {len(spec)} "
+              f"responses equal to the run without the flag")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
 
@@ -2299,6 +2405,415 @@ def int8_kernel_lines(ctx) -> list[dict]:
     return lines
 
 
+# ------------------------------------------------- serving options (13)
+
+SPEC_K = 8            # 13a: bench.py's spec datum
+PREFILL_CHUNK = 512   # 13c
+FAULT_AT = 3          # 13e: the fault fires at the top of the 3rd step
+# the near-tie rule: two streams may part only where the plain forward
+# puts both chosen tokens' logits within this share of the row's largest
+# |logit| (bf16's 2^-7 relative step, once for each of the two paths)
+NEAR_TIE = 2.0 ** -6
+
+
+def spec_specs(rng) -> list:
+    """13a's 16 requests as (prompt, budget): a pattern of 5-16 random
+    tokens repeated to 256-1024 tokens, budgets 64-256."""
+    import numpy as np
+
+    return [(np.resize(rng.integers(0, 151643, int(rng.integers(5, 17))),
+                       int(rng.integers(256, 1025))).tolist(),
+             int(rng.integers(64, 257))) for _ in range(16)]
+
+
+def requests(specs) -> list:
+    from tony_tpu_torch.serve import Request
+
+    return [Request(list(p), n, id=i) for i, (p, n) in enumerate(specs)]
+
+
+def near_ties(model, specs, got: dict, want: dict, part: str) -> list:
+    """Hold the streams ``got`` to ``want`` (Results by id): equal, or
+    parting first at a near tie. At the first token where two streams
+    differ, one plain forward re-scores the common prefix, and both
+    chosen tokens' logits must lie within ``NEAR_TIE`` x the row's
+    largest |logit|. Returns (id, index, gap, tolerance) for each
+    parting."""
+    import torch
+
+    ties = []
+    for i, (prompt, _) in enumerate(specs):
+        a, b = got[i].tokens, want[i].tokens
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            check(a == b and got[i].finish_reason == want[i].finish_reason,
+                  f"{part} request {i}: {len(a)} tokens "
+                  f"({got[i].finish_reason}) against {len(b)} "
+                  f"({want[i].finish_reason})")
+            continue
+        seq = torch.tensor([list(prompt) + a[:j]], device=DEVICE)
+        with torch.no_grad():
+            hidden = model(seq, return_hidden=True)
+            logits = model.logits(hidden[0, -1:])[0]
+        gap = abs(float(logits[a[j]] - logits[b[j]]))
+        tol = NEAR_TIE * float(logits.abs().max())
+        check(gap <= tol, f"{part} request {i}: the streams part at token "
+              f"{j} ({a[j]} against {b[j]}), logit gap {gap:.4g} under "
+              f"the plain forward > {tol:.4g}")
+        ties.append((i, j, gap, tol))
+    return ties
+
+
+def ties_text(ties, n: int) -> str:
+    if not ties:
+        return f"all {n} streams equal"
+    return (f"{n - len(ties)} of {n} streams equal, {len(ties)} part at a "
+            "near tie (" + ", ".join(
+                f"request {i} at token {j}: gap {g:.3g} <= {t:.3g}"
+                for i, j, g, t in ties) + ")")
+
+
+def verify_replay_check(ctx, srv, rng) -> None:
+    """13b: on 8 long repetitive requests after their first round, one
+    verify round replayed and the same round run eagerly, on one saved
+    pool state: ``emit``, ``accepted``, ``cont`` and the pool bytes
+    bit-equal; then both timed (median of 3), and the requests served
+    to the end."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.serve import Request
+    from tony_tpu_torch.serve.engine import _verify_chunk
+
+    for i in range(8):
+        srv.submit(Request(np.resize(rng.integers(0, 151643, 6),
+                                     1500).tolist(), 64, id=f"v{i}"))
+    srv.step()  # admits all 8 and runs their first round
+    check(srv.n_active == 8, f"13b: {srv.n_active} of 8 live")
+    s = srv.slots
+    drafts = srv._collect_drafts()
+    if drafts is None:  # no draft proposed: the round's layout is the same
+        drafts = [np.full(4, s.last_token[i]) for i in range(8)]
+    window, k_cont, cols, flat, _ = srv._prepare_verify(drafts)
+    leaves = pool_leaves(srv)
+    saved = [leaf.clone() for leaf in leaves]
+    n = s.pool.n_pages
+
+    def restore():
+        for leaf, keep in zip(leaves, saved):
+            leaf.copy_(keep)
+        sync()
+
+    def eager():
+        return _verify_chunk(
+            srv.model, s.cache, torch.as_tensor(flat, device=DEVICE),
+            s.batch_size, window, cols, s.temperature.copy(),
+            s.top_k.copy(), list(s.generators), k_cont,
+            srv.eos_ids).cpu().numpy()
+
+    def replayed():
+        return srv._run_verify(flat, window, k_cont, cols)
+
+    key = ("verify", window, k_cont, cols)
+    if key not in srv.graphs.entries:
+        replayed()  # its first call: eager, then captured
+        restore()
+    want = eager()
+    want_pool = [leaf[:n].clone() for leaf in leaves]
+    restore()
+    replays = srv.graphs.calls["verify", "replays"]
+    got = replayed()
+    check(srv.graphs.calls["verify", "replays"] == replays + 1,
+          "13b: the verify round was not a replay")
+    check((got == want).all(), "13b: replayed emit/accepted/cont differ "
+          "from the eager round's")
+    check(all(torch.equal(leaf[:n], w) for leaf, w in zip(leaves,
+                                                           want_pool)),
+          "13b: replayed verify round's pool bytes differ from the eager "
+          "round's")
+    del want_pool
+    times = {"eager": [], "replayed": []}
+    for _ in range(3):
+        for name, run in (("eager", eager), ("replayed", replayed)):
+            restore()
+            t0 = time.perf_counter()
+            run()
+            times[name].append(time.perf_counter() - t0)
+    # a chunk of the same depth on the same state, replayed, beside it
+    k, ccols, cflat = srv._prepare_chunk()
+    if ("decode", k, ccols) not in srv.graphs.entries:
+        srv._run_chunk(cflat, k, ccols)
+    times["chunk"] = []
+    for _ in range(3):
+        restore()
+        t0 = time.perf_counter()
+        srv._run_chunk(cflat, k, ccols)
+        times["chunk"].append(time.perf_counter() - t0)
+    restore()
+    breakdown = {"verify": top_kernels(replayed),
+                 "chunk": top_kernels(lambda: srv._run_chunk(cflat, k,
+                                                             ccols))}
+    restore()
+    del saved
+    ms = {name: statistics.median(t) * 1e3 for name, t in times.items()}
+    accepted = int(want[:, window].sum())
+    print(f"phase 13b one verify round (window {window}, {k_cont} continuation "
+          f"steps, {cols} page columns, batch 8; {accepted} of "
+          f"{sum(d.size for d in drafts if d is not None)} drafts accepted)"
+          f" replayed and eager on one saved state: emit, accepted, cont "
+          f"and pool bytes ({n} pages, junk page aside) bit-equal; median "
+          f"of 3: eager {ms['eager']:.1f} ms, replayed "
+          f"{ms['replayed']:.1f} ms; a chunk of {k} micro-steps on the same "
+          f"state, replayed, {ms['chunk']:.1f} ms [{ctx['card']}]")
+    for name, text in breakdown.items():
+        print(f"phase 13b replayed {name}, torch.profiler: {text} "
+              f"[{ctx['card']}]")
+    while not srv.done:
+        srv.step()
+
+
+def top_kernels(fn, n: int = 6) -> str:
+    """``fn`` once under torch.profiler (device activity only): its
+    device time and the ``n`` kernels that took most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    rows = []
+    for r in prof.key_averages():
+        us = getattr(r, "self_device_time_total",
+                     getattr(r, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us, r.count, r.key))
+    if not rows:
+        return "no device time seen"
+    rows.sort(reverse=True)
+    total = sum(us for us, _, _ in rows)
+    return f"{total * 1e-3:.2f} ms of device time; most: " + "; ".join(
+        f"{key[:60]} x{count} {us * 1e-3:.2f} ms"
+        for us, count, key in rows[:n])
+
+
+def time_lm_head(ctx, srv) -> dict:
+    """13c: a 512-token prefill window at positions 2560-3071 (a
+    3000-token prompt's last intermediate chunk) through the pool,
+    timed by CUDA events (median of 5, L2 flushed): the intermediate
+    chunk without the LM head (``_paged_prefill_chunk``) and with every
+    row's logits, and the final chunk's logits for the last row alone
+    (``_prefill_last``) and for every row, then one picked."""
+    import torch
+
+    from tony_tpu_torch.serve.engine import (_bucket_pow2,
+                                             _paged_prefill_chunk,
+                                             _prefill_last)
+
+    s, model = srv.slots, srv.model
+    lb, start = PREFILL_CHUNK, 2560
+    cols = min(_bucket_pow2(-(-(start + lb) // s.pool.page_size)),
+               s.max_pages)
+    while s.pool.available() < cols and srv.prefix.evict_one():
+        pass
+    pages = s.pool.alloc(cols)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    window = torch.randint(0, 151643, (lb,), device=DEVICE, generator=gen)
+    positions = start + torch.arange(lb, device=DEVICE)
+    table = torch.tensor(pages, device=DEVICE)
+    last = torch.tensor([lb - 1], device=DEVICE)
+    flat = torch.cat([window, positions, table, last])
+
+    def full():
+        return model(window[None], decode=True, positions=positions[None],
+                     page_table=table[None], cache=s.cache)
+
+    fns = {
+        "chunk, no LM head": lambda: _paged_prefill_chunk(
+            model, s.cache, flat[:-1], lb, cols),
+        "chunk, every row's logits": full,
+        "final, the last row's logits": lambda: _prefill_last(
+            model, s.cache, flat, lb, cols),
+        "final, every row's logits": lambda: full()[0].index_select(0,
+                                                                    last),
+    }
+    with torch.no_grad():
+        out = {name: cuda_time_ms(fn, 5, ctx["flush"])
+               for name, fn in fns.items()}
+    s.pool.unref(pages)
+    return out
+
+
+def phase_serving_options(ctx) -> None:
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.serve import FaultPlan, InjectedFault
+    from tony_tpu_torch.ops.decode import flash_decode
+
+    cfg = qwen_config(dtype=torch.bfloat16)
+    model = Transformer(cfg, device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 13)
+    specs = spec_specs(rng)
+    card_ = ctx["card"]
+    launches = 0
+
+    def serve(part, passes, **options):
+        """One server with ``options``; each of ``passes`` (request
+        specs) served in turn on it and checked: the first cold (its
+        keys' first calls and captures inside the timed run), the next
+        with the keys the earlier ones captured. Returns the server and
+        per pass (run, counters of the pass, tok/s, capture seconds)."""
+        nonlocal launches
+        srv = serve_server(model, **options)
+        out, base = [], {}
+        for i, specs_ in enumerate(passes):
+            reqs = requests(specs_)
+            run = serve_timed(srv, reqs)
+            c = check_run(srv, reqs, run, f"{part} pass {i + 1}", base)
+            launches += run["launches"]
+            toks = sum(len(r.tokens) for r in run["results"].values())
+            out.append((run, {k: v - base.get(k, 0) for k, v in c.items()},
+                        toks / run["wall"],
+                        c["graph_capture_s"] - base.get("graph_capture_s",
+                                                        0.0)))
+            base = c
+        return srv, out
+
+    def rounds(c) -> str:
+        acc = c["spec_accepted"] / max(1, c["spec_drafted"])
+        return (f"{c['dispatches']} rounds ({c['spec_rounds']} verify: "
+                f"{c['spec_drafted']} drafted, {c['spec_accepted']} "
+                f"accepted, rate {acc:.3f}; verify graphs "
+                f"{c['graph_verify_captures']} captures, "
+                f"{c['graph_verify_replays']} replays, "
+                f"{c['graph_verify_eager']} eager)")
+
+    # 13a: speculation on, then off; a cold pass, then a warm one of new
+    # requests of the same shapes
+    warm = spec_specs(rng)
+    srv, spec = serve("13a", (specs, warm), speculate_k=SPEC_K)
+    check(spec[0][1]["spec_rounds"] > 0, "13a: no verify round ran")
+    verify_replay_check(ctx, srv, rng)
+    del srv
+    torch.cuda.empty_cache()
+    srv, plain = serve("13a off", (specs, warm))
+    del srv
+    torch.cuda.empty_cache()
+    for i, name in enumerate(("cold", "warm")):
+        ties = near_ties(model, (specs, warm)[i], spec[i][0]["results"],
+                         plain[i][0]["results"], f"13a {name}")
+        (_, c, rate, cap), (_, c0, rate0, cap0) = spec[i], plain[i]
+        print(f"phase 13a speculation, {name} pass, 16 greedy requests (a "
+              f"5-16-token pattern repeated to 256-1024 tokens, budgets "
+              f"64-256): speculate_k {SPEC_K} {rate:.1f} tok/s in "
+              f"{rounds(c)}, {cap:.2f} s capturing; off {rate0:.1f} tok/s "
+              f"in {c0['dispatches']} chunks, {cap0:.2f} s capturing; "
+              f"{ties_text(ties, 16)} [{card_}]")
+    spec, c_spec = spec[0][0], spec[0][1]  # 13a's cold pass, for 13d-e
+
+    # 13c: four 3000-token prompts ahead of twelve short ones, chunked
+    # prefill on and off, cold and warm
+    def long_short():
+        out = [(rng.integers(0, 151643, 3000).tolist(),
+                int(rng.integers(32, 129))) for _ in range(4)]
+        return out + [(rng.integers(0, 151643,
+                                    int(rng.integers(32, 257))).tolist(),
+                       int(rng.integers(32, 129))) for _ in range(12)]
+
+    passes = (long_short(), long_short())
+    runs = {}
+    for chunk in (PREFILL_CHUNK, 0):
+        srv, runs[chunk] = serve(f"13c chunk {chunk}", passes,
+                                 prefill_chunk_tokens=chunk)
+        if chunk:
+            c = runs[chunk][0][1]
+            check(c["prefill_chunked_requests"] == 4
+                  and c["graph_prefill_chunk_replays"] > 0,
+                  f"13c: {c['prefill_chunked_requests']} chunked prompts, "
+                  f"{c['graph_prefill_chunk_replays']} chunk replays")
+            head = time_lm_head(ctx, srv)
+        del srv
+        torch.cuda.empty_cache()
+    for i, name in enumerate(("cold", "warm")):
+        ties = near_ties(model, passes[i], runs[PREFILL_CHUNK][i][0]["results"],
+                         runs[0][i][0]["results"], f"13c {name}")
+        text = []
+        for chunk in (PREFILL_CHUNK, 0):
+            run, c, rate, cap = runs[chunk][i]
+            p50, p99 = percentiles(run["first"][j] for j in range(4, 16))
+            text.append(
+                f"{f'chunks of {chunk}' if chunk else 'unchunked'}: short "
+                f"requests' TTFT p50 {p50:.3f} s, p99 {p99:.3f} s, "
+                f"{rate:.1f} tok/s, {c['dispatches']} rounds, "
+                f"{c['prefill_chunk_dispatches']} chunk dispatches "
+                f"({c['graph_prefill_chunk_captures']} intermediate keys "
+                f"captured, {c['graph_prefill_chunk_replays']} replays), "
+                f"{cap:.2f} s capturing")
+        print(f"phase 13c chunked prefill, {name} pass, 4 prompts of 3000 "
+              f"tokens then 12 of 32-256, budgets 32-128: "
+              + "; ".join(text) + f"; {ties_text(ties, 16)} [{card_}]")
+    print("phase 13c a 512-token window at positions 2560-3071, CUDA events: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in head.items())
+          + f" [{card_}]")
+
+    # 13d: speculation with in-dispatch EOS off
+    srv, ((run, c, rate, _),) = serve("13d", (specs,), speculate_k=SPEC_K,
+                                      in_dispatch_eos=False)
+    del srv
+    torch.cuda.empty_cache()
+    ties = near_ties(model, specs, run["results"], spec["results"], "13d")
+    print(f"phase 13d speculate_k {SPEC_K}, in-dispatch EOS off: {rate:.1f} tok/s "
+          f"in {c['dispatches']} rounds ({c['spec_rounds']} verify); "
+          f"wasted_steps {c['wasted_steps']} against 13a's "
+          f"{c_spec['wasted_steps']}, frozen_steps {c['frozen_steps']} "
+          f"against {c_spec['frozen_steps']}; {ties_text(ties, 16)} "
+          f"against 13a [{card_}]")
+
+    # 13e: a dispatch fault mid-run, reset, the same requests again
+    srv = serve_server(model, speculate_k=SPEC_K,
+                       fault_plan=FaultPlan.fail_at(FAULT_AT))
+    for r in requests(specs):
+        srv.submit(r)
+    flash_decode.launches = 0
+    before = []
+    try:
+        for _ in range(FAULT_AT):
+            before += srv.step()
+        raise PhaseError(f"13e: no fault in {FAULT_AT} steps")
+    except InjectedFault:
+        pass
+    launches += flash_decode.launches
+    live = srv.n_active
+    check(live == 8 and not before, f"13e: {live} live and {len(before)} "
+          "finished at the fault")
+    srv.reset()
+    base = srv.counters()
+    pinned = len({p for e in srv.prefix._entries.values() for p in e.pages})
+    check(base["kv_pages_reserved"] == 0
+          and base["kv_pages_used"] == pinned,
+          f"13e: after reset {base['kv_pages_reserved']} reserved, "
+          f"{base['kv_pages_used']} used, {pinned} pinned by the store")
+    reqs = requests(specs)
+    run = serve_timed(srv, reqs)
+    c = check_run(srv, reqs, run, "13e", base=base)
+    launches += run["launches"]
+    bad = [i for i in range(16)
+           if run["results"][i].tokens != spec["results"][i].tokens]
+    check(not bad, f"13e: requests {bad} differ from the unfaulted run")
+    print(f"phase 13e fail_at({FAULT_AT}): InjectedFault out of step {FAULT_AT} "
+          f"with {live} requests live, none finished; after reset() "
+          f"{base['kv_pages_used']} pages used (all pinned by the prefix "
+          f"store), 0 reserved; the 16 requests again: tokens equal to "
+          f"13a's, {c['prefix_hits'] - base['prefix_hits']} prefix hits, "
+          f"{c['graph_verify_replays'] - base['graph_verify_replays']} "
+          f"verify replays, no page leaked [{card_}]")
+    del srv, model
+    torch.cuda.empty_cache()
+    ctx["launches"] += launches
+    print(f"phase 13 flash_decode launches over phase 13's runs: {launches}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2327,7 +2842,8 @@ def main() -> int:
                         ("int8-kernels", phase_int8_kernels),
                         ("int8-model", phase_int8_model),
                         ("int8-generate", phase_int8_generate),
-                        ("int8-cli", phase_int8_cli)):
+                        ("int8-cli", phase_int8_cli),
+                        ("serving-options", phase_serving_options)):
         t0 = time.perf_counter()
         try:
             phase(ctx)

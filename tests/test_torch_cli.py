@@ -1,7 +1,8 @@
 """The port's CLIs against the JAX package's on one tiny random Qwen2
-checkpoint saved by ``transformers``: the ``--serve`` JSONL loop and the
-one-shot ``--token-ids`` path (float and ``--int8``, greedy prompts of
-one length batched) print the same token ids (``--serve`` responses
+checkpoint saved by ``transformers``: the ``--serve`` JSONL loop (also
+with ``--speculate-k``) and the one-shot ``--token-ids`` path (float
+and ``--int8``, greedy prompts of one length batched) print the same
+token ids (``--serve`` responses
 arrive in finish order, which depends on threading in the JAX CLI, so
 lines are compared as a set), and ``score`` (full forward, ``--int8``,
 ``--kv-int8``) prints the same nll/token: to 1e-4 absolute, its printed
@@ -72,6 +73,25 @@ def test_serve_jsonl_matches_jax(ckpt, monkeypatch, capsys):
     assert rc_j == rc_t == 0
     assert len(out_t) == len(LINES)
     assert sorted(out_t) == sorted(out_j)
+
+
+def test_serve_speculate_k_matches_jax(ckpt, monkeypatch, capsys):
+    """``--serve --speculate-k 4``: the same lines as the JAX CLI with the
+    flag, and as the port without it (greedy outputs unchanged)."""
+    stdin = "\n".join(json.dumps(x) for x in LINES) + "\n"
+    spec = [*FLAGS, "--speculate-k", "4"]
+    rc_j, out_j = _run(jax_cli.main, ["--model", ckpt, *spec,
+                                      "--compile-cache", ""], stdin,
+                       monkeypatch, capsys)
+    outs = []
+    for flags in (spec, FLAGS):
+        rc, out = _run(torch_cli.main, ["--model", ckpt, *flags,
+                                        "--device", "cpu"], stdin,
+                       monkeypatch, capsys)
+        assert rc == 0 and len(out) == len(LINES)
+        outs.append(sorted(out))
+    assert rc_j == 0
+    assert outs[0] == outs[1] == sorted(out_j)
 
 
 def test_one_shot_token_ids_match_jax(ckpt, monkeypatch, capsys):

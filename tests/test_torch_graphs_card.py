@@ -10,6 +10,12 @@ it; with no CUDA device they skip (a CUDA graph has no CPU mode):
   key, over a bf16 and an int8 KV cache: equal tokens, equal pool bytes
   (the junk page aside: dropped writes collide there in any order), and
   flash-decode launches of n_layers per micro-step in both.
+- The same with speculation (``speculate_k``: verify rounds) and with
+  chunked prefill (``prefill_chunk_tokens``: intermediate chunks), over
+  repetitive prompts so that drafts land: equal tokens and pool bytes,
+  every verify round and intermediate chunk a capture or a replay, and
+  flash-decode launches of n_layers per single-token micro-step (chunk
+  and continuation; none in a verify window).
 - ``generate`` replayed (capturing on its first call, replaying every
   step of its second) and launched eagerly, with bf16 and int8 weights:
   equal tokens, and q8_matmul launches of 7 x n_layers a forward.
@@ -79,6 +85,66 @@ def test_replayed_server_bit_equal_to_eager(kv_int8):
         == c["prefills"]
     assert launches == eager_launches \
         == model.cfg.n_layers * c["decode_steps"] > 0
+    n = srv.slots.pool.n_pages
+    for key, layer in srv.slots.cache.items():
+        if key.startswith("block_"):
+            for name, leaf in layer.items():
+                if isinstance(leaf, torch.Tensor):
+                    assert torch.equal(leaf[:n],
+                                       eager.slots.cache[key][name][:n]), \
+                        (key, name)
+
+
+def _serve_option(model, graphs: bool, **option):
+    """Eight requests whose prompts repeat a short pattern (so prompt
+    lookup drafts), 20-200 tokens long (so a 64-token prefill chunk
+    splits the longer ones), through a ``Server`` with ``option``."""
+    rng = np.random.default_rng(1)
+    srv = Server(model, batch_size=3, eos_id=(5, 7), chunk_steps=8,
+                 min_bucket=16, kv_page_size=16, prefix_cache_mb=8.0,
+                 **option)
+    if not graphs:
+        srv.graphs = None
+    before = flash_decode.launches
+    for i in range(8):
+        pattern = rng.integers(0, 512, int(rng.integers(3, 9))).tolist()
+        n = int(rng.integers(20, 201))
+        srv.submit(Request((pattern * 70)[:n], int(rng.integers(8, 48)),
+                           id=i))
+    out = {}
+    while not srv.done:
+        for r in srv.step():
+            out[r.id] = (r.tokens, r.finish_reason)
+    torch.cuda.synchronize()
+    return out, srv, flash_decode.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", [{"speculate_k": 4},
+                                    {"prefill_chunk_tokens": 64}],
+                         ids=["spec", "chunked"])
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["bf16", "int8"])
+def test_replayed_options_bit_equal_to_eager(kv_int8, option):
+    model = _model(kv_cache_quant=kv_int8)
+    want, eager, eager_launches = _serve_option(model, False, **option)
+    got, srv, launches = _serve_option(model, True, **option)
+    assert got == want
+    c = srv.counters()
+    for kind in ("decode", "verify", "prefill", "prefill_chunk"):
+        assert c[f"graph_{kind}_eager"] == 0, kind
+    assert c["graph_verify_captures"] + c["graph_verify_replays"] \
+        == c["spec_rounds"]
+    assert c["graph_decode_captures"] + c["graph_decode_replays"] \
+        == c["dispatches"] - c["spec_rounds"]
+    assert c["graph_prefill_chunk_captures"] \
+        + c["graph_prefill_chunk_replays"] \
+        == c["prefill_chunk_dispatches"] - c["prefill_chunked_requests"]
+    if "speculate_k" in option:
+        assert c["spec_rounds"] > 0 and c["graph_verify_replays"] > 0
+    else:
+        assert c["graph_prefill_chunk_replays"] > 0
+    assert launches == eager_launches == model.cfg.n_layers * (
+        c["decode_steps"] - c["spec_window_steps"]) > 0
     n = srv.slots.pool.n_pages
     for key, layer in srv.slots.cache.items():
         if key.startswith("block_"):

@@ -6,7 +6,8 @@ and 8. EOS ids are chosen up front, never read off a model's output;
 the mix is checked to end some requests on them.
 
 Also the allocator (reserve/alloc/share/unref), the store, and what the
-constructor and ``submit`` refuse.
+constructor (the options and models not ported yet) and ``submit``
+refuse.
 """
 
 import copy
@@ -18,6 +19,7 @@ import torch
 from torch_parity import build_pair, tokens
 from tony_tpu.serve import Request as JaxRequest
 from tony_tpu.serve import Server as JaxServer
+from tony_tpu_torch.models import quantize_for_serving
 from tony_tpu_torch.ops.decode import flash_decode
 from tony_tpu_torch.serve import (PagePool, PoolExhausted, QueueFull,
                                   Request, Server)
@@ -140,12 +142,15 @@ def test_submit_validation(models):
 
 def test_server_refuses_what_is_not_ported(models):
     _, _, tm = models
-    for kw in ({"speculate_k": 2}, {"prefill_chunk_tokens": 16},
-               {"kv_host_mb": 1.0}, {"paged": False},
-               {"in_dispatch_eos": False}, {"mesh": object()},
-               {"page_pool": object()}, {"fault_plan": object()}):
+    for kw in ({"kv_host_mb": 1.0}, {"paged": False}, {"mesh": object()},
+               {"page_pool": object()}):
         with pytest.raises(NotImplementedError):
             Server(tm, device="cpu", **kw)
+    _, _, windowed = build_pair(9, sliding_window=8)
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        Server(windowed, device="cpu")
+    with pytest.raises(NotImplementedError, match="quantized"):
+        Server(quantize_for_serving(tm), device="cpu")
     with pytest.raises(ValueError, match="lives on"):
         Server(tm, device="meta")
 

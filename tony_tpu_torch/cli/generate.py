@@ -64,6 +64,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cache slots (resident batch size) in --serve")
     p.add_argument("--prefix-cache-mb", type=float, default=64.0,
                    help="--serve: prefix-store byte budget (0 disables)")
+    p.add_argument("--speculate-k", type=int, default=0,
+                   help="--serve: speculative decoding, up to K "
+                        "prompt-lookup draft tokens verified a round "
+                        "(greedy outputs unchanged; sampled requests "
+                        "decode normally); 0 disables")
     p.add_argument("--kv-page-size", type=int, default=0,
                    help="--serve: tokens per KV page (0 = auto)")
     p.add_argument("--kv-pages", type=int, default=0,
@@ -80,6 +85,7 @@ def _serve_loop(model, args, eos) -> int:
 
     srv = Server(model, batch_size=args.serve_batch, eos_id=eos,
                  prefix_cache_mb=args.prefix_cache_mb,
+                 speculate_k=args.speculate_k,
                  kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
                  device=args.device)
     n_bad = 0

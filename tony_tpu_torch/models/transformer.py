@@ -785,11 +785,15 @@ class Transformer(nn.Module):
                       positions=positions, page_table=page_table,
                       cache=cache[f"block_{i}"] if decode else None,
                       plan=plan)
-        x = self.ln_f(x)
-        if return_hidden:
-            return x.float()
-        head = self.embedding if cfg.tied_embeddings else self.lm_head
-        logits = x.float() @ head.float().t()
-        if cfg.lm_head_bias:
+        x = self.ln_f(x).float()
+        return x if return_hidden else self.logits(x)
+
+    def logits(self, hidden):
+        """fp32 logits [..., V] of the final fp32 activations [..., D]
+        (``forward(..., return_hidden=True)``): the LM head alone, for
+        a caller that needs some rows' logits and not every row's."""
+        head = self.embedding if self.cfg.tied_embeddings else self.lm_head
+        logits = hidden @ head.float().t()
+        if self.cfg.lm_head_bias:
             logits = logits + self.lm_head_bias
         return logits

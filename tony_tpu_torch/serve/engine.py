@@ -1,36 +1,63 @@
 """Continuous-batching scheduler over the paged KV cache: the counterpart
-of ``tony_tpu/serve/engine.py`` (its paged, in-dispatch-EOS path).
+of ``tony_tpu/serve/engine.py`` (its paged path).
 
 Each ``step()`` admits pending prompts into free slots — a prefill is
 one multi-token window written straight into the slot's pages, or, on
-an exact prefix-store hit, no model call at all — then runs a CHUNK of
-K decode micro-steps for every slot, and evicts the slots that finished.
-The JAX package runs the chunk as one ``lax.scan`` dispatch and jits
-the prefill per bucket. On the card the port replays each as a CUDA
-graph (``models.graphs``): a chunk keyed by ``(K, page columns)`` holds
-the page gather (``paged_view``), the K micro-steps with their sampling
-and frozen-row carry, and the write-back to the pool
-(``paged_write_back``); a prefill keyed by ``(bucket, page columns)``
-holds the forward and the pick of the last real position's logits. The
-host packs each call's inputs into one buffer, copies it up, replays,
-and reads the result back. The first call at a key runs eagerly and is
-then captured. A chunk with a live sampled row runs eagerly (its
-per-request generators and the host read of the frozen rows cannot be
-captured) and is counted so (``counters()``); a prefill's first-token
-sample runs after the graph. On the CPU every call runs eagerly. A
-slot that samples EOS or spends its budget mid-chunk FREEZES: its later
-micro-steps write nothing, draw nothing, and re-emit its last token.
+an exact prefix-store hit, no model call at all — advances any chunked
+prefills by one chunk, then runs one decode round for every live slot
+and evicts the slots that finished. A decode round is a CHUNK of K
+micro-steps, or, with speculation on and a slot drafting, one VERIFY
+round. The JAX package runs each as one jitted dispatch. On the card
+the port replays each as a CUDA graph (``models.graphs``):
+
+- a chunk keyed by ``("decode", K, page columns)`` holds the page
+  gather (``paged_view``), the K micro-steps with their sampling and
+  frozen-row carry, and the write-back to the pool
+  (``paged_write_back``);
+- a prefill keyed by ``("prefill", bucket, page columns)`` holds the
+  forward and the last real position's logits;
+- an intermediate prefill chunk, ``("prefill_chunk", bucket, page
+  columns)``, holds the forward up to the final activations (its logits
+  are never used, so the LM head is not run);
+- a verify round, ``("verify", window, continuation steps, page
+  columns)``, holds the window pass over every slot's last token and
+  draft, the greedy verdicts and the accepted run, and (in-dispatch EOS
+  on) the continuation micro-steps from each slot's bonus token, then
+  one write-back of the whole span.
+
+The host packs each call's inputs into one buffer, copies it up,
+replays, and reads the result back: one H2D and one D2H copy a call.
+The first call at a key runs eagerly and is then captured. A chunk or
+verify round with a live sampled row runs eagerly (its per-request
+generators and the host read of the frozen rows cannot be captured)
+and is counted so (``counters()``); a prefill's first-token sample runs
+after the graph. On the CPU every call runs eagerly.
+
+With in-dispatch EOS on (the default) a slot that samples EOS or spends
+its budget mid-chunk FREEZES: its later micro-steps write nothing, draw
+nothing, and re-emit its last token. With it off, every row decodes
+every micro-step and the host trims the overshoot (``wasted_steps``).
+
+Speculation (``speculate_k``) drafts by prompt lookup on the host
+(``_propose_draft``) and verifies every slot's draft in one window
+pass; a rejected draft is rewound by pointer arithmetic (its K/V stays
+past the slot's length, hidden by the masks, overwritten later).
+Chunked prefill (``prefill_chunk_tokens``) parks a long prompt's slot
+and writes one chunk a step between decode rounds. ``fault_plan``
+(``serve.faults``) fires at the top of ``step()`` and before an
+admission's prefill, never inside a capture; the fault reaches the
+caller, and ``reset()`` frees every page.
 
 Greedy outputs are token-exact against the JAX ``Server`` on the same
-weights and request mix (tests/test_torch_serve.py). Sampled requests
-draw from a per-request ``torch.Generator`` seeded from
-``Request.seed`` and match the JAX package in distribution only.
+weights and request mix (tests/test_torch_serve.py, test_torch_spec.py,
+test_torch_chunked_prefill.py). Sampled requests draw from a
+per-request ``torch.Generator`` seeded from ``Request.seed`` and match
+the JAX package in distribution only.
 
-Left out of this slice, refused by the constructor: speculation, a
-mesh, chunked prefill, the host-RAM page tier, a shared page pool,
-fault injection, the unpaged cache, sliding-window models, the
-pre-freeze decode loop, and int8-weight models; also migration,
-handoff and the timeline/goodput ledger.
+Left out, refused by the constructor: a mesh, the host-RAM page tier, a
+shared page pool, the unpaged cache, sliding-window models and
+int8-weight models; also migration, handoff and the timeline/goodput
+ledger.
 """
 
 from __future__ import annotations
@@ -51,6 +78,7 @@ from tony_tpu_torch.models.generate import (_is_eos, multi_decode_step,
                                             single_decode_step)
 from tony_tpu_torch.models.graphs import GraphCache
 from tony_tpu_torch.ops.platform import resolve_device
+from tony_tpu_torch.serve.faults import FaultPlan
 from tony_tpu_torch.serve.prefix import PrefixStore
 from tony_tpu_torch.serve.slots import (PagePool, SlotCache,
                                         default_page_size, paged_view,
@@ -74,6 +102,26 @@ def _bucket_pow2(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _propose_draft(ctx: np.ndarray, k: int,
+                   max_ngram: int = 3) -> np.ndarray:
+    """Prompt-lookup drafting: find the most RECENT earlier occurrence
+    of the longest suffix n-gram of ``ctx`` (n from ``max_ngram`` down
+    to 1) and propose the up-to-``k`` tokens that followed it. No draft
+    model, no device work: one numpy scan over the context a live slot
+    a round. Returns [0..k] proposed tokens (empty = no match)."""
+    n_ctx = len(ctx)
+    for n in range(min(max_ngram, n_ctx - 1), 0, -1):
+        pat = ctx[n_ctx - n:]
+        # windows over ctx[:-1]: every start with >= 1 token following
+        # the match; the suffix itself is structurally excluded
+        win = np.lib.stride_tricks.sliding_window_view(ctx[:-1], n)
+        hits = np.flatnonzero((win == pat).all(axis=1))
+        if hits.size:
+            start = int(hits[-1]) + n
+            return ctx[start:start + k]
+    return ctx[:0]
 
 
 def _sample_rows(logits, generators, temps, top_ks, done=None):
@@ -104,9 +152,15 @@ def _sample_rows(logits, generators, temps, top_ks, done=None):
 
 
 def _sample_first(logits, temp: float, top_k: int, generator) -> int:
-    """The exact-hit admit: the first continuation from the stored
-    last-position logits [1, V], with THIS request's knobs."""
+    """The first continuation from the last prompt position's logits
+    [1, V], with THIS request's knobs."""
     return int(_sample_rows(logits, [generator], [temp], [top_k])[0])
+
+
+def _window_inputs(flat, lb: int):
+    """A prefill's window [1, lb] and positions [1, lb], the head of its
+    packed inputs ``flat``."""
+    return flat[:lb][None], flat[lb:2 * lb][None]
 
 
 @torch.no_grad()
@@ -115,31 +169,36 @@ def _prefill_last(model, cache, flat, lb: int, cols: int):
     [lb] | positions [lb] | table row [cols] | last real index [1]: the
     window (the prompt's suffix, right-padded to its bucket; padding at
     position -1, whose writes drop) goes through the pool in one
-    forward. Returns the last real position's logits [1, V]."""
-    window, positions = flat[:lb][None], flat[lb:2 * lb][None]
+    forward. Only the last real position's activations reach the LM
+    head; returns its logits [1, V]."""
+    window, positions = _window_inputs(flat, lb)
     table = flat[2 * lb:2 * lb + cols][None]
-    _, logits = multi_decode_step(model, cache, window, positions,
-                                  page_table=table)
-    return logits[0].index_select(0, flat[-1:])
+    hidden = model(window, decode=True, positions=positions,
+                   page_table=table, cache=cache, return_hidden=True)
+    return model.logits(hidden[0].index_select(0, flat[-1:]))
 
 
 @torch.no_grad()
-def _decode_chunk(model, cache, flat, b: int, cols: int, temps, top_ks,
-                  generators, n_steps: int, eos_ids: tuple):
-    """``n_steps`` decode micro-steps for every slot over the page view,
-    with in-dispatch EOS, on packed inputs ``flat`` = tokens [b] |
-    positions [b] | remaining budgets [b] | page table [b, cols]: carry
-    ``(tok, positions, done, rem)``; a row that emitted an eos id or
-    spent its budget freezes — its later micro-steps write to position
-    -1 (dropped), take the greedy path, and re-emit its token. Empty
-    slots (position < 0) start frozen. Returns the emitted tokens [b,
-    n_steps]; the pool is updated in place."""
-    tok, positions, rem = flat[:b], flat[b:2 * b], flat[2 * b:3 * b]
-    table = flat[3 * b:].view(b, cols)
-    max_len = model.cfg.max_seq_len
-    start = positions
-    view = paged_view(cache, table, max_len)
-    done = positions < 0
+def _paged_prefill_chunk(model, cache, flat, lb: int, cols: int):
+    """One INTERMEDIATE chunk of a chunked prefill on packed inputs
+    ``flat`` = window [lb] | positions [lb] | table row [cols]: the
+    window written straight into the slot's pages, with no sampling
+    (only the final chunk holds the prompt's last position) and no LM
+    head (its logits would be dropped)."""
+    window, positions = _window_inputs(flat, lb)
+    model(window, decode=True, positions=positions,
+          page_table=flat[2 * lb:2 * lb + cols][None], cache=cache,
+          return_hidden=True)
+
+
+def _frozen_steps(model, view, tok, positions, rem, done, n_steps: int,
+                  temps, top_ks, generators, eos_ids: tuple):
+    """``n_steps`` in-dispatch-EOS micro-steps on the page ``view`` from
+    carry ``(tok, positions, rem, done)``: a row that emits an eos id or
+    spends its budget ``rem`` freezes — its later micro-steps write to
+    position -1 (dropped), take the greedy path (no draw) and re-emit
+    its token. Shared by the decode chunk and the verify round's
+    continuation. Returns the emitted tokens [b, n_steps]."""
     out = []
     for _ in range(n_steps):
         eff_pos = torch.where(done, torch.full_like(positions, -1),
@@ -153,8 +212,107 @@ def _decode_chunk(model, cache, flat, b: int, cols: int, temps, top_ks,
         done = done | _is_eos(nxt, eos_ids) | (rem <= 0)
         tok = nxt
         out.append(nxt)
-    paged_write_back(cache, view, table, start, n_steps, max_len)
     return torch.stack(out, dim=1)
+
+
+@torch.no_grad()
+def _decode_chunk(model, cache, flat, b: int, cols: int, temps, top_ks,
+                  generators, n_steps: int, eos_ids: tuple,
+                  freeze: bool = True):
+    """``n_steps`` decode micro-steps for every slot over the page view,
+    on packed inputs ``flat`` = tokens [b] | positions [b] | remaining
+    budgets [b] | page table [b, cols]. ``freeze`` (in-dispatch EOS)
+    runs ``_frozen_steps``, empty slots (position < 0) starting frozen;
+    without it every row decodes every micro-step and draws, and the
+    host trims what follows a finish. Returns the emitted tokens [b,
+    n_steps]; the pool is updated in place."""
+    tok, positions, rem = flat[:b], flat[b:2 * b], flat[2 * b:3 * b]
+    table = flat[3 * b:].view(b, cols)
+    max_len = model.cfg.max_seq_len
+    start = positions
+    view = paged_view(cache, table, max_len)
+    if freeze:
+        toks = _frozen_steps(model, view, tok, positions, rem,
+                             positions < 0, n_steps, temps, top_ks,
+                             generators, eos_ids)
+    else:
+        out = []
+        for _ in range(n_steps):
+            view, last = single_decode_step(model, view, tok,
+                                            positions=positions)
+            tok = _sample_rows(last, generators, temps, top_ks)
+            positions = torch.where(positions >= 0, positions + 1,
+                                    positions)
+            out.append(tok)
+        toks = torch.stack(out, dim=1)
+    paged_write_back(cache, view, table, start, n_steps, max_len)
+    return toks
+
+
+@torch.no_grad()
+def _verify_chunk(model, cache, flat, b: int, window: int, cols: int,
+                  temps, top_ks, generators, n_steps: int, eos_ids: tuple):
+    """The speculative verify round on packed inputs ``flat`` = tokens
+    [b, window] | positions [b, window] | draft lengths [b] | remaining
+    budgets [b] | page table [b, cols]. Row i is ``[last_token, draft_1
+    .. draft_d, pad..]`` at ``[p, p+1 .. p+d, -1..]`` (padding writes
+    drop). One window pass scores every row (``multi_decode_step``):
+
+    - ``emit[i, 0]`` follows ``last_token`` under the row's own knobs
+      (a sampled row draws once); ``emit[i, 1:]`` are greedy verdicts;
+    - ``accepted[i]`` is the leading run of drafts equal to the previous
+      position's verdict; the host appends ``emit[i, :accepted + 1]``.
+
+    ``n_steps`` > 0 is the FUSED round (in-dispatch EOS): ``accepted``
+    is capped at the first emitted eos id, and every row continues
+    ``n_steps`` frozen micro-steps (``_frozen_steps``, flash-decode)
+    from its own bonus verdict, all on one page view, then one
+    ``paged_write_back`` returns the whole ``window + n_steps`` span
+    (positions a row did not write copy their gathered bytes back).
+    ``n_steps`` = 0 runs the window pass on the pool directly.
+
+    Returns ``emit [b, window] | accepted [b] | cont [b, n_steps]`` as
+    one [b, window + 1 + n_steps] tensor."""
+    bw = b * window
+    toks = flat[:bw].view(b, window)
+    positions = flat[bw:2 * bw].view(b, window)
+    draft_len = flat[2 * bw:2 * bw + b]
+    rem = flat[2 * bw + b:2 * bw + 2 * b]
+    table = flat[2 * bw + 2 * b:].view(b, cols)
+    max_len = model.cfg.max_seq_len
+    start = positions[:, 0]
+    if n_steps > 0:
+        view = paged_view(cache, table, max_len)
+        _, logits = multi_decode_step(model, view, toks, positions)
+    else:
+        _, logits = multi_decode_step(model, cache, toks, positions,
+                                      page_table=table)
+    greedy = torch.argmax(logits, dim=-1)  # [b, window]
+    tok0 = _sample_rows(logits[:, 0], generators, temps, top_ks)
+    emit = torch.cat([tok0[:, None], greedy[:, 1:]], dim=1)
+    j = torch.arange(window - 1, device=flat.device)[None, :]
+    match = (toks[:, 1:] == greedy[:, :-1]) & (j < draft_len[:, None])
+    accepted = torch.cumprod(match.long(), dim=1).sum(dim=1)
+    if n_steps == 0:
+        return torch.cat([emit, accepted[:, None]], dim=1)
+    if eos_ids:
+        # the host stops at the first eos id: capping accepted there
+        # makes the device agree that nothing past it was accepted
+        idx = torch.arange(window, device=flat.device)[None, :]
+        first_stop = torch.where(_is_eos(emit, eos_ids), idx,
+                                 torch.full_like(idx, window)).amin(dim=1)
+        accepted = torch.minimum(accepted, first_stop)
+    rows = torch.arange(b, device=flat.device)
+    bonus = emit[rows, accepted]
+    live = start >= 0
+    consumed = accepted + 1
+    rem_c = torch.where(live, rem - consumed, torch.zeros_like(rem))
+    done = ~live | _is_eos(bonus, eos_ids) | (rem_c <= 0)
+    cont_pos = torch.where(live, start + consumed, torch.full_like(start, -1))
+    cont = _frozen_steps(model, view, bonus, cont_pos, rem_c, done,
+                         n_steps, temps, top_ks, generators, eos_ids)
+    paged_write_back(cache, view, table, start, window + n_steps, max_len)
+    return torch.cat([emit, accepted[:, None], cont], dim=1)
 
 
 class QueueFull(RuntimeError):
@@ -185,7 +343,10 @@ class Result:
     """A finished request: ``tokens`` = generated ids (a hit eos id is
     the last element); ``finish_reason`` is "eos" or "length".
     ``prefix_hit_tokens`` = prompt tokens seeded from the prefix store;
-    ``prefill_tokens_saved`` = bucketed prefill work skipped."""
+    ``prefill_tokens_saved`` = bucketed prefill work skipped;
+    ``drafted``/``accepted`` = draft tokens this request sent through
+    verify rounds / had accepted; ``prefill_chunks`` = prefill
+    dispatches its prompt took (>= 2 means chunked; 0 = exact hit)."""
 
     id: Any
     prompt: list
@@ -193,6 +354,14 @@ class Result:
     finish_reason: str
     prefix_hit_tokens: int = 0
     prefill_tokens_saved: int = 0
+    drafted: int = 0
+    accepted: int = 0
+    prefill_chunks: int = 0
+
+    @property
+    def draft_hit_rate(self) -> float:
+        """Fraction of drafted tokens accepted (0.0 with no drafts)."""
+        return self.accepted / self.drafted if self.drafted else 0.0
 
 
 @dataclass
@@ -201,6 +370,22 @@ class _Live:
     generated: list = field(default_factory=list)
     prefix_hit_tokens: int = 0
     prefill_tokens_saved: int = 0
+    drafted: int = 0
+    accepted: int = 0
+    prefill_chunks: int = 0
+
+
+@dataclass
+class _PrefillState:
+    """A slot mid-CHUNKED-prefill: reserved and seeded, its prompt
+    written up to ``done``, not yet decoding; it is neither free nor in
+    the decode batch until its final chunk samples the first token."""
+
+    request: Request
+    done: int
+    chunks: int
+    hit_tokens: int
+    saved: int
 
 
 class Server:
@@ -214,30 +399,42 @@ class Server:
     can hold a full-length sequence); admission reserves each request's
     worst case, so pool pressure only delays admission. With
     ``prefix_cache_mb`` > 0 the prefix store shares pages copy-on-write.
+
+    ``speculate_k`` > 0 drafts up to k tokens a greedy slot a round by
+    prompt lookup and verifies them in one window pass; greedy outputs
+    are unchanged, and a per-slot acceptance EMA (``SPEC_EMA_DECAY``,
+    floor ``SPEC_EMA_DISABLE``) silences hopeless drafters.
+    ``prefill_chunk_tokens`` > 0 (quantized down to the bucket grid)
+    writes a longer prompt in chunks, one a step, between decode
+    rounds. ``fault_plan`` injects failures (``serve.faults``).
+    ``in_dispatch_eos=False`` decodes every micro-step of every row and
+    trims on the host (the JAX package's A/B control).
+
     The model's device must be the one ``device`` resolves to (``cuda``
     unless ``device="cpu"``)."""
+
+    # a slot drafts while its acceptance EMA (1.0 at admit, updated a/d
+    # each verify round it drafted in) stays >= SPEC_EMA_DISABLE
+    SPEC_EMA_DECAY = 0.5
+    SPEC_EMA_DISABLE = 0.25
 
     def __init__(self, model, *, batch_size: int = 4, eos_id=-1,
                  min_bucket: int = 16, chunk_steps: int = 8,
                  max_pending: int = 1024, prefix_cache_mb: float = 0.0,
                  prefix_donate: bool = True, speculate_k: int = 0,
-                 fault_plan=None, paged: bool | None = None,
-                 kv_page_size: int = 0, kv_pages: int = 0,
-                 prefill_chunk_tokens: int = 0, kv_host_mb: float = 0.0,
-                 in_dispatch_eos: bool = True, mesh=None, page_pool=None,
-                 device=None):
+                 fault_plan: FaultPlan | None = None,
+                 paged: bool | None = None, kv_page_size: int = 0,
+                 kv_pages: int = 0, prefill_chunk_tokens: int = 0,
+                 kv_host_mb: float = 0.0, in_dispatch_eos: bool = True,
+                 mesh=None, page_pool=None, device=None):
         cfg = model.cfg
         later = {
             "int8-weight (quantized) models": cfg.quantized,
             "sliding-window models": bool(cfg.sliding_window),
-            "speculate_k > 0": speculate_k > 0,
             "mesh (sharded serving)": mesh is not None,
-            "prefill_chunk_tokens > 0": prefill_chunk_tokens > 0,
             "kv_host_mb > 0 (host page tier)": kv_host_mb > 0,
             "a shared page_pool": page_pool is not None,
-            "fault_plan": fault_plan is not None,
             "paged=False (fixed-shape cache rows)": paged is False,
-            "in_dispatch_eos=False": not in_dispatch_eos,
         }
         for name, on in later.items():
             if on:
@@ -249,8 +446,10 @@ class Server:
             raise ValueError(f"model lives on {model.device}, the server "
                              f"was asked for {self.device}")
         self.model = model
+        self.fault_plan = fault_plan
         self.eos_ids = normalize_eos_ids(eos_id)
         self.min_bucket = min_bucket
+        self.in_dispatch_eos = bool(in_dispatch_eos)
         self.chunk_steps = max(1, chunk_steps)
         self.max_pending = max(1, max_pending)
         self.frozen_steps = 0   # positions spent frozen (no KV writes)
@@ -265,12 +464,23 @@ class Server:
         self._pending_lock = threading.Lock()
         self._live: list[_Live | None] = [None] * batch_size
         self._ids = itertools.count()
-        self.steps = 0       # decode micro-steps, summed over dispatches
-        self.dispatches = 0  # decode chunks
-        self.prefills = 0    # prefill forwards (exact hits skip one)
-        # decode chunks and prefills replayed as CUDA graphs on the card
+        self.steps = 0       # dispatch depth, summed (chunk k; verify
+        #                      window + continuation)
+        self.window_steps = 0  # the verify windows' share of ``steps``
+        self.dispatches = 0  # decode rounds (chunks and verify rounds)
+        self.prefills = 0    # prefill forwards, chunks included
+        self.wasted_steps = 0  # per-slot positions decoded and dropped:
+        #                        rejected drafts, and with in-dispatch
+        #                        EOS off, overshoot past a finish
+        # chunks, prefills, verify rounds and prefill chunks replayed as
+        # CUDA graphs on the card
         self.graphs = GraphCache(self.device) \
             if self.device.type == "cuda" else None
+        self.speculate_k = max(0, int(speculate_k))
+        self._spec_ema = np.ones(batch_size, np.float64)
+        self.spec_rounds = 0    # verify rounds run
+        self.spec_drafted = 0   # draft tokens sent through verify
+        self.spec_accepted = 0  # draft tokens accepted
         self.prefix = PrefixStore(int(prefix_cache_mb * (1 << 20)),
                                   self.slots.pool) \
             if prefix_cache_mb > 0 else None
@@ -290,6 +500,19 @@ class Server:
                 "budget is %.1f MB (raise --prefix-cache-mb)",
                 entry_nbytes / (1 << 20), prefix_cache_mb)
             self.prefix = None
+        # chunked prefill: the budget quantized DOWN to the bucket grid
+        # (min_bucket * 2^k), so every intermediate chunk is one full
+        # bucket with no padding; 0 = off
+        chunk = max(0, int(prefill_chunk_tokens))
+        if chunk:
+            b = min_bucket
+            while b * 2 <= chunk:
+                b *= 2
+            chunk = min(b, cfg.max_seq_len)
+        self.prefill_chunk = chunk
+        self._prefilling: dict[int, _PrefillState] = {}
+        self.prefill_chunk_dispatches = 0  # chunk dispatches run
+        self.prefill_chunked = 0           # requests that took > 1 chunk
 
     # ------------------------------------------------------------ intake
 
@@ -332,11 +555,22 @@ class Server:
 
     @property
     def n_active(self) -> int:
-        return self.slots.n_active
+        # parked mid-prefill slots count: they hold a request
+        return self.slots.n_active + len(self._prefilling)
+
+    @property
+    def n_prefilling(self) -> int:
+        return len(self._prefilling)
 
     @property
     def done(self) -> bool:
-        return not self.pending and self.slots.n_active == 0
+        return not self.pending and self.slots.n_active == 0 \
+            and not self._prefilling
+
+    def _free_slots(self) -> list[int]:
+        """Slots admittable now: free, and not parked mid-prefill."""
+        return [i for i in self.slots.free_slots()
+                if i not in self._prefilling]
 
     def live_progress(self) -> dict:
         """{request_id: tokens generated so far} for every in-flight
@@ -349,17 +583,19 @@ class Server:
     def _admit_one(self, req: Request, finished: list) -> bool:
         """Admit ``req`` into a free slot: prefix lookup, worst-case page
         reservation (squeezing LRU store entries when tight; False =
-        stay pending), page aliasing with a copy-on-write fork of a
-        mid-page boundary, then either the exact-hit first-token sample
-        or a prefill of the bucketed suffix straight into the slot's
-        pages. A request whose first token already ends it finishes
-        here without arming the slot."""
+        stay pending), the fault hook, page aliasing with a
+        copy-on-write fork of a mid-page boundary, then the exact-hit
+        first-token sample, a prefill of the bucketed suffix straight
+        into the slot's pages, or, for a suffix longer than the prefill
+        chunk, its first chunk with the slot parked. A request whose
+        first token already ends it finishes here without arming the
+        slot."""
         s = self.slots
         pool = s.pool
         ps = pool.page_size
         p = np.asarray(req.prompt, np.int64)
         max_len = self.model.cfg.max_seq_len
-        slot = s.free_slots()[0]
+        slot = self._free_slots()[0]
         off, entry = 0, None
         if self.prefix is not None:
             self.prefix_lookups += 1
@@ -390,59 +626,153 @@ class Server:
             if self.prefix is not None:
                 self.prefix_lookups -= 1
             return False
-        gen = None
-        if req.temperature > 0.0:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(int(req.seed))
+        if self.fault_plan is not None:
+            # after the capacity check (a requeued request must not burn
+            # triggers on every retry), before the reservation is the
+            # slot's: an injected failure hands it back itself
+            try:
+                self.fault_plan.on_admit(req.id)
+            except BaseException:
+                pool.cancel(need)
+                if entry is not None:
+                    self.prefix.release(entry)
+                raise
         hit_tokens = saved = 0
         try:
             s.seed_pages(slot, entry.pages if entry is not None else [],
                          seed, need)
+            if not exact and self.prefill_chunk \
+                    and len(p) - off > self.prefill_chunk:
+                # chunked admission: the first chunk now, the slot
+                # parked; step() advances a chunk an iteration
+                if entry is not None:
+                    hit_tokens = off
+                    saved = full_bucket - bucket_len(
+                        len(p) - off, max_len, self.min_bucket)
+                    self._count_hit(hit_tokens, saved)
+                st = _PrefillState(req, off, 0, hit_tokens, saved)
+                self._prefilling[slot] = st
+                self._prefill_chunk_paged(slot, st)
+                return True
             if exact:
-                tok = _sample_first(entry.logits, req.temperature,
-                                    req.top_k, gen)
+                last = entry.logits
                 hit_tokens, saved = len(p), full_bucket
             else:
-                suffix = p[off:]
-                lb = bucket_len(len(suffix), max_len, self.min_bucket)
-                s.ensure_pages(slot, len(p))
-                # the view spans the prompt's page bucket, not max_len
-                cols = min(_bucket_pow2(-(-len(p) // ps)), s.max_pages)
-                flat = np.full(2 * lb + cols + 1, -1, np.int64)
-                flat[:lb] = 0
-                flat[:len(suffix)] = suffix
-                flat[lb:lb + len(suffix)] = off + np.arange(len(suffix))
-                flat[2 * lb:2 * lb + cols] = s.page_table[slot, :cols]
-                flat[-1] = len(suffix) - 1
-                # a copy: a replay's output is overwritten by the next
-                last = self._dispatch("prefill", (lb, cols), flat,
-                                      functools.partial(
-                                          _prefill_last, self.model,
-                                          s.cache, lb=lb,
-                                          cols=cols)).clone()
-                tok = _sample_first(last, req.temperature, req.top_k, gen)
-                self.prefills += 1
-                if self.prefix is not None:
-                    self.prefix.insert(p, s.slot_pages(slot, len(p)),
-                                       logits=last)
+                last = self._prefill_suffix(slot, p, off)
                 if entry is not None:
-                    hit_tokens, saved = off, full_bucket - lb
+                    hit_tokens = off
+                    saved = full_bucket - bucket_len(
+                        len(p) - off, max_len, self.min_bucket)
         finally:
             if entry is not None:
                 self.prefix.release(entry)
         if hit_tokens:
-            self.prefix_hits += 1
-            self.prefix_hit_tokens += hit_tokens
-            self.prefill_tokens_saved += saved
+            self._count_hit(hit_tokens, saved)
+        self._arm(slot, req, last, hit_tokens, saved, 0 if exact else 1,
+                  finished)
+        return True
+
+    def _count_hit(self, hit_tokens: int, saved: int) -> None:
+        self.prefix_hits += 1
+        self.prefix_hit_tokens += hit_tokens
+        self.prefill_tokens_saved += saved
+
+    def _prefill_suffix(self, slot: int, p: np.ndarray, off: int):
+        """Prefill ``p[off:]`` (right-padded to its bucket) into the
+        slot's pages at positions from ``off``, and pin the prompt in
+        the prefix store; returns the last position's logits [1, V]."""
+        s = self.slots
+        ps = s.pool.page_size
+        suffix = p[off:]
+        lb = bucket_len(len(suffix), self.model.cfg.max_seq_len,
+                        self.min_bucket)
+        s.ensure_pages(slot, len(p))
+        # the view spans the prompt's page bucket, not max_len
+        cols = min(_bucket_pow2(-(-len(p) // ps)), s.max_pages)
+        flat = np.full(2 * lb + cols + 1, -1, np.int64)
+        flat[:lb] = 0
+        flat[:len(suffix)] = suffix
+        flat[lb:lb + len(suffix)] = off + np.arange(len(suffix))
+        flat[2 * lb:2 * lb + cols] = s.page_table[slot, :cols]
+        flat[-1] = len(suffix) - 1
+        # a copy: a replay's output is overwritten by the next
+        last = self._dispatch("prefill", (lb, cols), flat, functools.partial(
+            _prefill_last, self.model, s.cache, lb=lb, cols=cols)).clone()
+        self.prefills += 1
+        if self.prefix is not None:
+            self.prefix.insert(p, s.slot_pages(slot, len(p)), logits=last)
+        return last
+
+    def _arm(self, slot: int, req: Request, last, hit_tokens: int,
+             saved: int, chunks: int, finished: list) -> None:
+        """Sample the first token from ``last`` [1, V] and arm the slot,
+        or finish the request there when that token ends it."""
+        s = self.slots
+        gen = None
+        if req.temperature > 0.0:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(req.seed))
+        tok = _sample_first(last, req.temperature, req.top_k, gen)
         if tok in self.eos_ids or req.max_new_tokens == 1:
             reason = "eos" if tok in self.eos_ids else "length"
             finished.append(Result(req.id, list(req.prompt), [tok], reason,
-                                   hit_tokens, saved))
+                                   hit_tokens, saved, prefill_chunks=chunks))
             s.release_pages(slot)
-            return True
-        s.admit(slot, len(p), tok, req.temperature, req.top_k, gen)
-        self._live[slot] = _Live(req, [tok], hit_tokens, saved)
-        return True
+            return
+        s.admit(slot, len(req.prompt), tok, req.temperature, req.top_k,
+                gen)
+        self._spec_ema[slot] = 1.0  # a new tenant drafts again
+        self._live[slot] = _Live(req, [tok], hit_tokens, saved,
+                                 prefill_chunks=chunks)
+
+    # ------------------------------------------------- chunked prefill
+
+    def _advance_prefills(self, finished: list) -> None:
+        """One chunk for each parked slot: between two chunks of a long
+        prompt every live slot gets a decode round. The last chunk is
+        the usual suffix prefill, which samples the first token."""
+        for slot in sorted(self._prefilling):
+            st = self._prefilling[slot]
+            if len(st.request.prompt) - st.done > self.prefill_chunk:
+                self._prefill_chunk_paged(slot, st)
+                continue
+            del self._prefilling[slot]
+            self._finalize_prefill(slot, st, finished)
+
+    def _prefill_chunk_paged(self, slot: int, st: _PrefillState) -> None:
+        """One intermediate chunk: ``prefill_chunk`` prompt tokens at
+        positions from ``st.done``, straight into the slot's pages."""
+        s = self.slots
+        ps = s.pool.page_size
+        take = self.prefill_chunk
+        s.ensure_pages(slot, st.done + take)
+        cols = min(_bucket_pow2(-(-(st.done + take) // ps)), s.max_pages)
+        flat = np.concatenate([
+            np.asarray(st.request.prompt[st.done:st.done + take], np.int64),
+            st.done + np.arange(take, dtype=np.int64),
+            s.page_table[slot, :cols].astype(np.int64)])
+        self._dispatch("prefill_chunk", (take, cols), flat,
+                       functools.partial(_paged_prefill_chunk, self.model,
+                                         s.cache, lb=take, cols=cols))
+        self.prefills += 1
+        self.prefill_chunk_dispatches += 1
+        st.done += take
+        st.chunks += 1
+
+    def _finalize_prefill(self, slot: int, st: _PrefillState,
+                          finished: list) -> None:
+        """The final chunk: the suffix prefill at offset ``st.done``,
+        position-exact with the chunks before it, then the first-token
+        sample."""
+        last = self._prefill_suffix(
+            slot, np.asarray(st.request.prompt, np.int64), st.done)
+        self.prefill_chunk_dispatches += 1
+        st.chunks += 1
+        self.prefill_chunked += 1
+        self._arm(slot, st.request, last, st.hit_tokens, st.saved,
+                  st.chunks, finished)
+
+    # ------------------------------------------------------- dispatches
 
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.int64, device=self.device)
@@ -458,21 +788,38 @@ class Server:
         e.statics[0].copy_(torch.from_numpy(flat))
         return self.graphs.run(e, fn)
 
+    def _sampled_or_graph(self, kind: str, shape: tuple, flat, fn):
+        """A decode round: eager and counted so when a live row samples,
+        else ``_dispatch``."""
+        if self.graphs is not None and (self.slots.temperature > 0).any():
+            return self.graphs.eager(kind, fn, self._tensor(flat))
+        return self._dispatch(kind, shape, flat, fn)
+
     def _run_chunk(self, flat: np.ndarray, k: int, cols: int) -> np.ndarray:
         """One decode chunk of ``k`` micro-steps over the first ``cols``
         page columns, on packed inputs (``_decode_chunk``); returns the
-        tokens [b, k] on the host. A chunk with a live sampled row runs
-        eagerly and is counted so."""
+        tokens [b, k] on the host."""
         s = self.slots
         fn = functools.partial(
             _decode_chunk, self.model, s.cache, b=s.batch_size, cols=cols,
             temps=s.temperature.copy(), top_ks=s.top_k.copy(),
-            generators=list(s.generators), n_steps=k, eos_ids=self.eos_ids)
-        if self.graphs is not None and (s.temperature > 0).any():
-            toks = self.graphs.eager("decode", fn, self._tensor(flat))
-        else:
-            toks = self._dispatch("decode", (k, cols), flat, fn)
-        return toks.cpu().numpy()
+            generators=list(s.generators), n_steps=k, eos_ids=self.eos_ids,
+            freeze=self.in_dispatch_eos)
+        return self._sampled_or_graph("decode", (k, cols), flat,
+                                      fn).cpu().numpy()
+
+    def _run_verify(self, flat: np.ndarray, window: int, n_steps: int,
+                    cols: int) -> np.ndarray:
+        """One verify round (``_verify_chunk``); returns ``emit |
+        accepted | cont`` [b, window + 1 + n_steps] on the host."""
+        s = self.slots
+        fn = functools.partial(
+            _verify_chunk, self.model, s.cache, b=s.batch_size,
+            window=window, cols=cols, temps=s.temperature.copy(),
+            top_ks=s.top_k.copy(), generators=list(s.generators),
+            n_steps=n_steps, eos_ids=self.eos_ids)
+        return self._sampled_or_graph("verify", (window, n_steps, cols),
+                                      flat, fn).cpu().numpy()
 
     def _chunk_size(self) -> int:
         """Micro-steps for this round: enough for the longest-remaining
@@ -486,10 +833,13 @@ class Server:
         return k
 
     def step(self) -> list[Result]:
-        """One scheduler iteration: admit, one decode round, evict;
-        returns the requests that finished."""
+        """One scheduler iteration: the fault hook, admit, one chunk for
+        each parked prefill, one decode round, evict; returns the
+        requests that finished."""
+        if self.fault_plan is not None:
+            self.fault_plan.on_dispatch()
         finished: list[Result] = []
-        while self.slots.free_slots():
+        while self._free_slots():
             with self._pending_lock:
                 if not self.pending:
                     break
@@ -500,9 +850,19 @@ class Server:
                 with self._pending_lock:
                     self.pending.appendleft(req)
                 break
+        self._advance_prefills(finished)
         if self.slots.n_active:
             finished.extend(self._decode_round())
         return finished
+
+    def _remaining(self) -> np.ndarray:
+        """Each live slot's remaining budget [b] (0 for the others)."""
+        rem = np.zeros(self.slots.batch_size, np.int64)
+        for slot, live in enumerate(self._live):
+            if live is not None:
+                rem[slot] = live.request.max_new_tokens \
+                    - len(live.generated)
+        return rem
 
     def _prepare_chunk(self) -> tuple[int, int, np.ndarray]:
         """The next chunk's micro-steps ``k``, page columns ``cols`` and
@@ -515,22 +875,25 @@ class Server:
         s = self.slots
         k = self._chunk_size()
         hi = 0
-        rem = np.zeros(s.batch_size, np.int64)
         for slot, live in enumerate(self._live):
             if live is not None:
                 s.ensure_pages(slot, min(
                     int(s.lengths[slot]) + k,
                     len(live.request.prompt) + live.request.max_new_tokens))
                 hi = max(hi, int(s.lengths[slot]) + k)
-                rem[slot] = live.request.max_new_tokens \
-                    - len(live.generated)
         cols = min(_bucket_pow2(-(-hi // s.pool.page_size)), s.max_pages)
-        flat = np.concatenate([s.last_token, s.positions(), rem,
+        flat = np.concatenate([s.last_token, s.positions(),
+                               self._remaining(),
                                s.page_table[:, :cols].ravel()])
         return k, cols, flat.astype(np.int64)
 
     def _decode_round(self) -> list[Result]:
-        """One decode chunk over the live slots + EOS/evict."""
+        """One decode round over the live slots + EOS/evict: a verify
+        round when speculation is on and a slot drafts, else a chunk."""
+        if self.speculate_k > 0:
+            drafts = self._collect_drafts()
+            if drafts is not None:
+                return self._verify_round(drafts)
         finished: list[Result] = []
         s = self.slots
         k, cols, flat = self._prepare_chunk()
@@ -541,34 +904,205 @@ class Server:
             live = self._live[slot]
             if live is None:
                 continue
-            req = live.request
-            reason = None
-            for j in range(k):
-                tok = int(toks[slot, j])
-                live.generated.append(tok)
-                if tok in self.eos_ids:
-                    reason = "eos"
-                elif len(live.generated) >= req.max_new_tokens:
-                    reason = "length"
-                if reason:
-                    break
+            reason, j = self._append(live, toks[slot])
             if reason is None:
                 s.lengths[slot] += k
                 s.last_token[slot] = int(toks[slot, k - 1])
                 continue
-            # the trailing positions were frozen re-emits: the trim is a
-            # consistency check
-            self.frozen_steps += k - (j + 1)
-            if j + 1 < k and not (toks[slot, j + 1:] == toks[slot, j]).all():
-                self.freeze_faults += 1
-            finished.append(Result(req.id, list(req.prompt),
-                                   live.generated, reason,
-                                   live.prefix_hit_tokens,
-                                   live.prefill_tokens_saved))
-            if self.prefix is not None and self.prefix_donate:
-                self._donate(live, slot)
-            self._live[slot] = None
-            s.evict(slot)
+            if self.in_dispatch_eos:
+                # the trailing positions were frozen re-emits: the trim
+                # is a consistency check
+                self.frozen_steps += k - j
+                if j < k and not (toks[slot, j:] == toks[slot, j - 1]).all():
+                    self.freeze_faults += 1
+            else:
+                # overshoot: decoded, paid for, never reported
+                self.wasted_steps += k - j
+            self._finish(slot, live, reason, finished)
+        return finished
+
+    def _append(self, live: _Live, toks) -> tuple[str | None, int]:
+        """Append ``toks`` to the request up to an eos id or its budget;
+        returns ``(finish reason or None, tokens appended)``."""
+        req = live.request
+        n = 0
+        for tok in toks:
+            live.generated.append(int(tok))
+            n += 1
+            if int(tok) in self.eos_ids:
+                return "eos", n
+            if len(live.generated) >= req.max_new_tokens:
+                return "length", n
+        return None, n
+
+    def _finish(self, slot: int, live: _Live, reason: str,
+                finished: list) -> None:
+        req = live.request
+        finished.append(Result(req.id, list(req.prompt), live.generated,
+                               reason, live.prefix_hit_tokens,
+                               live.prefill_tokens_saved, live.drafted,
+                               live.accepted, live.prefill_chunks))
+        if self.prefix is not None and self.prefix_donate:
+            self._donate(live, slot)
+        self._live[slot] = None
+        self.slots.evict(slot)
+
+    # ------------------------------------------------- speculative decode
+
+    def _collect_drafts(self) -> list | None:
+        """Host-side prompt-lookup proposals, one per slot, or None when
+        nobody drafts (the round is then a plain chunk). A slot drafts
+        when greedy, its acceptance EMA is at or above the floor, and
+        >= 2 budget tokens remain (a draft of d can land d + 1 tokens,
+        so d is clamped to remaining - 1).
+
+        With in-dispatch EOS off, a verify round advances a
+        non-drafting slot one token where a chunk would advance it
+        ``chunk_size``, so the batch-drag gate refuses the round when
+        some live slot is not drafting and the round's expected yield
+        (one a live slot + EMA-weighted drafts) is below the chunk's.
+        It is checked first on an upper bound (full draft caps), so a
+        round it would refuse skips the n-gram scans. The fused round
+        (in-dispatch EOS on) continues every row a chunk's depth inside
+        the same dispatch, so it needs no gate."""
+        out: list = [None] * self.slots.batch_size
+        n_live = 0
+        all_eligible = True
+        bound = 0.0
+        eligible: list = []
+        fused = self.in_dispatch_eos
+        for slot, live in enumerate(self._live):
+            if live is None:
+                continue
+            n_live += 1
+            bound += 1.0
+            req = live.request
+            if req.temperature != 0.0 \
+                    or self._spec_ema[slot] < self.SPEC_EMA_DISABLE:
+                all_eligible = False
+                continue
+            d_cap = min(self.speculate_k,
+                        req.max_new_tokens - len(live.generated) - 1)
+            if d_cap <= 0:
+                all_eligible = False
+                continue
+            eligible.append((slot, live, d_cap))
+            bound += self._spec_ema[slot] * d_cap
+        if not eligible:
+            return None
+        if not fused and not all_eligible \
+                and bound < self._chunk_size() * n_live:
+            return None  # gate precheck: refused before any lookup
+        any_draft = False
+        expected = float(n_live)
+        for slot, live, d_cap in eligible:
+            ctx = np.asarray(list(live.request.prompt) + live.generated,
+                             np.int64)
+            draft = _propose_draft(ctx, d_cap)
+            if draft.size:
+                out[slot] = draft
+                any_draft = True
+                expected += self._spec_ema[slot] * draft.size
+        if not any_draft:
+            return None
+        drafting = sum(d is not None for d in out)
+        if not fused and drafting < n_live and \
+                expected < self._chunk_size() * n_live:
+            return None  # batch-drag gate: the chunk yields more
+        return out
+
+    def _prepare_verify(self, drafts: list) -> tuple:
+        """The verify round's window, continuation steps, page columns,
+        packed inputs (``_verify_chunk``) and draft lengths. Every live
+        slot rides: drafting slots lay out ``[last_token, draft..]`` at
+        their own positions, the others ``[last_token]``. Each live slot
+        is first grown to cover what the round writes: its window and,
+        fused, the continuation (capped at its reservation)."""
+        s = self.slots
+        b = s.batch_size
+        k_cont = self._chunk_size() if self.in_dispatch_eos else 0
+        window = _bucket_pow2(max(d.size for d in drafts
+                                  if d is not None)) + 1
+        toks = np.zeros((b, window), np.int64)
+        positions = np.full((b, window), -1, np.int64)
+        draft_len = np.zeros(b, np.int64)
+        hi = 0
+        for slot, live in enumerate(self._live):
+            if live is None:
+                continue
+            toks[slot, 0] = s.last_token[slot]
+            positions[slot, 0] = s.lengths[slot]
+            d = drafts[slot]
+            if d is not None:
+                toks[slot, 1:1 + d.size] = d
+                positions[slot, 1:1 + d.size] = \
+                    s.lengths[slot] + 1 + np.arange(d.size)
+                draft_len[slot] = d.size
+            upto = int(s.lengths[slot]) + int(draft_len[slot]) + 1 + k_cont
+            s.ensure_pages(slot, upto)
+            hi = max(hi, upto)
+        cols = min(_bucket_pow2(-(-hi // s.pool.page_size)), s.max_pages)
+        flat = np.concatenate([toks.ravel(), positions.ravel(), draft_len,
+                               self._remaining(),
+                               s.page_table[:, :cols].ravel()])
+        return window, k_cont, cols, flat.astype(np.int64), draft_len
+
+    def _verify_round(self, drafts: list) -> list[Result]:
+        """One verify round + acceptance/evict. Each live slot appends
+        its accepted drafts and the bonus verdict after them (and, fused,
+        its continuation tokens) up to an eos id or its budget. The
+        rewind for rejected drafts is pointer arithmetic only: their K/V
+        stays past the slot's length, invisible to every later query
+        and overwritten as the slot decodes on."""
+        finished: list[Result] = []
+        s = self.slots
+        window, k_cont, cols, flat, draft_len = self._prepare_verify(drafts)
+        out = self._run_verify(flat, window, k_cont, cols)
+        emit, accepted = out[:, :window], out[:, window]
+        cont = out[:, window + 1:]
+        self.steps += window + k_cont
+        self.window_steps += window
+        self.dispatches += 1
+        self.spec_rounds += 1
+        for slot in range(s.batch_size):
+            live = self._live[slot]
+            if live is None:
+                continue
+            d = int(draft_len[slot])
+            a = int(accepted[slot])
+            if d:
+                live.drafted += d
+                live.accepted += a
+                self.spec_drafted += d
+                self.spec_accepted += a
+                # rejected drafts were scored and thrown away (fused, the
+                # eos cap folds drafts past a stop token in here too)
+                self.wasted_steps += d - a
+                self._spec_ema[slot] = (
+                    self.SPEC_EMA_DECAY * self._spec_ema[slot]
+                    + (1.0 - self.SPEC_EMA_DECAY) * a / d)
+            reason, consumed = self._append(live, emit[slot, :a + 1])
+            cont_consumed = 0
+            if k_cont:
+                if reason is None:
+                    reason, cont_consumed = self._append(live, cont[slot])
+                    if reason is not None and cont_consumed < k_cont \
+                            and not (cont[slot, cont_consumed:]
+                                     == cont[slot, cont_consumed - 1]).all():
+                        self.freeze_faults += 1
+                # a row that finished in the window froze for the whole
+                # continuation, one that finished in it for its tail
+                self.frozen_steps += k_cont - cont_consumed
+            if reason is None:
+                # fed last_token + a accepted drafts (+ the continuation)
+                s.lengths[slot] += a + 1 + cont_consumed
+                s.last_token[slot] = int(cont[slot, k_cont - 1]) \
+                    if k_cont else int(emit[slot, a])
+                continue
+            self.wasted_steps += (a + 1) - consumed
+            # the donated span [0, len) covers fed, accepted tokens only;
+            # rejected drafts' K/V lies past it
+            self._finish(slot, live, reason, finished)
         return finished
 
     def _donate(self, live: _Live, slot: int) -> None:
@@ -583,29 +1117,41 @@ class Server:
                                                           int(seq.size)))
 
     def drain(self) -> list[Result]:
-        """Finish every in-flight slot (no new admissions); pending
-        requests stay queued."""
+        """Finish every in-flight request, parked prefills included (no
+        new admissions); pending requests stay queued."""
         finished: list[Result] = []
-        while self.slots.n_active:
-            finished.extend(self._decode_round())
+        while self.slots.n_active or self._prefilling:
+            self._advance_prefills(finished)
+            if self.slots.n_active:
+                finished.extend(self._decode_round())
         return finished
 
     def counters(self) -> dict:
-        """Engine counters: dispatch/step totals, frozen-step accounting,
-        prefix-store and page-pool state; on the card also the graphs:
-        ``graph_{decode|prefill}_{captures|replays|eager}`` (a capture is
-        the first call at its key, so captures + replays + eager equals
-        ``dispatches`` or ``prefills``) and ``graph_capture_s``."""
+        """Engine counters: dispatch/step totals, waste and frozen-step
+        accounting, speculation and chunked-prefill totals, prefix-store
+        and page-pool state; on the card also the graphs:
+        ``graph_{decode|prefill|verify|prefill_chunk}_{captures|replays|
+        eager}`` (a capture is the first call at its key) and
+        ``graph_capture_s``. ``spec_window_steps`` is the verify windows'
+        share of ``decode_steps``: the rest are single-token micro-steps,
+        each one flash-decode launch a layer."""
         out = {
             "prefills": self.prefills,
             "decode_steps": self.steps,
             "dispatches": self.dispatches,
+            "wasted_steps": self.wasted_steps,
             "frozen_steps": self.frozen_steps,
             "freeze_faults": self.freeze_faults,
+            "spec_rounds": self.spec_rounds,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_window_steps": self.window_steps,
             "prefix_lookups": self.prefix_lookups,
             "prefix_hits": self.prefix_hits,
             "prefix_hit_tokens": self.prefix_hit_tokens,
             "prefill_tokens_saved": self.prefill_tokens_saved,
+            "prefill_chunk_dispatches": self.prefill_chunk_dispatches,
+            "prefill_chunked_requests": self.prefill_chunked,
         }
         if self.prefix is not None:
             st = self.prefix.stats()
@@ -614,8 +1160,9 @@ class Server:
             out["prefix_budget_bytes"] = st["budget_bytes"]
             out["prefix_evictions"] = st["evictions"]
         if self.graphs is not None:
-            for name, n in self.graphs.counters(("decode",
-                                                  "prefill")).items():
+            for name, n in self.graphs.counters(
+                    ("decode", "prefill", "verify",
+                     "prefill_chunk")).items():
                 out["graph_" + name] = n
         ps = self.slots.pool.stats()
         out["kv_pages_total"] = ps["total"]
@@ -629,11 +1176,14 @@ class Server:
         return out
 
     def reset(self) -> None:
-        """Drop pending and in-flight requests and free every slot (no
-        Result for the dropped ones)."""
+        """Hard reset, the recovery after a failed ``step()``: drop
+        pending, in-flight and mid-prefill requests (no Result for
+        them) and free every slot's pages and reservation. The prefix
+        store and the graphs stay."""
         with self._pending_lock:
             self.pending.clear()
         self._live = [None] * self.slots.batch_size
+        self._prefilling.clear()
         self.slots.reset()
 
     def run(self, requests: Iterable[Request] = ()) -> Iterator[Result]:
