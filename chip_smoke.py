@@ -115,6 +115,41 @@ exits non-zero.
    e. ``FaultPlan.fail_at(3)``: ``InjectedFault`` out of ``step()``
       with 8 requests live, ``reset()`` leaving only the prefix store's
       pages, the 16 requests again token-equal to 13a's.
+14. Unpaged and sliding-window serving (every run held to ``check_run``;
+   unpaged, each chunk and verify round a capture or a replay and each
+   prefill one eager call):
+   kernel. flash-decode at Mistral-7B's windowed call (B=8, H=32,
+      KVH=8, D=128, S=8192, window 4096, lengths 4200-6000, bf16),
+      held to ``decode_tolerance``, timed beside its plain version,
+      SDPA with the window mask and its bound;
+   a. Mistral-7B-v0.1 at full width and depth (published config,
+      ``max_seq_len`` 8192, seeded random bf16 weights) through
+      ``Server(paged=None)``, asserted unpaged: batch 8, chunks of up to
+      8, flash-decode, no prefix store; 16 greedy requests (8 prompts of
+      4200-6000 tokens, 8 of 64-1024, budgets 64-256): tok/s, TTFT,
+      seconds capturing, eager prefills, peak memory; two streams held
+      to greedy decoding by the plain full forward (teacher-forced,
+      window mask) by the near-tie rule;
+   b. 14a's traffic with 1024-token prefill chunks: streams near-tie
+      equal to 14a's, peak memory beside it;
+   c. Qwen2.5-1.5B (phase 4's weights) ``paged=False`` with a 1 GB row
+      prefix store at phase 4's traffic: prefix hits, tok/s and TTFT
+      beside phase 4's, and where its bf16 streams part from phase 4's
+      (printed: the two paths round differently in bf16); the same
+      traffic in fp32, paged and unpaged: every stream equal; four
+      prompts served twice (the second time exact hits, near-tie equal);
+      ``speculate_k`` 8 at 13a's traffic (unpaged verify rounds
+      replayed);
+   d. on one saved resident-cache state, an unpaged chunk replayed and
+      eager: tokens and cache bytes bit-equal, both timed;
+   e. ``generate`` at batch 2, 512-token prompts, 64 tokens, with
+      ``repetition_penalty`` 1.3 (replayed equal to eager; 1.0 equal to
+      none) and ``beam_search`` (``num_beams`` 1 near-tie equal to
+      greedy; 4 timed);
+   f. the CLI: ``--serve`` over a 2-layer full-width Mistral checkpoint
+      (unpaged and no prefix store, with their notes); over phase 5's
+      checkpoint ``--no-paged-kv`` equal to paged in fp32, one-shot
+      ``--num-beams 4`` and ``--repetition-penalty 1.3``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
@@ -637,13 +672,15 @@ def percentiles(values) -> tuple[float, float]:
 def check_run(srv, reqs, run, part: str, base: dict | None = None) -> dict:
     """What every serving run must show: every request finished as its
     budget and the eos ids say; no page reservation left and no page
-    held but the prefix store's; no frozen row that re-emitted another
-    token; flash-decode launched n_layers times for each single-token
-    micro-step (chunks and verify continuations; a verify window runs
-    none); and, all requests greedy, every decode chunk, verify round,
-    prefill and intermediate prefill chunk the first call at its key or
-    a replay, none eager. ``base`` = the counters before the run, for a
-    server that served before it. Returns the run's counters."""
+    held but the prefix store's (paged); no frozen row that re-emitted
+    another token; flash-decode launched n_layers times for each
+    single-token micro-step (chunks and verify continuations; a verify
+    window runs none); and, all requests greedy, every decode chunk,
+    verify round, prefill and intermediate prefill chunk the first call
+    at its key or a replay, none eager; unpaged, every chunk and verify
+    round so, and every prefill (chunks included) one eager call.
+    ``base`` = the counters before the run, for a server that served
+    before it. Returns the run's counters."""
     c = srv.counters()
     base = base or {}
 
@@ -667,12 +704,14 @@ def check_run(srv, reqs, run, part: str, base: dict | None = None) -> dict:
                   and len(toks) == r.max_new_tokens,
                   f"{part} request {r.id}: {res.finish_reason} after "
                   f"{len(toks)} of {r.max_new_tokens} tokens")
-    pinned = len({p for e in srv.prefix._entries.values()
-                  for p in e.pages}) if srv.prefix is not None else 0
-    check(c["kv_pages_reserved"] == 0 and c["kv_pages_used"] == pinned,
-          f"{part}: {c['kv_pages_reserved']} pages reserved and "
-          f"{c['kv_pages_used']} used at the end, {pinned} pinned by the "
-          "prefix store")
+    if srv.paged:
+        pinned = len({p for e in srv.prefix._entries.values()
+                      for p in e.pages}) if srv.prefix is not None else 0
+        check(c["kv_pages_reserved"] == 0
+              and c["kv_pages_used"] == pinned,
+              f"{part}: {c['kv_pages_reserved']} pages reserved and "
+              f"{c['kv_pages_used']} used at the end, {pinned} pinned by "
+              "the prefix store")
     check(c["freeze_faults"] == 0, f"{part}: frozen slots re-emitted "
           "other tokens")
     micro = d("decode_steps") - d("spec_window_steps")
@@ -682,10 +721,16 @@ def check_run(srv, reqs, run, part: str, base: dict | None = None) -> dict:
           f"expected {layers} x {micro} single-token micro-steps")
     intermediate = d("prefill_chunk_dispatches") \
         - d("prefill_chunked_requests")
-    for kind, total in (("decode", d("dispatches") - d("spec_rounds")),
-                        ("verify", d("spec_rounds")),
-                        ("prefill", d("prefills") - intermediate),
-                        ("prefill_chunk", intermediate)):
+    calls = (("decode", d("dispatches") - d("spec_rounds")),
+             ("verify", d("spec_rounds")),
+             ("prefill", d("prefills") - intermediate),
+             ("prefill_chunk", intermediate))
+    if not srv.paged:
+        calls = (("chunk_rows", calls[0][1]), ("verify_rows", calls[1][1]))
+        check(d("graph_prefill_rows_eager") == d("prefills"),
+              f"{part}: {d('graph_prefill_rows_eager')} eager prefill "
+              f"calls of {d('prefills')} prefills")
+    for kind, total in calls:
         caps, reps = d(f"graph_{kind}_captures"), d(f"graph_{kind}_replays")
         check(d(f"graph_{kind}_eager") == 0 and caps + reps == total,
               f"{part} {kind}: {caps} captures + {reps} replays + "
@@ -702,9 +747,9 @@ def serve_server(model, **options):
     end-of-text ids."""
     from tony_tpu_torch.serve import Server
 
-    return Server(model, batch_size=8, eos_id=SERVE_EOS,
-                  prefix_cache_mb=64.0, chunk_steps=8, device=DEVICE,
-                  **options)
+    options = {"prefix_cache_mb": 64.0, **options}
+    return Server(model, batch_size=8, eos_id=SERVE_EOS, chunk_steps=8,
+                  device=DEVICE, **options)
 
 
 def phase_serve(ctx) -> None:
@@ -759,6 +804,9 @@ def phase_serve(ctx) -> None:
           + ("not measured" if pool is None else f"{pool / 2**30:.3f} GiB")
           + f" [{ctx['card']}]")
     ctx["launches"] = launches
+    ctx["serve4"] = {"specs": [(r.prompt, r.max_new_tokens) for r in reqs],
+                     "results": run["results"],
+                     "rate": gen_tokens / wall, "ttft": (p50, p99)}
     ctx["captured"] = probe_pass(ctx, srv, rng)
     del srv, model
     torch.cuda.empty_cache()
@@ -904,15 +952,18 @@ def probe_pass(ctx, srv, rng) -> dict:
     return captured
 
 
-def write_checkpoint() -> str:
-    """A 2-layer checkpoint directory at Qwen2.5-1.5B's full width under
-    build/: config.json and model.safetensors, seeded random bf16
-    weights. The caller removes it."""
+def write_checkpoint(config: dict | None = None) -> str:
+    """A 2-layer checkpoint directory at the full width of ``config``
+    (Qwen2.5-1.5B by default) under build/: config.json and
+    model.safetensors, seeded random bf16 weights, with q/k/v biases for
+    Qwen2 and an untied head where the config says so. The caller
+    removes it."""
     import torch
 
     from tony_tpu_torch.models.hf import write_safetensors
 
-    hf = dict(QWEN25_15B, num_hidden_layers=2)
+    hf = dict(config or QWEN25_15B, num_hidden_layers=2)
+    bias = hf["model_type"] == "qwen2"
     d, f, L, V = hf["hidden_size"], hf["intermediate_size"], 2, \
         hf["vocab_size"]
     kv = hf["num_key_value_heads"] * d // hf["num_attention_heads"]
@@ -926,20 +977,21 @@ def write_checkpoint() -> str:
                "model.norm.weight": torch.ones(d, dtype=torch.bfloat16)}
     for i in range(L):
         p = f"model.layers.{i}."
+        tensors[p + "input_layernorm.weight"] = torch.ones(
+            d, dtype=torch.bfloat16)
+        tensors[p + "post_attention_layernorm.weight"] = torch.ones(
+            d, dtype=torch.bfloat16)
+        for name, rows in (("q", d), ("k", kv), ("v", kv)):
+            tensors[p + f"self_attn.{name}_proj.weight"] = w(rows, d)
+            if bias:
+                tensors[p + f"self_attn.{name}_proj.bias"] = w(rows)
         tensors.update({
-            p + "input_layernorm.weight": torch.ones(d, dtype=torch.bfloat16),
-            p + "post_attention_layernorm.weight":
-                torch.ones(d, dtype=torch.bfloat16),
-            p + "self_attn.q_proj.weight": w(d, d),
-            p + "self_attn.q_proj.bias": w(d),
-            p + "self_attn.k_proj.weight": w(kv, d),
-            p + "self_attn.k_proj.bias": w(kv),
-            p + "self_attn.v_proj.weight": w(kv, d),
-            p + "self_attn.v_proj.bias": w(kv),
             p + "self_attn.o_proj.weight": w(d, d),
             p + "mlp.gate_proj.weight": w(f, d),
             p + "mlp.up_proj.weight": w(f, d),
             p + "mlp.down_proj.weight": w(d, f)})
+    if not hf["tie_word_embeddings"]:
+        tensors["lm_head.weight"] = w(V, d)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="smoke_ckpt_",
                             dir=os.path.join(ROOT, "build"))
@@ -949,10 +1001,11 @@ def write_checkpoint() -> str:
     return ckpt
 
 
-def serve_cli(ckpt: str, lines: list, *flags) -> dict:
+def serve_cli(ckpt: str, lines: list, *flags, err=None) -> dict:
     """``cli.generate --serve`` over ``ckpt`` with ``flags``, the JSONL
     ``lines`` piped in; its responses by id, each checked against its
-    request: the prompt echoed, a finish reason and the budget kept."""
+    request: the prompt echoed, a finish reason and the budget kept.
+    ``err``, a text stream, takes what the CLI writes to stderr."""
     from tony_tpu_torch.cli import generate as cli
 
     rfd, wfd = os.pipe()
@@ -962,7 +1015,8 @@ def serve_cli(ckpt: str, lines: list, *flags) -> dict:
     saved = sys.stdin
     try:
         sys.stdin = os.fdopen(rfd)
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err or sys.stderr):
             rc = cli.main(["--model", ckpt, "--serve", "--flash-decode",
                            "--serve-batch", "4", "--kv-pages", "128",
                            "--device", DEVICE, *flags])
@@ -2444,24 +2498,48 @@ def near_ties(model, specs, got: dict, want: dict, part: str) -> list:
     ties = []
     for i, (prompt, _) in enumerate(specs):
         a, b = got[i].tokens, want[i].tokens
-        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
-        if j is None:
-            check(a == b and got[i].finish_reason == want[i].finish_reason,
-                  f"{part} request {i}: {len(a)} tokens "
-                  f"({got[i].finish_reason}) against {len(b)} "
-                  f"({want[i].finish_reason})")
-            continue
-        seq = torch.tensor([list(prompt) + a[:j]], device=DEVICE)
-        with torch.no_grad():
-            hidden = model(seq, return_hidden=True)
-            logits = model.logits(hidden[0, -1:])[0]
-        gap = abs(float(logits[a[j]] - logits[b[j]]))
-        tol = NEAR_TIE * float(logits.abs().max())
-        check(gap <= tol, f"{part} request {i}: the streams part at token "
-              f"{j} ({a[j]} against {b[j]}), logit gap {gap:.4g} under "
-              f"the plain forward > {tol:.4g}")
-        ties.append((i, j, gap, tol))
+        tie = parting(model, prompt, a, b, f"{part} request {i}")
+        if tie is None:
+            check(got[i].finish_reason == want[i].finish_reason,
+                  f"{part} request {i}: {got[i].finish_reason} against "
+                  f"{want[i].finish_reason}")
+        else:
+            ties.append((i, *tie))
     return ties
+
+
+def first_parting(model, prompt, a: list, b: list):
+    """None when the token streams ``a`` and ``b`` (continuations of
+    ``prompt``) agree where both run; else ``(index, gap, tolerance)``
+    of their first parting: one plain forward over the common prefix
+    gives the two tokens' logit gap, and the near-tie tolerance is
+    ``NEAR_TIE`` x the row's largest |logit|."""
+    import torch
+
+    j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if j is None:
+        return None
+    seq = torch.tensor([list(prompt) + list(a[:j])], device=DEVICE)
+    with torch.no_grad():
+        hidden = model(seq, return_hidden=True)
+        logits = model.logits(hidden[0, -1:])[0]
+    return (j, abs(float(logits[a[j]] - logits[b[j]])),
+            NEAR_TIE * float(logits.abs().max()))
+
+
+def parting(model, prompt, a: list, b: list, what: str):
+    """``first_parting`` held to the near-tie rule: None when the streams
+    are equal, else their first parting, which must be a near tie."""
+    tie = first_parting(model, prompt, a, b)
+    if tie is None:
+        check(len(a) == len(b), f"{what}: {len(a)} tokens against "
+              f"{len(b)}")
+        return None
+    j, gap, tol = tie
+    check(gap <= tol, f"{what}: the streams part at token {j} ({a[j]} "
+          f"against {b[j]}), logit gap {gap:.4g} under the plain forward "
+          f"> {tol:.4g}")
+    return tie
 
 
 def ties_text(ties, n: int) -> str:
@@ -2814,6 +2892,554 @@ def phase_serving_options(ctx) -> None:
     print(f"phase 13 flash_decode launches over phase 13's runs: {launches}")
 
 
+# ------------------------------------ unpaged and sliding-window serving (14)
+
+# Mistral-7B-v0.1, https://huggingface.co/mistralai/Mistral-7B-v0.1
+# config.json
+MISTRAL_7B = {
+    "model_type": "mistral", "architectures": ["MistralForCausalLM"],
+    "hidden_size": 4096, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "intermediate_size": 14336, "vocab_size": 32000,
+    "hidden_act": "silu", "rope_theta": 10000.0, "rms_norm_eps": 1e-5,
+    "tie_word_embeddings": False, "sliding_window": 4096,
+    "max_position_embeddings": 32768, "bos_token_id": 1,
+    "eos_token_id": 2, "torch_dtype": "bfloat16",
+}
+MISTRAL_MAX_LEN = 8192  # the smoke's cap (published: 32768)
+MISTRAL_EOS = (2,)      # </s>
+ROW_STORE_MB = 1024.0   # 14c: room for 8 Qwen2.5-1.5B rows of 117.4 MB
+ROW_PREFILL_CHUNK = 1024  # 14b
+
+
+def mistral_config(**overrides):
+    from tony_tpu_torch.models.hf import llama_config
+
+    return llama_config(MISTRAL_7B, max_seq_len=MISTRAL_MAX_LEN,
+                        decode_attention="flash", **overrides)
+
+
+def mistral_decode_call(ctx) -> dict:
+    """14-kernel: flash-decode at Mistral-7B's windowed call (B=8, H=32,
+    KVH=8, D=128, S=8192, window 4096, lengths 4200-6000, bf16 cache),
+    held to ``decode_tolerance`` and timed beside its plain version,
+    SDPA with the window mask and its bound."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 140)
+    b, h, kvh, d = 8, 32, 8, 128
+    q = torch.randn(b, h, d, device=DEVICE, generator=gen).bfloat16()
+    k = torch.randn(b, MISTRAL_MAX_LEN, kvh, d, device=DEVICE,
+                    generator=gen).bfloat16()
+    v = torch.randn(b, MISTRAL_MAX_LEN, kvh, d, device=DEVICE,
+                    generator=gen).bfloat16()
+    length = torch.linspace(4200, 6000, b, device=DEVICE).round().int()
+    window = MISTRAL_7B["sliding_window"]
+    m = measure_decode(q, k, v, length, window, None, None, ctx["flush"])
+    print(f"phase 14 flash_decode at Mistral-7B's call B=8 H=32 KVH=8 D=128 "
+          f"S={MISTRAL_MAX_LEN} bf16 window={window}, lengths 4200-6000 "
+          f"({m['route']}, {m['nsplit']} split(s)): max abs err "
+          f"{m['max_abs_err']:.3g} (tol {m['rtol']:.3g}*|want| + "
+          f"{m['atol']:.3g}, worst excess {m['excess']:.3g}); kernel "
+          f"{m['ms'] * 1e3:.1f} us ({m['bound_ms'] / m['ms']:.3f} of the "
+          f"bound), plain {m['plain_ms'] * 1e3:.1f} us, sdpa "
+          f"{m['library_ms'] * 1e3:.1f} us, bound "
+          f"{m['bound_ms'] * 1e3:.2f} us ({m['bound_by']}) [{ctx['card']}]")
+    del q, k, v
+    return m
+
+
+def mistral_specs(rng) -> list:
+    """14a's 16 requests as (prompt, budget), long and short in turn: 8
+    prompts of 4200-6000 tokens (the window in force from the first
+    decode step) and 8 of 64-1024, budgets 64-256."""
+    out = []
+    for _ in range(8):
+        for lo, hi in ((4200, 6001), (64, 1025)):
+            out.append((rng.integers(0, 32000, int(rng.integers(lo, hi)))
+                        .tolist(), int(rng.integers(64, 257))))
+    return out
+
+
+def mistral_probe(ctx, srv, rng) -> None:
+    """14a's breakdown, untimed, on 14b's server after its run, by CUDA
+    events (L2 flushed): one unchunked prefill of a 6000-token prompt
+    (bucket 8192) and one 1024-token chunk at positions 4096-5119 into
+    a free slot's row; then, with 8 live requests of 4500-token
+    prompts (every row's window full), one replayed chunk of 8
+    micro-steps (a chunk replayed again from its own end state writes
+    the same bytes), beside a micro-step's bound: every weight byte
+    but the embedding table's, and each row's 4096 visible K/V
+    positions, over 3.35 TB/s."""
+    import torch
+
+    from tony_tpu_torch.serve import Request
+    from tony_tpu_torch.serve.engine import _prefill_rows
+
+    model, s, cfg = srv.model, srv.slots, srv.model.cfg
+    flush = ctx["flush"]
+    max_len, win, take = cfg.max_seq_len, cfg.sliding_window, \
+        srv.prefill_chunk
+    window = torch.as_tensor(rng.integers(0, 32000, max_len),
+                             device=DEVICE)[None]
+    with torch.no_grad():
+        prefill_ms = cuda_time_ms(lambda: _prefill_rows(
+            model, s.cache, 0, window, 0, min(6000, max_len) - 1), 1, flush)
+        chunk_ms = cuda_time_ms(lambda: _prefill_rows(
+            model, s.cache, 0, window[:, :take], win, None), 3, flush)
+    for i in range(8):
+        srv.submit(Request(rng.integers(0, 32000, min(
+            4500, max_len - 100)).tolist(), 64, id=f"probe{i}"))
+    while srv.n_active < 8 or srv.n_prefilling:
+        srv.step()
+    check(s.n_active == 8, f"14a probe: {s.n_active} of 8 live")
+    k, cols, flat = srv._prepare_chunk()
+    srv._run_chunk(flat, k, cols)  # the key's capture, if new
+    decode_ms = cuda_time_ms(lambda: srv._run_chunk(flat, k, cols), 3,
+                             flush)
+    nbytes = sum(p.numel() * p.element_size()
+                 for n, p in model.named_parameters() if n != "embedding")
+    nbytes += 8 * win * cfg.n_layers * 2 * cfg.kv_heads * cfg.head_dim * 2
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    while not srv.done:
+        srv.step()
+    print(f"phase 14a probe (untimed, CUDA events): an unchunked prefill "
+          f"of a 6000-token prompt (bucket 8192) {prefill_ms:.1f} ms; a "
+          f"1024-token chunk at positions 4096-5119 {chunk_ms:.1f} ms; a "
+          f"replayed chunk of {k} micro-steps at batch 8 with full "
+          f"windows {decode_ms:.1f} ms = {decode_ms / k:.2f} ms a "
+          f"micro-step against a bound of {bound:.2f} ms "
+          f"({nbytes / 1e9:.2f} GB) [{ctx['card']}]")
+
+
+def phase_unpaged_mistral(ctx) -> None:
+    """14-kernel, then 14a and 14b: Mistral-7B-v0.1 at full width and
+    depth through ``Server(paged=None)``, unchunked and with 1024-token
+    prefill chunks; two 14a streams held against greedy decoding by the
+    plain full forward (teacher-forced, the window mask), 14b's streams
+    against 14a's."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.serve import Server
+
+    card_ = ctx["card"]
+    ctx["mistral_call"] = mistral_decode_call(ctx)
+    torch.cuda.empty_cache()
+    cfg = mistral_config(dtype=torch.bfloat16)
+    model = Transformer(cfg, device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    specs = mistral_specs(np.random.default_rng(SEED + 14))
+    runs = {}
+    launches = 0
+    for chunk in (0, ROW_PREFILL_CHUNK):
+        part = "14b" if chunk else "14a"
+        srv = Server(model, batch_size=8, eos_id=MISTRAL_EOS, chunk_steps=8,
+                     prefill_chunk_tokens=chunk, device=DEVICE)
+        check(not srv.paged and srv.prefix is None,
+              f"{part}: Server(paged=None) over a sliding-window model is "
+              "paged or has a prefix store")
+        torch.cuda.reset_peak_memory_stats()
+        reqs = requests(specs)
+        run = serve_timed(srv, reqs)
+        c = check_run(srv, reqs, run, part)
+        peak = torch.cuda.max_memory_allocated()
+        launches += run["launches"]
+        if chunk:
+            check(c["prefill_chunked_requests"] == 8,
+                  f"14b: {c['prefill_chunked_requests']} of 8 long prompts "
+                  "chunked")
+        toks = sum(len(r.tokens) for r in run["results"].values())
+        p50, p99 = percentiles(run["first"][r.id] for r in reqs)
+        print(f"phase {part} serve Mistral-7B-v0.1 bf16 ({n_params} params, "
+              f"{cfg.n_layers} layers, window {cfg.sliding_window}, "
+              f"max_seq_len {cfg.max_seq_len}) unpaged, batch 8, "
+              f"{'prefill chunks of %d' % chunk if chunk else 'unchunked'}, "
+              f"16 greedy requests (8 of 4200-6000 tokens, 8 of 64-1024): "
+              f"{toks} tokens in {run['wall']:.2f} s = "
+              f"{toks / run['wall']:.1f} tok/s; TTFT p50 {p50:.3f} s, p99 "
+              f"{p99:.3f} s; {c['decode_steps']} micro-steps in "
+              f"{c['dispatches']} chunks ({c['graph_chunk_rows_captures']} "
+              f"keys captured, {c['graph_chunk_rows_replays']} replays, "
+              f"{c['graph_capture_s']:.2f} s capturing), "
+              f"{c['graph_prefill_rows_eager']} eager prefill calls "
+              f"({c['prefill_chunk_dispatches']} of them chunks); "
+              f"flash_decode launches {run['launches']} = {cfg.n_layers} x "
+              f"{c['decode_steps']}; peak memory {peak / 2**30:.2f} GiB "
+              f"[{card_}]")
+        runs[chunk] = run
+        if chunk:
+            mistral_probe(ctx, srv, np.random.default_rng(SEED + 143))
+        del srv
+        torch.cuda.empty_cache()
+    ctx["launches"] += launches
+    ctx["mistral_launches"] = launches
+    ties = near_ties(model, specs, runs[ROW_PREFILL_CHUNK]["results"],
+                     runs[0]["results"], "14b")
+    print(f"phase 14b against 14a: {ties_text(ties, 16)} [{card_}]")
+    # two streams, one long and one short, against the plain forward
+    text = []
+    for i in (0, 1):
+        prompt = specs[i][0]
+        got = runs[0]["results"][i].tokens
+        seq = torch.tensor([prompt + got[:-1]], device=DEVICE)
+        with torch.no_grad():
+            hidden = model(seq, return_hidden=True)
+            plain = model.logits(hidden[0, len(prompt) - 1:])
+        want = plain.argmax(dim=-1).tolist()
+        j = next((n for n, (a, w) in enumerate(zip(got, want)) if a != w),
+                 None)
+        del hidden, plain
+        if j is None:
+            text.append(f"request {i} ({len(prompt)}-token prompt): all "
+                        f"{len(got)} tokens equal")
+            continue
+        tie = parting(model, prompt, got, got[:j] + [want[j]],
+                      f"14a request {i} against the plain forward")
+        text.append(f"request {i} ({len(prompt)}-token prompt): parts at "
+                    f"token {j}, gap {tie[1]:.3g} <= {tie[2]:.3g}")
+    print("phase 14a two streams against greedy decoding by the plain full "
+          "forward (window mask): " + "; ".join(text) + f" [{card_}]")
+    del model
+    torch.cuda.empty_cache()
+
+
+def rows_replay_check(ctx, srv, rng) -> None:
+    """14d: on 8 live 1500-token requests after their first chunk, one
+    unpaged chunk replayed and the same chunk run eagerly on one saved
+    resident-cache state: tokens and cache bytes bit-equal; both timed
+    (median of 3); then the requests served to the end."""
+    import torch
+
+    from tony_tpu_torch.serve import Request
+    from tony_tpu_torch.serve.engine import _decode_chunk
+
+    for i in range(8):
+        srv.submit(Request(rng.integers(0, 151643, 1500).tolist(), 64,
+                           id=f"rows{i}"))
+    srv.step()
+    check(srv.n_active == 8, f"14d: {srv.n_active} of 8 live")
+    s = srv.slots
+    k, cols, flat = srv._prepare_chunk()
+    leaves = pool_leaves(srv)
+    saved = [leaf.clone() for leaf in leaves]
+
+    def restore():
+        for leaf, keep in zip(leaves, saved):
+            leaf.copy_(keep)
+        sync()
+
+    def eager():
+        return _decode_chunk(
+            srv.model, s.cache, torch.as_tensor(flat, device=DEVICE),
+            s.batch_size, 0, s.temperature.copy(), s.top_k.copy(),
+            list(s.generators), k, srv.eos_ids).cpu().numpy()
+
+    def replayed():
+        return srv._run_chunk(flat, k, cols)
+
+    if ("chunk_rows", k) not in srv.graphs.entries:
+        replayed()
+        restore()
+    want = eager()
+    want_cache = [leaf.clone() for leaf in leaves]
+    restore()
+    replays = srv.graphs.calls["chunk_rows", "replays"]
+    got = replayed()
+    check(srv.graphs.calls["chunk_rows", "replays"] == replays + 1,
+          "14d: the chunk was not a replay")
+    check((got == want).all(), "14d: replayed chunk tokens differ from the "
+          "eager chunk's")
+    check(all(torch.equal(leaf, w) for leaf, w in zip(leaves, want_cache)),
+          "14d: replayed chunk cache bytes differ from the eager chunk's")
+    del want_cache
+    times = {"eager": [], "replayed": []}
+    for _ in range(3):
+        for name, fn in (("eager", eager), ("replayed", replayed)):
+            restore()
+            t0 = time.perf_counter()
+            fn()
+            times[name].append(time.perf_counter() - t0)
+    restore()
+    del saved
+    ms = {name: statistics.median(t) * 1e3 for name, t in times.items()}
+    print(f"phase 14d one unpaged chunk ({k} micro-steps, batch 8 at "
+          f"1500-token prompts, {s.max_seq_len}-position rows) replayed "
+          f"and eager on one saved state: tokens and cache bytes "
+          f"bit-equal; median of 3: eager {ms['eager']:.1f} ms, replayed "
+          f"{ms['replayed']:.1f} ms [{ctx['card']}]")
+    while not srv.done:
+        srv.step()
+
+
+def unpaged_fp32_gate(ctx, specs) -> None:
+    """14c's gate: Qwen2.5-1.5B in fp32 (phase 4's weights, cast), phase
+    4's traffic paged and unpaged: every stream and finish reason
+    equal. (In bf16 the two paths' prefills and flash-decode splits
+    round differently, so their streams part, each at its own token;
+    the bf16 pass prints where.)"""
+    import torch
+
+    from tony_tpu_torch.models.transformer import Transformer
+
+    model = Transformer(qwen_config(dtype=torch.float32),
+                        device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    out = {}
+    for name, opts in (("paged", {}), ("unpaged", {
+            "paged": False, "prefix_cache_mb": ROW_STORE_MB})):
+        srv = serve_server(model, **opts)
+        reqs = requests(specs)
+        run = serve_timed(srv, reqs)
+        check_run(srv, reqs, run, f"14c fp32 {name}")
+        ctx["launches"] += run["launches"]
+        out[name] = {i: (r.tokens, r.finish_reason)
+                     for i, r in run["results"].items()}
+        del srv
+        torch.cuda.empty_cache()
+    bad = [i for i in out["paged"] if out["paged"][i] != out["unpaged"][i]]
+    check(not bad, f"14c fp32: unpaged streams {bad} differ from paged")
+    print(f"phase 14c fp32 (TF32 off), phase 4's 24 requests: unpaged "
+          f"streams and finish reasons equal to paged in all 24 "
+          f"[{ctx['card']}]")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_unpaged_qwen(ctx) -> None:
+    """14c, 14d and 14e on Qwen2.5-1.5B bf16 (phase 4's weights): phase
+    4's traffic through ``paged=False`` with a row prefix store (where
+    the streams part from phase 4's printed, not held: the fp32 gate
+    holds them), then exact hits, then speculation at 13a's traffic;
+    one unpaged chunk replayed against eager; ``generate`` with the
+    repetition penalty and ``beam_search``."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.models.generate import (_generate_eager,
+                                                beam_search, generate)
+    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.serve import Request
+
+    card_ = ctx["card"]
+    cfg = qwen_config(dtype=torch.bfloat16)
+    model = Transformer(cfg, device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    launches = 0
+    s4 = ctx["serve4"]
+    srv = serve_server(model, paged=False, prefix_cache_mb=ROW_STORE_MB)
+    check(not srv.paged and srv.prefix is not None,
+          "14c: unpaged server without its row store")
+    reqs = requests(s4["specs"])
+    run = serve_timed(srv, reqs)
+    c = check_run(srv, reqs, run, "14c")
+    launches += run["launches"]
+    check(c["prefix_hits"] > 0, "14c: the row store recorded no hit")
+    parts = [first_parting(model, p, run["results"][i].tokens,
+                           s4["results"][i].tokens)
+             for i, (p, _) in enumerate(s4["specs"])]
+    ratios = sorted(t[1] / t[2] for t in parts if t is not None)
+    toks = sum(len(r.tokens) for r in run["results"].values())
+    p50, p99 = percentiles(run["first"][r.id] for r in reqs)
+    print(f"phase 14c serve Qwen2.5-1.5B bf16 paged=False, phase 4's 24 "
+          f"requests, row store {ROW_STORE_MB:.0f} MB: {toks / run['wall']:.1f}"
+          f" tok/s (phase 4 paged {s4['rate']:.1f}); TTFT p50 {p50:.3f} s, "
+          f"p99 {p99:.3f} s (phase 4 {s4['ttft'][0]:.3f}, "
+          f"{s4['ttft'][1]:.3f}); prefix hits {c['prefix_hits']} "
+          f"({c['prefix_hit_tokens']} tokens), {c['prefix_entries']} rows "
+          f"stored, {c['prefix_evictions']} evicted; "
+          f"{c['graph_chunk_rows_captures']} chunk keys captured, "
+          f"{c['graph_chunk_rows_replays']} replays, "
+          f"{c['graph_capture_s']:.2f} s capturing, "
+          f"{c['graph_prefill_rows_eager']} eager prefills; against phase "
+          f"4's bf16 streams: {24 - len(ratios)} of 24 equal"
+          + (f", the others part at tokens "
+             f"{sorted(t[0] for t in parts if t is not None)} with logit "
+             f"gaps of {', '.join(f'{r:.3f}' for r in ratios)} x the "
+             f"near-tie tolerance" if ratios else "") + f" [{card_}]")
+    unpaged_fp32_gate(ctx, s4["specs"])
+    # exact hits: four prompts served, then served again
+    rng = np.random.default_rng(SEED + 141)
+    again = [(rng.integers(0, 151643, int(rng.integers(300, 801))).tolist(),
+              32) for _ in range(4)]
+    outs = []
+    for n in range(2):
+        base = srv.counters()
+        reqs = requests(again)
+        run = serve_timed(srv, reqs)
+        check_run(srv, reqs, run, f"14c exact pass {n + 1}", base)
+        launches += run["launches"]
+        outs.append(run["results"])
+    exact = [r for r in outs[1].values()
+             if r.prefix_hit_tokens == len(r.prompt) and
+             r.prefill_chunks == 0]
+    check(len(exact) == 4, f"14c: {len(exact)} of 4 repeats hit exactly")
+    ties = near_ties(model, again, outs[1], outs[0], "14c exact")
+    print(f"phase 14c exact hits: 4 prompts of 300-800 tokens served twice, "
+          f"the second time 4 exact hits (no prefill): "
+          f"{ties_text(ties, 4)} [{card_}]")
+    rows_replay_check(ctx, srv, rng)
+    del srv
+    torch.cuda.empty_cache()
+    # one speculative pass at 13a's traffic: the unpaged verify round
+    specs = spec_specs(np.random.default_rng(SEED + 13))
+    srv = serve_server(model, paged=False, prefix_cache_mb=ROW_STORE_MB,
+                       speculate_k=SPEC_K)
+    reqs = requests(specs)
+    run = serve_timed(srv, reqs)
+    c = check_run(srv, reqs, run, "14c speculation")
+    launches += run["launches"]
+    check(c["spec_rounds"] > 0 and c["graph_verify_rows_replays"] > 0,
+          f"14c: {c['spec_rounds']} verify rounds, "
+          f"{c['graph_verify_rows_replays']} replayed")
+    toks = sum(len(r.tokens) for r in run["results"].values())
+    print(f"phase 14c speculate_k {SPEC_K} unpaged at 13a's 16 requests: "
+          f"{toks / run['wall']:.1f} tok/s, {c['spec_rounds']} verify "
+          f"rounds of {c['dispatches']} ({c['spec_drafted']} drafted, "
+          f"{c['spec_accepted']} accepted; verify graphs "
+          f"{c['graph_verify_rows_captures']} captures, "
+          f"{c['graph_verify_rows_replays']} replays), "
+          f"{c['graph_capture_s']:.2f} s capturing [{card_}]")
+    del srv
+    torch.cuda.empty_cache()
+    ctx["launches"] += launches
+    print(f"phase 14c-d flash_decode launches: {launches}")
+
+    # 14e: generate with the repetition penalty, and beam search
+    prompt = torch.as_tensor(rng.integers(0, 151643, (2, 512)),
+                             device=DEVICE)
+    n_new = 64
+    greedy = generate(model, prompt, max_new_tokens=n_new,
+                      eos_id=SERVE_EOS)
+    one = generate(model, prompt, max_new_tokens=n_new, eos_id=SERVE_EOS,
+                   repetition_penalty=1.0)
+    check(torch.equal(one, greedy), "14e: repetition_penalty 1.0 changed "
+          "greedy tokens")
+    sync()
+    t0 = time.perf_counter()
+    pen = generate(model, prompt, max_new_tokens=n_new, eos_id=SERVE_EOS,
+                   repetition_penalty=1.3)
+    sync()
+    pen_s = time.perf_counter() - t0
+    pen_eager = _generate_eager(model, prompt, n_new,
+                                lambda x: torch.argmax(x, dim=-1),
+                                SERVE_EOS, repetition_penalty=1.3)
+    check(torch.equal(pen, pen_eager), "14e: replayed generate with the "
+          "penalty differs from the eager one")
+    distinct = [len(set(x[r].tolist())) for x in (pen, greedy)
+                for r in range(2)]
+    k1 = beam_search(model, prompt, max_new_tokens=n_new, num_beams=1,
+                     eos_id=SERVE_EOS)
+    ties = [parting(model, prompt[r].tolist(), k1[r].tolist(),
+                    greedy[r].tolist(), f"14e num_beams=1 row {r}")
+            for r in range(2)]
+    sync()
+    t0 = time.perf_counter()
+    beams = beam_search(model, prompt, max_new_tokens=n_new, num_beams=4,
+                        eos_id=SERVE_EOS)
+    sync()
+    beam_s = time.perf_counter() - t0
+    check(beams.shape == (2, n_new) and bool((beams >= 0).all())
+          and bool((beams < cfg.vocab_size).all()),
+          f"14e: beam output {tuple(beams.shape)}")
+    beam_calls = model.graphs.counters(("beam",))["beam_eager"]
+    print(f"phase 14e generate Qwen2.5-1.5B bf16, batch 2, 512-token "
+          f"prompts, {n_new} tokens: repetition_penalty 1.3 replayed "
+          f"{2 * n_new / pen_s:.1f} tok/s, equal to eager; 1.0 equal to "
+          f"no penalty; distinct tokens a row {distinct[:2]} (1.3) "
+          f"against {distinct[2:]} (none); num_beams=1 against greedy: "
+          + ", ".join("equal" if t is None else
+                      f"parts at token {t[0]} (gap {t[1]:.3g} <= {t[2]:.3g})"
+                      for t in ties)
+          + f"; beam_search num_beams=4 {2 * n_new / beam_s:.1f} tok/s "
+          f"({beam_calls} eager beam steps, cache reordered by "
+          f"index_select each step) [{card_}]")
+    del model
+    torch.cuda.empty_cache()
+
+
+def cli_one_shot(ckpt: str, ids: list, *flags) -> list:
+    """``cli.generate --token-ids`` over ``ckpt``: the printed lines, each
+    checked to echo its prompt."""
+    from tony_tpu_torch.cli import generate as cli
+
+    out = io.StringIO()
+    argv = ["--model", ckpt, "--device", DEVICE, "--max-new-tokens", "16",
+            *flags]
+    for p in ids:
+        argv += ["--token-ids", ",".join(map(str, p))]
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    check(rc == 0, f"cli {flags}: exit code {rc}")
+    lines = out.getvalue().strip().splitlines()
+    check(len(lines) == len(ids), f"cli {flags}: {len(lines)} lines")
+    for line, p in zip(lines, ids):
+        got = [int(x) for x in line.split(",")]
+        check(got[:len(p)] == p and len(p) < len(got) <= len(p) + 16,
+              f"cli {flags}: {len(got)} ids for a {len(p)}-token prompt")
+    return lines
+
+
+def phase_unpaged_cli(ctx) -> None:
+    """14f: ``cli.generate --serve`` over a 2-layer full-width Mistral
+    checkpoint (unpaged and no prefix store, each with its note); then
+    over phase 5's checkpoint ``--no-paged-kv`` against paged (fp32,
+    equal), and one-shot ``--num-beams 4`` and ``--repetition-penalty
+    1.3``."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 142)
+    ckpt = write_checkpoint(MISTRAL_7B)
+    try:
+        lines = [{"id": f"m{i}", "token_ids": rng.integers(
+                     0, 32000, n).tolist(), "max_new_tokens": m}
+                 for i, (n, m) in enumerate(((40, 12), (300, 20), (5, 1),
+                                             (900, 8)))]
+        err = io.StringIO()
+        got = serve_cli(ckpt, lines, "--dtype", "bf16", err=err)
+        notes = [n for n in ("paged KV cache disabled",
+                             "prefix cache disabled") if n in err.getvalue()]
+        check(len(notes) == 2, f"14f: notes {notes} in {err.getvalue()!r}")
+        print(f"phase 14f cli --serve over a 2-layer full-width Mistral-7B "
+              f"checkpoint: {len(got)} responses checked; notes: "
+              + "; ".join(notes))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt = write_checkpoint()
+    try:
+        lines = [{"id": f"q{i}", "token_ids": rng.integers(
+                     0, 151643, n).tolist(), "max_new_tokens": m}
+                 for i, (n, m) in enumerate(((40, 12), (300, 20), (5, 1),
+                                             (900, 8)))]
+        paged = serve_cli(ckpt, lines, "--dtype", "fp32")
+        rows = serve_cli(ckpt, lines, "--dtype", "fp32", "--no-paged-kv")
+        check(rows == paged, "14f --no-paged-kv: responses differ from the "
+              "paged run: " + ", ".join(k for k in paged
+                                        if rows[k] != paged[k]))
+        ids = [rng.integers(0, 151643, n).tolist() for n in (20, 33)]
+        beams = cli_one_shot(ckpt, ids, "--num-beams", "4")
+        pen = cli_one_shot(ckpt, ids, "--repetition-penalty", "1.3")
+        print(f"phase 14f cli over phase 5's checkpoint: --serve "
+              f"--no-paged-kv (fp32) {len(rows)} responses equal to the "
+              f"paged run; one-shot --num-beams 4 and --repetition-penalty "
+              f"1.3: {len(beams)} + {len(pen)} lines checked")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def mistral_kernel_line(ctx) -> dict:
+    m = ctx["mistral_call"]
+    return {"name": "flash_decode (Mistral-7B-v0.1, window 4096)",
+            "route": "cuda", "source": "tony_tpu_torch/csrc/flash_decode.cu",
+            "replaces": "tony_tpu/ops/decode.py:70",
+            "launches": ctx["mistral_launches"],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -2843,7 +3469,10 @@ def main() -> int:
                         ("int8-model", phase_int8_model),
                         ("int8-generate", phase_int8_generate),
                         ("int8-cli", phase_int8_cli),
-                        ("serving-options", phase_serving_options)):
+                        ("serving-options", phase_serving_options),
+                        ("unpaged-mistral", phase_unpaged_mistral),
+                        ("unpaged-qwen", phase_unpaged_qwen),
+                        ("unpaged-cli", phase_unpaged_cli)):
         t0 = time.perf_counter()
         try:
             phase(ctx)
@@ -2853,8 +3482,8 @@ def main() -> int:
             return 1
         print(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
     try:
-        kernels = [kernel_line(ctx)] + train_kernel_lines(ctx) \
-            + int8_kernel_lines(ctx)
+        kernels = [kernel_line(ctx), mistral_kernel_line(ctx)] \
+            + train_kernel_lines(ctx) + int8_kernel_lines(ctx)
     except Exception:  # noqa: BLE001
         traceback.print_exc()
         return 1

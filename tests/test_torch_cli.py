@@ -1,8 +1,11 @@
 """The port's CLIs against the JAX package's on one tiny random Qwen2
 checkpoint saved by ``transformers``: the ``--serve`` JSONL loop (also
-with ``--speculate-k``) and the one-shot ``--token-ids`` path (float
-and ``--int8``, greedy prompts of one length batched) print the same
-token ids (``--serve`` responses
+with ``--speculate-k`` and with ``--no-paged-kv``) and the one-shot
+``--token-ids`` path (float and ``--int8``, greedy prompts of one length
+batched, ``--num-beams``, ``--repetition-penalty``) print the same
+token ids; over a tiny sliding-window Mistral checkpoint ``--serve``
+turns the paged cache and the prefix store off with the same notes and
+prints the same ids (``--serve`` responses
 arrive in finish order, which depends on threading in the JAX CLI, so
 lines are compared as a set), and ``score`` (full forward, ``--int8``,
 ``--kv-int8``) prints the same nll/token: to 1e-4 absolute, its printed
@@ -152,6 +155,120 @@ def test_serve_refuses_int8(ckpt, monkeypatch, capsys):
     rc_t = torch_cli.main(argv + ["--device", "cpu"])
     assert rc_j == rc_t == 2
     assert "--int8" in capsys.readouterr().err
+
+
+def _seeded(model):
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("norm.weight"):
+                x = 1.0 + 0.1 * rng.standard_normal(p.shape)
+            else:
+                x = 0.3 * rng.standard_normal(p.shape)
+            p.copy_(torch.from_numpy(x.astype(np.float32)))
+    return model
+
+
+@pytest.fixture(scope="module")
+def mistral_ckpt(tmp_path_factory):
+    cfg = transformers.MistralConfig(
+        vocab_size=96, hidden_size=48, intermediate_size=96,
+        num_hidden_layers=2, num_attention_heads=6, num_key_value_heads=2,
+        max_position_embeddings=64, rope_theta=1e4, rms_norm_eps=1e-5,
+        sliding_window=8, tie_word_embeddings=False, eos_token_id=95)
+    d = tmp_path_factory.mktemp("mistral_tiny")
+    _seeded(transformers.MistralForCausalLM(cfg)).save_pretrained(d)
+    return str(d)
+
+
+def test_mistral_checkpoint_loads(mistral_ckpt):
+    from tony_tpu_torch.models.hf import load_llama_dir
+
+    model, hf = load_llama_dir(mistral_ckpt, device="cpu")
+    cfg = model.cfg
+    assert hf["model_type"] == "mistral"
+    assert cfg.sliding_window == 8 and not cfg.tied_embeddings
+    assert not cfg.qkv_bias and not cfg.use_bias
+    assert cfg.kv_heads == 2 and cfg.n_heads == 6
+    assert model.lm_head.shape == (96, 48)
+
+
+WINDOW_LINES = [{"id": "a", "token_ids": list(range(1, 15)),
+                 "max_new_tokens": 9},
+                {"id": "b", "token_ids": [40, 41, 42], "max_new_tokens": 12},
+                {"id": "c", "token_ids": [7] * 11, "max_new_tokens": 6}]
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["einsum", "flash"])
+def test_serve_sliding_window_matches_jax(mistral_ckpt, flash, monkeypatch,
+                                          capsys):
+    """A sliding-window checkpoint serves unpaged, with no prefix store,
+    each turned off with the JAX CLI's note; the same responses."""
+    stdin = "\n".join(json.dumps(x) for x in WINDOW_LINES) + "\n"
+    flags = ["--serve", "--serve-batch", "2", "--eos-id", "17"] \
+        + (["--flash-decode"] if flash else [])
+    errs, outs = [], []
+    for main, extra in ((jax_cli.main, ["--compile-cache", ""]),
+                        (torch_cli.main, ["--device", "cpu"])):
+        monkeypatch.setattr(sys, "stdin", io.StringIO(stdin))
+        rc = main(["--model", mistral_ckpt, *flags, *extra])
+        cap = capsys.readouterr()
+        assert rc == 0
+        outs.append(sorted(cap.out.strip().splitlines()))
+        errs.append(cap.err)
+    assert outs[1] == outs[0] and len(outs[1]) == len(WINDOW_LINES)
+    for note in ("note: paged KV cache disabled (untested over "
+                 "sliding-window attention)",
+                 "note: prefix cache disabled (untested over "
+                 "sliding-window attention)"):
+        assert note in errs[0] and note in errs[1]
+
+
+def test_serve_no_paged_kv_matches_jax(ckpt, monkeypatch, capsys):
+    """``--serve --no-paged-kv``: the JAX CLI's lines with the flag, and
+    the port's paged run's."""
+    stdin = "\n".join(json.dumps(x) for x in LINES) + "\n"
+    rows = [*FLAGS, "--no-paged-kv"]
+    rc_j, out_j = _run(jax_cli.main, ["--model", ckpt, *rows,
+                                      "--compile-cache", ""], stdin,
+                       monkeypatch, capsys)
+    outs = []
+    for flags in (rows, FLAGS):
+        rc, out = _run(torch_cli.main, ["--model", ckpt, *flags,
+                                        "--device", "cpu"], stdin,
+                       monkeypatch, capsys)
+        assert rc == 0 and len(out) == len(LINES)
+        outs.append(sorted(out))
+    assert rc_j == 0
+    assert outs[0] == outs[1] == sorted(out_j)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--num-beams", "3"], ["--repetition-penalty", "1.3"],
+    ["--repetition-penalty", "1.3", "--eos-id", "17"]],
+    ids=["beams", "penalty", "penalty-eos"])
+def test_one_shot_options_match_jax(ckpt, flags, monkeypatch, capsys):
+    argv = ["--model", ckpt, *GROUPED, "--max-new-tokens", "10", *flags]
+    rc_j, out_j = _run(jax_cli.main, argv + ["--compile-cache", ""], "",
+                       monkeypatch, capsys)
+    rc_t, out_t = _run(torch_cli.main, argv + ["--device", "cpu"], "",
+                       monkeypatch, capsys)
+    assert rc_j == rc_t == 0
+    assert len(out_t) == 5
+    assert out_t == out_j
+
+
+def test_beams_ignore_the_penalty_with_a_warning(ckpt, monkeypatch, capsys):
+    argv = ["--model", ckpt, "--token-ids", "5,6,7", "--max-new-tokens", "6",
+            "--num-beams", "2"]
+    _, plain = _run(torch_cli.main, argv + ["--device", "cpu"], "",
+                    monkeypatch, capsys)
+    monkeypatch.setattr(sys, "stdin", io.StringIO(""))
+    rc = torch_cli.main(argv + ["--repetition-penalty", "1.5", "--device",
+                                "cpu"])
+    cap = capsys.readouterr()
+    assert rc == 0 and cap.out.strip().splitlines() == plain
+    assert "--repetition-penalty is not applied under beam search" in cap.err
 
 
 def _scores(lines):

@@ -18,7 +18,8 @@ replay's Python would add are taken back).
   ``Server``'s across slot re-admission (the key's buffers refilled on
   every replay); every chunk and prefill is a capture or a replay; a
   chunk with a sampled live row is eager and counted; a capture error
-  raises out of ``step``.
+  raises out of ``step``. Unpaged, chunks and verify rounds replay
+  over the resident rows and prefills are eager calls.
 - ``generate``'s per-slot step (the position on the device) equals the
   scalar-index step bit for bit (bf16 model, int8 weights, int8 KV
   cache); the replayed ``generate`` gives the JAX package's tokens, on
@@ -260,6 +261,37 @@ def test_server_capture_error_raises(models):
     srv.submit(Request(tokens(3, 5).tolist(), 4))
     with pytest.raises(RuntimeError, match="stand-in capture failed"):
         srv.step()
+
+
+@pytest.mark.parametrize("option", [{}, {"speculate_k": 3}],
+                         ids=["plain", "spec"])
+def test_replayed_unpaged_server_matches_jax(models, option):
+    """The unpaged ``Server`` through the stand-in: chunks replay at
+    ``("chunk_rows", k)`` and verify rounds at ``("verify_rows", window,
+    continuation steps)`` over the resident rows, every prefill is one
+    eager ``prefill_rows`` call, and the streams equal the JAX unpaged
+    ``Server``'s."""
+    jm, jp, tm = models
+    kw = dict(batch_size=2, eos_id=EOS, chunk_steps=4, paged=False,
+              min_bucket=8, prefix_cache_mb=4.0, **option)
+    want = _serve(JaxServer(jm, jp, **kw), JaxRequest)
+    srv = Server(tm, device="cpu", **kw)
+    srv.graphs = GraphCache("cpu", StandIn())
+    got = _serve(srv, Request)
+    assert got == want
+    c = srv.counters()
+    assert c["graph_chunk_rows_eager"] == c["graph_verify_rows_eager"] == 0
+    assert c["graph_chunk_rows_captures"] + c["graph_chunk_rows_replays"] \
+        == c["dispatches"] - c["spec_rounds"]
+    assert c["graph_verify_rows_captures"] \
+        + c["graph_verify_rows_replays"] == c["spec_rounds"]
+    assert c["graph_prefill_rows_eager"] == c["prefills"] > 0
+    assert all(k[0] in ("chunk_rows", "verify_rows")
+               for k in srv.graphs.entries)
+    if option:
+        assert c["spec_rounds"] > 0
+    else:
+        assert c["graph_chunk_rows_replays"] > 0
 
 
 def _bf16(tm):

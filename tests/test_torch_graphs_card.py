@@ -16,9 +16,15 @@ it; with no CUDA device they skip (a CUDA graph has no CPU mode):
   every verify round and intermediate chunk a capture or a replay, and
   flash-decode launches of n_layers per single-token micro-step (chunk
   and continuation; none in a verify window).
+- The unpaged ``Server`` (``paged=False``, and a sliding-window model,
+  unpaged by default) with its graphs and with none, plain and with
+  speculation: equal tokens and resident-cache bytes, every chunk and
+  verify round a capture or a replay (keys ``chunk_rows`` and
+  ``verify_rows``), every prefill one eager call.
 - ``generate`` replayed (capturing on its first call, replaying every
-  step of its second) and launched eagerly, with bf16 and int8 weights:
-  equal tokens, and q8_matmul launches of 7 x n_layers a forward.
+  step of its second) and launched eagerly, with bf16 and int8 weights
+  and with a repetition penalty: equal tokens, and q8_matmul launches
+  of 7 x n_layers a forward.
 
 Tolerance: none (bit-equal).
 """
@@ -153,6 +159,78 @@ def test_replayed_options_bit_equal_to_eager(kv_int8, option):
                     assert torch.equal(leaf[:n],
                                        eager.slots.cache[key][name][:n]), \
                         (key, name)
+
+
+def _serve_rows(model, graphs: bool, **option):
+    """``_serve_option``'s requests through an unpaged ``Server``."""
+    rng = np.random.default_rng(2)
+    srv = Server(model, batch_size=3, eos_id=(5, 7), chunk_steps=8,
+                 min_bucket=16, paged=False, **option)
+    if not graphs:
+        srv.graphs = None
+    before = flash_decode.launches
+    for i in range(8):
+        pattern = rng.integers(0, 512, int(rng.integers(3, 9))).tolist()
+        n = int(rng.integers(20, 201))
+        srv.submit(Request((pattern * 70)[:n], int(rng.integers(8, 48)),
+                           id=i))
+    out = {}
+    while not srv.done:
+        for r in srv.step():
+            out[r.id] = (r.tokens, r.finish_reason)
+    torch.cuda.synchronize()
+    return out, srv, flash_decode.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", [{}, {"speculate_k": 4}],
+                         ids=["plain", "spec"])
+@pytest.mark.parametrize("window", [0, 24], ids=["rows", "window"])
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["bf16", "int8"])
+def test_replayed_unpaged_bit_equal_to_eager(kv_int8, window, option):
+    model = _model(kv_cache_quant=kv_int8, sliding_window=window)
+    if not window:
+        option = {**option, "prefix_cache_mb": 8.0}
+    want, eager, eager_launches = _serve_rows(model, False, **option)
+    got, srv, launches = _serve_rows(model, True, **option)
+    assert got == want
+    c = srv.counters()
+    assert not srv.paged
+    for kind in ("chunk_rows", "verify_rows"):
+        assert c[f"graph_{kind}_eager"] == 0, kind
+    assert c["graph_chunk_rows_captures"] + c["graph_chunk_rows_replays"] \
+        == c["dispatches"] - c["spec_rounds"]
+    assert c["graph_verify_rows_captures"] \
+        + c["graph_verify_rows_replays"] == c["spec_rounds"]
+    assert c["graph_prefill_rows_eager"] == c["prefills"] > 0
+    if "speculate_k" in option:
+        assert c["spec_rounds"] > 0 and c["graph_verify_rows_replays"] > 0
+    else:
+        assert c["graph_chunk_rows_replays"] > 0
+    assert launches == eager_launches == model.cfg.n_layers * (
+        c["decode_steps"] - c["spec_window_steps"]) > 0
+    for key, layer in srv.slots.cache.items():
+        if key.startswith("block_"):
+            for name, leaf in layer.items():
+                if isinstance(leaf, torch.Tensor):
+                    assert torch.equal(leaf, eager.slots.cache[key][name]), \
+                        (key, name)
+
+
+@pytest.mark.cuda
+def test_replayed_generate_with_penalty_bit_equal_to_eager():
+    model = _model()
+    prompt = torch.randint(0, 512, (3, 40), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(2))
+    for penalty in (1.0, 1.3):
+        want = _generate_eager(model, prompt, 32,
+                               lambda x: torch.argmax(x, -1), (5,),
+                               repetition_penalty=penalty)
+        got = generate(model, prompt, max_new_tokens=32, eos_id=5,
+                       repetition_penalty=penalty)
+        assert torch.equal(got, want), penalty
+    assert model.graphs.counters(("generate",))["generate_replays"] > 0
 
 
 @pytest.mark.cuda

@@ -6,8 +6,8 @@ and 8. EOS ids are chosen up front, never read off a model's output;
 the mix is checked to end some requests on them.
 
 Also the allocator (reserve/alloc/share/unref), the store, and what the
-constructor (the options and models not ported yet) and ``submit``
-refuse.
+constructor (the options and models not ported yet, a paged cache over
+a sliding window) and ``submit`` refuse.
 """
 
 import copy
@@ -142,13 +142,18 @@ def test_submit_validation(models):
 
 def test_server_refuses_what_is_not_ported(models):
     _, _, tm = models
-    for kw in ({"kv_host_mb": 1.0}, {"paged": False}, {"mesh": object()},
+    for kw in ({"kv_host_mb": 1.0}, {"mesh": object()},
                {"page_pool": object()}):
         with pytest.raises(NotImplementedError):
             Server(tm, device="cpu", **kw)
+    # ported since: the unpaged cache and sliding-window models (served
+    # unpaged, as the JAX package serves them); parity in
+    # tests/test_torch_unpaged.py and tests/test_torch_window.py
+    assert not Server(tm, device="cpu", paged=False).paged
     _, _, windowed = build_pair(9, sliding_window=8)
+    assert not Server(windowed, device="cpu").paged
     with pytest.raises(NotImplementedError, match="sliding-window"):
-        Server(windowed, device="cpu")
+        Server(windowed, device="cpu", paged=True)
     with pytest.raises(NotImplementedError, match="quantized"):
         Server(quantize_for_serving(tm), device="cpu")
     with pytest.raises(ValueError, match="lives on"):

@@ -4,14 +4,19 @@ checkpoint through the PyTorch port (counterpart of
 
 One-shot: ``--token-ids 1,2,3`` (repeatable) prints prompt +
 continuation as comma-separated ids, in input order; greedy prompts of
-one length decode as one batch (up to 32 rows), as the JAX CLI does.
+one length decode as one batch (up to 32 rows), as the JAX CLI does;
+``--repetition-penalty`` applies to them, and ``--num-beams`` > 1 runs
+beam search a prompt at a time instead.
 ``--int8`` loads at fp32 and converts every projection to int8 weights
 (``models.quantize``), run through the int8 kernel; ``--serve`` refuses
 it, as the JAX CLI does. Serving (``--serve``): one JSON
 request per stdin line, ``{"id", "token_ids", "max_new_tokens"?,
 "temperature"?, "top_k"?, "seed"?}``, one JSON response per finished
 request, ``{"id", "token_ids", "finish_reason"}``, in finish order,
-from one ``Server`` stepped on this thread between stdin lines. Requests
+from one ``Server`` stepped on this thread between stdin lines. The
+cache is paged unless ``--no-paged-kv`` or the model has a sliding
+window (then unpaged, with a note; the prefix store too is turned off
+over a window, with a note). Requests
 carry ``token_ids``: no tokenizer is ported yet, so a ``prompt`` field
 is rejected. The checkpoint directory needs ``config.json`` and one
 ``model.safetensors`` (Llama, Mistral or Qwen2 layout). Runs on the GPU
@@ -38,10 +43,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--token-ids", action="append", default=[],
                    help="raw prompt as comma-separated ids (repeatable)")
     p.add_argument("--max-new-tokens", type=int, default=64)
+    p.add_argument("--num-beams", type=int, default=1,
+                   help=">1 uses beam search (overrides sampling knobs)")
     p.add_argument("--temperature", type=float, default=0.0,
                    help="0 = greedy")
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--top-p", type=float, default=1.0)
+    p.add_argument("--repetition-penalty", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--eos-id", type=int, default=-1,
                    help="stop token (default: the config's eos_token_id)")
@@ -74,20 +82,47 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-pages", type=int, default=0,
                    help="--serve: page-pool size (0 = every slot can hold "
                         "a full-length sequence)")
+    p.add_argument("--no-paged-kv", action="store_true",
+                   help="--serve: fixed-shape per-slot cache rows instead "
+                        "of the paged pool (sliding-window models "
+                        "downgrade automatically)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch path)")
     return p
 
 
+def resolve_paged_kv(args, model) -> dict:
+    """``Server(paged=..., kv_page_size=..., kv_pages=...)`` from the
+    flags: unpaged with ``--no-paged-kv``, and (with a note) for a
+    sliding-window model, which the paged cache refuses."""
+    if args.no_paged_kv:
+        return {"paged": False}
+    if model.cfg.sliding_window:
+        print("note: paged KV cache disabled (untested over "
+              "sliding-window attention)", file=sys.stderr)
+        return {"paged": False}
+    return {"paged": True, "kv_page_size": args.kv_page_size,
+            "kv_pages": args.kv_pages}
+
+
+def resolve_prefix_cache_mb(args, model) -> float:
+    """``--prefix-cache-mb``, turned off (with a note) for a
+    sliding-window model, which the prefix store refuses."""
+    if args.prefix_cache_mb > 0 and model.cfg.sliding_window:
+        print("note: prefix cache disabled (untested over "
+              "sliding-window attention)", file=sys.stderr)
+        return 0.0
+    return args.prefix_cache_mb
+
+
 def _serve_loop(model, args, eos) -> int:
     from tony_tpu_torch.serve import QueueFull, Request, Server
 
     srv = Server(model, batch_size=args.serve_batch, eos_id=eos,
-                 prefix_cache_mb=args.prefix_cache_mb,
-                 speculate_k=args.speculate_k,
-                 kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
-                 device=args.device)
+                 prefix_cache_mb=resolve_prefix_cache_mb(args, model),
+                 speculate_k=args.speculate_k, device=args.device,
+                 **resolve_paged_kv(args, model))
     n_bad = 0
 
     def emit(results) -> None:
@@ -149,7 +184,8 @@ def main(argv=None) -> int:
 
     import torch
 
-    from tony_tpu_torch.models.generate import generate, normalize_eos_ids
+    from tony_tpu_torch.models.generate import (beam_search, generate,
+                                                normalize_eos_ids)
     from tony_tpu_torch.models.hf import load_llama_dir
 
     overrides = {"kv_cache_quant": args.kv_int8}
@@ -175,6 +211,16 @@ def main(argv=None) -> int:
                   "ignoring", file=sys.stderr)
         return _serve_loop(model, args, eos)
     prompts = [[int(i) for i in ids.split(",")] for ids in args.token_ids]
+    if args.num_beams > 1 and args.repetition_penalty != 1.0:
+        print("warning: --repetition-penalty is not applied under "
+              "beam search; ignoring", file=sys.stderr)
+    outputs: dict[int, list[int]] = {}
+    if args.num_beams > 1:  # beam search's batch dim is the beam
+        for pos, ids in enumerate(prompts):
+            out = beam_search(model, [ids],
+                              max_new_tokens=args.max_new_tokens,
+                              num_beams=args.num_beams, eos_id=eos)
+            outputs[pos] = out[0].tolist()
     # GREEDY same-length prompts decode as one batch (no padding, so
     # positions agree and greedy rows are independent), up to 32 rows a
     # batch; sampled prompts decode one at a time from the seed, so a
@@ -182,10 +228,11 @@ def main(argv=None) -> int:
     batchable = args.temperature == 0.0
     by_len: dict[int, list[int]] = {}
     for pos, ids in enumerate(prompts):
-        by_len.setdefault(len(ids) if batchable else pos, []).append(pos)
+        if pos not in outputs:
+            by_len.setdefault(len(ids) if batchable else pos,
+                              []).append(pos)
     max_group = 32  # bounds the batched KV-cache footprint
     gen = torch.Generator(device=model.device)
-    outputs: dict[int, list[int]] = {}
     for whole in by_len.values():
         for start in range(0, len(whole), max_group):
             group = whole[start:start + max_group]
@@ -193,7 +240,8 @@ def main(argv=None) -> int:
             out = generate(model, [prompts[pos] for pos in group],
                            max_new_tokens=args.max_new_tokens,
                            temperature=args.temperature, top_k=args.top_k,
-                           top_p=args.top_p, generator=gen, eos_id=eos)
+                           top_p=args.top_p, generator=gen, eos_id=eos,
+                           repetition_penalty=args.repetition_penalty)
             for row, pos in enumerate(group):
                 outputs[pos] = out[row].tolist()
     for pos, ids in enumerate(prompts):  # print in input order

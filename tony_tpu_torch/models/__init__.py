@@ -1,15 +1,16 @@
-"""The decoder transformer (``transformer``), KV-cache generation
-(``generate``), int8 weight-only conversion (``quantize``), and weight
+"""The decoder transformer (``transformer``), KV-cache generation and
+beam search (``generate``), int8 weight-only conversion (``quantize``), and weight
 import from the JAX package (``convert``) and from HF checkpoints
 (``hf``)."""
 
-from tony_tpu_torch.models.generate import (generate, init_cache,
-                                            multi_decode_step,
+from tony_tpu_torch.models.generate import (beam_search, generate,
+                                            init_cache, multi_decode_step,
                                             single_decode_step)
 from tony_tpu_torch.models.quantize import quantize_for_serving
 from tony_tpu_torch.models.transformer import (RopeScaling, Transformer,
                                                TransformerConfig)
 
-__all__ = ["RopeScaling", "Transformer", "TransformerConfig", "generate",
+__all__ = ["RopeScaling", "Transformer", "TransformerConfig", "beam_search",
+           "generate",
            "init_cache", "multi_decode_step", "quantize_for_serving",
            "single_decode_step"]

@@ -1,6 +1,7 @@
-"""Continuous-batching serving over a paged KV cache (``engine``), its
-page pool and slots (``slots``), the radix prefix store (``prefix``)
-and deterministic fault injection (``faults``)."""
+"""Continuous-batching serving over a paged KV cache or fixed-shape
+cache rows (``engine``), the page pool and slots (``slots``), the radix
+prefix store of pages or rows (``prefix``) and deterministic fault
+injection (``faults``)."""
 
 from tony_tpu_torch.serve.engine import (PoolExhausted, QueueFull,
                                          Request, Result, Server,

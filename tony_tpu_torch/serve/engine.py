@@ -1,11 +1,18 @@
-"""Continuous-batching scheduler over the paged KV cache: the counterpart
-of ``tony_tpu/serve/engine.py`` (its paged path).
+"""Continuous-batching scheduler over a paged or a fixed-shape KV cache:
+the counterpart of ``tony_tpu/serve/engine.py``.
 
-Each ``step()`` admits pending prompts into free slots — a prefill is
-one multi-token window written straight into the slot's pages, or, on
-an exact prefix-store hit, no model call at all — advances any chunked
-prefills by one chunk, then runs one decode round for every live slot
-and evicts the slots that finished. A decode round is a CHUNK of K
+Each ``step()`` admits pending prompts into free slots, advances any
+chunked prefills by one chunk, then runs one decode round for every
+live slot and evicts the slots that finished. Paged (the default but
+for sliding-window models, as in the JAX package), a prefill is one
+multi-token window written straight into the slot's pages, and an
+exact prefix-store hit makes no model call at all. Unpaged
+(``paged=False``, and every sliding-window model), the slots are the
+rows of one resident cache: a prefill is the scalar-index forward over
+the slot's row at the prompt's offset (the JAX package's batch-1
+prefill, whose row it then places in the slot), an exact hit copies a
+stored row into the slot, and the decode micro-steps run straight on
+the resident rows. A decode round is a CHUNK of K
 micro-steps, or, with speculation on and a slot drafting, one VERIFY
 round. The JAX package runs each as one jitted dispatch. On the card
 the port replays each as a CUDA graph (``models.graphs``):
@@ -24,6 +31,12 @@ the port replays each as a CUDA graph (``models.graphs``):
   draft, the greedy verdicts and the accepted run, and (in-dispatch EOS
   on) the continuation micro-steps from each slot's bonus token, then
   one write-back of the whole span.
+
+Unpaged, the chunk replays at ``("chunk_rows", K)`` and the verify
+round at ``("verify_rows", window, continuation steps)``, with the
+resident cache as their static state and no gather or write-back; the
+prefill runs eagerly, one dispatch an admission or chunk, counted as
+``prefill_rows`` eager calls.
 
 The host packs each call's inputs into one buffer, copies it up,
 replays, and reads the result back: one H2D and one D2H copy a call.
@@ -54,10 +67,10 @@ test_torch_chunked_prefill.py). Sampled requests draw from a
 per-request ``torch.Generator`` seeded from ``Request.seed`` and match
 the JAX package in distribution only.
 
-Left out, refused by the constructor: a mesh, the host-RAM page tier, a
-shared page pool, the unpaged cache, sliding-window models and
-int8-weight models; also migration, handoff and the timeline/goodput
-ledger.
+Refused by the constructor, as the JAX package refuses them: a paged
+cache or a prefix store over a sliding-window model. Left out, refused
+too: a mesh, the host-RAM page tier, a shared page pool and int8-weight
+models; also migration, handoff and the timeline/goodput ledger.
 """
 
 from __future__ import annotations
@@ -82,7 +95,9 @@ from tony_tpu_torch.serve.faults import FaultPlan
 from tony_tpu_torch.serve.prefix import PrefixStore
 from tony_tpu_torch.serve.slots import (PagePool, SlotCache,
                                         default_page_size, paged_view,
-                                        paged_write_back)
+                                        paged_write_back, read_slot_row,
+                                        row_nbytes, slot_view,
+                                        write_slot_row)
 
 log = logging.getLogger(__name__)
 
@@ -157,6 +172,36 @@ def _sample_first(logits, temp: float, top_k: int, generator) -> int:
     return int(_sample_rows(logits, [generator], [temp], [top_k])[0])
 
 
+def _usable_prefix(off: int, n: int, max_len: int, minimum: int) -> int:
+    """Largest usable seed length <= ``off`` for an ``n``-token prompt
+    on the unpaged cache: the suffix's bucket must still fit the row
+    (``off + bucket <= max_len``). Shrinking ``off`` grows the suffix
+    (and maybe its bucket), so iterate; 0 (full prefill) always fits."""
+    while off > 0:
+        lb = bucket_len(n - off, max_len, minimum)
+        if off + lb <= max_len:
+            return off
+        off = max(0, max_len - lb)
+    return 0
+
+
+@torch.no_grad()
+def _prefill_rows(model, cache, slot: int, window, offset: int,
+                  last: int | None):
+    """The unpaged prefill: the window [1, Lb] (a prompt's suffix,
+    right-padded to its bucket) through the scalar-index forward over
+    slot ``slot``'s row of the resident ``cache``, written, rotated and
+    attended from position ``offset`` (``slot_view``). The padding's
+    K/V lands past the prompt, where the slot's length hides it until
+    decode overwrites it. Returns the logits [1, V] at window index
+    ``last``, or nothing (an intermediate chunk: no LM head)."""
+    hidden = model(window, decode=True, cache=slot_view(cache, slot, offset),
+                   return_hidden=True)
+    if last is not None:
+        return model.logits(hidden[0, last:last + 1])
+    return None
+
+
 def _window_inputs(flat, lb: int):
     """A prefill's window [1, lb] and positions [1, lb], the head of its
     packed inputs ``flat``."""
@@ -221,16 +266,18 @@ def _decode_chunk(model, cache, flat, b: int, cols: int, temps, top_ks,
                   freeze: bool = True):
     """``n_steps`` decode micro-steps for every slot over the page view,
     on packed inputs ``flat`` = tokens [b] | positions [b] | remaining
-    budgets [b] | page table [b, cols]. ``freeze`` (in-dispatch EOS)
-    runs ``_frozen_steps``, empty slots (position < 0) starting frozen;
-    without it every row decodes every micro-step and draws, and the
-    host trims what follows a finish. Returns the emitted tokens [b,
-    n_steps]; the pool is updated in place."""
+    budgets [b] | page table [b, cols]; ``cols`` = 0 runs them straight
+    on the resident rows of an unpaged cache (no table in ``flat``).
+    ``freeze`` (in-dispatch EOS) runs ``_frozen_steps``, empty slots
+    (position < 0) starting frozen; without it every row decodes every
+    micro-step and draws, and the host trims what follows a finish.
+    Returns the emitted tokens [b, n_steps]; the cache is updated in
+    place."""
     tok, positions, rem = flat[:b], flat[b:2 * b], flat[2 * b:3 * b]
     table = flat[3 * b:].view(b, cols)
     max_len = model.cfg.max_seq_len
     start = positions
-    view = paged_view(cache, table, max_len)
+    view = paged_view(cache, table, max_len) if cols else cache
     if freeze:
         toks = _frozen_steps(model, view, tok, positions, rem,
                              positions < 0, n_steps, temps, top_ks,
@@ -245,7 +292,8 @@ def _decode_chunk(model, cache, flat, b: int, cols: int, temps, top_ks,
                                     positions)
             out.append(tok)
         toks = torch.stack(out, dim=1)
-    paged_write_back(cache, view, table, start, n_steps, max_len)
+    if cols:
+        paged_write_back(cache, view, table, start, n_steps, max_len)
     return toks
 
 
@@ -269,7 +317,9 @@ def _verify_chunk(model, cache, flat, b: int, window: int, cols: int,
     from its own bonus verdict, all on one page view, then one
     ``paged_write_back`` returns the whole ``window + n_steps`` span
     (positions a row did not write copy their gathered bytes back).
-    ``n_steps`` = 0 runs the window pass on the pool directly.
+    ``n_steps`` = 0 runs the window pass on the pool directly. ``cols``
+    = 0 runs all of it straight on the resident rows of an unpaged
+    cache (no table in ``flat``, no gather, no write-back).
 
     Returns ``emit [b, window] | accepted [b] | cont [b, n_steps]`` as
     one [b, window + 1 + n_steps] tensor."""
@@ -281,7 +331,10 @@ def _verify_chunk(model, cache, flat, b: int, window: int, cols: int,
     table = flat[2 * bw + 2 * b:].view(b, cols)
     max_len = model.cfg.max_seq_len
     start = positions[:, 0]
-    if n_steps > 0:
+    if not cols:
+        view = cache
+        _, logits = multi_decode_step(model, cache, toks, positions)
+    elif n_steps > 0:
         view = paged_view(cache, table, max_len)
         _, logits = multi_decode_step(model, view, toks, positions)
     else:
@@ -311,7 +364,9 @@ def _verify_chunk(model, cache, flat, b: int, window: int, cols: int,
     cont_pos = torch.where(live, start + consumed, torch.full_like(start, -1))
     cont = _frozen_steps(model, view, bonus, cont_pos, rem_c, done,
                          n_steps, temps, top_ks, generators, eos_ids)
-    paged_write_back(cache, view, table, start, window + n_steps, max_len)
+    if cols:
+        paged_write_back(cache, view, table, start, window + n_steps,
+                         max_len)
     return torch.cat([emit, accepted[:, None], cont], dim=1)
 
 
@@ -389,16 +444,21 @@ class _PrefillState:
 
 
 class Server:
-    """Slot-based continuous-batching server over a paged KV pool.
+    """Slot-based continuous-batching server over a paged KV pool or
+    fixed-shape cache rows.
 
     ``submit()`` enqueues (from any thread); ``step()`` runs one
     scheduler iteration and returns what finished; ``run()`` drives to
     completion as a generator. One thread owns stepping. ``eos_id`` is
-    an int (-1 = none) or a list of ids (stop on any). The pool holds
-    ``kv_pages`` pages of ``kv_page_size`` tokens (0 = auto: every slot
-    can hold a full-length sequence); admission reserves each request's
-    worst case, so pool pressure only delays admission. With
-    ``prefix_cache_mb`` > 0 the prefix store shares pages copy-on-write.
+    an int (-1 = none) or a list of ids (stop on any). ``paged`` (None =
+    on unless the model has a sliding window; True over a window is
+    refused) picks the cache. Paged, the pool holds ``kv_pages`` pages
+    of ``kv_page_size`` tokens (0 = auto: every slot can hold a
+    full-length sequence); admission reserves each request's worst
+    case, so pool pressure only delays admission; the prefix store
+    (``prefix_cache_mb`` > 0) shares pages copy-on-write. Unpaged, the
+    cache is ``batch_size`` resident rows of ``max_seq_len`` and the
+    store keeps copied rows (refused over a sliding window).
 
     ``speculate_k`` > 0 drafts up to k tokens a greedy slot a round by
     prompt lookup and verifies them in one window pass; greedy outputs
@@ -430,17 +490,23 @@ class Server:
         cfg = model.cfg
         later = {
             "int8-weight (quantized) models": cfg.quantized,
-            "sliding-window models": bool(cfg.sliding_window),
             "mesh (sharded serving)": mesh is not None,
             "kv_host_mb > 0 (host page tier)": kv_host_mb > 0,
             "a shared page_pool": page_pool is not None,
-            "paged=False (fixed-shape cache rows)": paged is False,
         }
         for name, on in later.items():
             if on:
                 raise NotImplementedError(
                     f"serving with {name} is not ported to PyTorch yet "
                     "(see ROADMAP.md)")
+        # the JAX package's refusals: bitwise greedy parity of these
+        # against its unpaged windowed prefill is unpinned there
+        if prefix_cache_mb > 0 and cfg.sliding_window:
+            raise NotImplementedError(
+                "prefix cache over sliding-window models is untested")
+        if paged and cfg.sliding_window:
+            raise NotImplementedError(
+                "paged KV cache over sliding-window models is untested")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, the server "
@@ -454,12 +520,23 @@ class Server:
         self.max_pending = max(1, max_pending)
         self.frozen_steps = 0   # positions spent frozen (no KV writes)
         self.freeze_faults = 0  # frozen-tail consistency violations
-        ps = int(kv_page_size) or default_page_size(cfg)
-        ps = max(1, min(ps, cfg.max_seq_len))
-        max_pages = -(-cfg.max_seq_len // ps)
-        n_pages = int(kv_pages) or batch_size * max_pages
-        self.slots = SlotCache(model, batch_size,
-                               PagePool(model, n_pages, ps))
+        self.paged = not cfg.sliding_window if paged is None \
+            else bool(paged)
+        if self.paged:
+            ps = int(kv_page_size) or default_page_size(cfg)
+            ps = max(1, min(ps, cfg.max_seq_len))
+            max_pages = -(-cfg.max_seq_len // ps)
+            n_pages = int(kv_pages) or batch_size * max_pages
+            self.slots = SlotCache(model, batch_size,
+                                   PagePool(model, n_pages, ps))
+        else:
+            self.slots = SlotCache(model, batch_size)
+        # the graph kinds of this server's calls (``counters()``):
+        # unpaged keys never meet paged ones, and unpaged prefills are
+        # eager calls of ``prefill_rows``
+        self.graph_kinds = ("decode", "prefill", "verify",
+                            "prefill_chunk") if self.paged else (
+                                "chunk_rows", "verify_rows", "prefill_rows")
         self.pending: deque[Request] = deque()
         self._pending_lock = threading.Lock()
         self._live: list[_Live | None] = [None] * batch_size
@@ -473,7 +550,7 @@ class Server:
         #                        rejected drafts, and with in-dispatch
         #                        EOS off, overshoot past a finish
         # chunks, prefills, verify rounds and prefill chunks replayed as
-        # CUDA graphs on the card
+        # CUDA graphs on the card (unpaged: chunks and verify rounds)
         self.graphs = GraphCache(self.device) \
             if self.device.type == "cuda" else None
         self.speculate_k = max(0, int(speculate_k))
@@ -484,13 +561,16 @@ class Server:
         self.prefix = PrefixStore(int(prefix_cache_mb * (1 << 20)),
                                   self.slots.pool) \
             if prefix_cache_mb > 0 else None
+        self._row_nbytes = 0 if self.paged else row_nbytes(self.slots.cache)
         self.prefix_donate = prefix_donate
         self.prefix_lookups = 0
         self.prefix_hits = 0
         self.prefix_hit_tokens = 0
         self.prefill_tokens_saved = 0
-        # the smallest useful entry is one page + its [1, V] fp32 logits
-        entry_nbytes = self.slots.pool.page_nbytes + 4 * cfg.vocab_size
+        # the smallest useful entry: one page (unpaged: one row) + its
+        # [1, V] fp32 logits
+        entry_nbytes = (self.slots.pool.page_nbytes if self.paged
+                        else self._row_nbytes) + 4 * cfg.vocab_size
         if self.prefix is not None \
                 and entry_nbytes > self.prefix.budget_bytes:
             # a store that cannot hold one entry would refuse every
@@ -520,7 +600,7 @@ class Server:
         """Enqueue a request; returns its id. Rejects prompts the cache
         cannot hold, clamps max_new_tokens to the remaining capacity,
         raises ``PoolExhausted`` for a request no pool state could
-        admit and ``QueueFull`` past ``max_pending``."""
+        admit (paged) and ``QueueFull`` past ``max_pending``."""
         p = list(request.prompt)
         max_len = self.model.cfg.max_seq_len
         if not p:
@@ -536,8 +616,9 @@ class Server:
         request.max_new_tokens = min(request.max_new_tokens,
                                      max_len - len(p))
         pool = self.slots.pool
-        worst = -(-(len(p) + request.max_new_tokens) // pool.page_size)
-        if worst > pool.n_pages:
+        worst = -(-(len(p) + request.max_new_tokens) // pool.page_size) \
+            if self.paged else 0
+        if self.paged and worst > pool.n_pages:
             raise PoolExhausted(
                 f"request needs {worst} KV pages worst-case, the pool "
                 f"holds {pool.n_pages} (raise --kv-pages or lower "
@@ -581,6 +662,99 @@ class Server:
     # --------------------------------------------------------- scheduling
 
     def _admit_one(self, req: Request, finished: list) -> bool:
+        """Admit ``req`` into a free slot (``_admit_paged`` or
+        ``_admit_rows``); False = no pages now, stay pending."""
+        if self.paged:
+            return self._admit_paged(req, finished)
+        return self._admit_rows(req, finished)
+
+    def _admit_rows(self, req: Request, finished: list) -> bool:
+        """The unpaged admission: the fault hook, prefix lookup, then an
+        exact hit's row copy into the slot (the first token sampled from
+        the stored logits), a partial hit's row copy seeding the slot
+        before a prefill of the bucketed suffix at the usable offset, a
+        full prefill, or, for a suffix longer than the prefill chunk,
+        its first chunk with the slot parked. A request whose first
+        token already ends it finishes here (its row written, the slot
+        never armed)."""
+        if self.fault_plan is not None:
+            self.fault_plan.on_admit(req.id)
+        s = self.slots
+        p = np.asarray(req.prompt, np.int64)
+        max_len = self.model.cfg.max_seq_len
+        slot = self._free_slots()[0]
+        off, entry = 0, None
+        if self.prefix is not None:
+            self.prefix_lookups += 1
+            off, entry = self.prefix.acquire(p)
+        full_bucket = bucket_len(len(p), max_len, self.min_bucket)
+        hit_tokens = saved = 0
+        chunks = 1
+        try:
+            if entry is not None and off == len(p) \
+                    and len(entry.tokens) == len(p) \
+                    and entry.logits is not None:
+                write_slot_row(s.cache, entry.row, slot)
+                last = entry.logits
+                hit_tokens, saved, chunks = len(p), full_bucket, 0
+            else:
+                if entry is not None:
+                    # seed at most len(p) - 1 tokens, so >= 1 real token
+                    # remains to prefill the first-continuation logits
+                    off = _usable_prefix(min(off, len(p) - 1), len(p),
+                                         max_len, self.min_bucket)
+                    if off <= 0:
+                        self.prefix.release(entry)
+                        entry = None
+                if entry is not None:
+                    write_slot_row(s.cache, entry.row, slot)
+                    hit_tokens = off
+                    saved = full_bucket - bucket_len(
+                        len(p) - off, max_len, self.min_bucket)
+                if self.prefill_chunk and len(p) - off > self.prefill_chunk:
+                    if hit_tokens:
+                        self._count_hit(hit_tokens, saved)
+                    st = _PrefillState(req, off, 0, hit_tokens, saved)
+                    self._prefilling[slot] = st
+                    self._prefill_chunk_rows(slot, st)
+                    return True
+                last = self._prefill_row(slot, p, off)
+        finally:
+            if entry is not None:
+                self.prefix.release(entry)
+        if hit_tokens:
+            self._count_hit(hit_tokens, saved)
+        self._arm(slot, req, last, hit_tokens, saved, chunks, finished)
+        return True
+
+    def _prefill_row(self, slot: int, p: np.ndarray, off: int):
+        """Prefill ``p[off:]`` (right-padded to its bucket) into the
+        slot's row at positions from ``off``, and store the prompt's row
+        and logits in the prefix store; returns the last position's
+        logits [1, V]."""
+        suffix = p[off:]
+        lb = bucket_len(len(suffix), self.model.cfg.max_seq_len,
+                        self.min_bucket)
+        window = np.zeros(lb, np.int64)
+        window[:len(suffix)] = suffix
+        last = self._run_prefill_rows(slot, window, off, len(suffix) - 1)
+        self.prefills += 1
+        if self.prefix is not None:
+            self.prefix.insert(p, read_slot_row(self.slots.cache, slot),
+                               logits=last)
+        return last
+
+    def _run_prefill_rows(self, slot: int, window: np.ndarray, off: int,
+                          last: int | None):
+        """One unpaged prefill dispatch (``_prefill_rows``), eager and
+        counted as a ``prefill_rows`` call on the card."""
+        fn = functools.partial(_prefill_rows, self.model, self.slots.cache,
+                               slot, self._tensor(window)[None], off, last)
+        if self.graphs is None:
+            return fn()
+        return self.graphs.eager("prefill_rows", fn)
+
+    def _admit_paged(self, req: Request, finished: list) -> bool:
         """Admit ``req`` into a free slot: prefix lookup, worst-case page
         reservation (squeezing LRU store entries when tight; False =
         stay pending), the fault hook, page aliasing with a
@@ -700,7 +874,8 @@ class Server:
             _prefill_last, self.model, s.cache, lb=lb, cols=cols)).clone()
         self.prefills += 1
         if self.prefix is not None:
-            self.prefix.insert(p, s.slot_pages(slot, len(p)), logits=last)
+            self.prefix.insert(p, pages=s.slot_pages(slot, len(p)),
+                               logits=last)
         return last
 
     def _arm(self, slot: int, req: Request, last, hit_tokens: int,
@@ -717,7 +892,8 @@ class Server:
             reason = "eos" if tok in self.eos_ids else "length"
             finished.append(Result(req.id, list(req.prompt), [tok], reason,
                                    hit_tokens, saved, prefill_chunks=chunks))
-            s.release_pages(slot)
+            if self.paged:
+                s.release_pages(slot)
             return
         s.admit(slot, len(req.prompt), tok, req.temperature, req.top_k,
                 gen)
@@ -734,7 +910,10 @@ class Server:
         for slot in sorted(self._prefilling):
             st = self._prefilling[slot]
             if len(st.request.prompt) - st.done > self.prefill_chunk:
-                self._prefill_chunk_paged(slot, st)
+                if self.paged:
+                    self._prefill_chunk_paged(slot, st)
+                else:
+                    self._prefill_chunk_rows(slot, st)
                 continue
             del self._prefilling[slot]
             self._finalize_prefill(slot, st, finished)
@@ -759,13 +938,33 @@ class Server:
         st.done += take
         st.chunks += 1
 
+    def _prefill_chunk_rows(self, slot: int, st: _PrefillState) -> None:
+        """The unpaged intermediate chunk: ``prefill_chunk`` prompt
+        tokens at positions from ``st.done`` into the slot's row, with
+        no LM head."""
+        take = self.prefill_chunk
+        window = np.asarray(st.request.prompt[st.done:st.done + take],
+                            np.int64)
+        self._run_prefill_rows(slot, window, st.done, None)
+        self.prefills += 1
+        self.prefill_chunk_dispatches += 1
+        st.done += take
+        st.chunks += 1
+
     def _finalize_prefill(self, slot: int, st: _PrefillState,
                           finished: list) -> None:
         """The final chunk: the suffix prefill at offset ``st.done``,
         position-exact with the chunks before it, then the first-token
-        sample."""
-        last = self._prefill_suffix(
-            slot, np.asarray(st.request.prompt, np.int64), st.done)
+        sample. Unpaged, the offset first shrinks until the suffix's
+        bucket fits the row (``_usable_prefix``): the re-prefilled
+        tokens write the same values at the same positions."""
+        p = np.asarray(st.request.prompt, np.int64)
+        if self.paged:
+            last = self._prefill_suffix(slot, p, st.done)
+        else:
+            last = self._prefill_row(slot, p, _usable_prefix(
+                st.done, len(p), self.model.cfg.max_seq_len,
+                self.min_bucket))
         self.prefill_chunk_dispatches += 1
         st.chunks += 1
         self.prefill_chunked += 1
@@ -797,16 +996,17 @@ class Server:
 
     def _run_chunk(self, flat: np.ndarray, k: int, cols: int) -> np.ndarray:
         """One decode chunk of ``k`` micro-steps over the first ``cols``
-        page columns, on packed inputs (``_decode_chunk``); returns the
-        tokens [b, k] on the host."""
+        page columns (0: the resident rows), on packed inputs
+        (``_decode_chunk``); returns the tokens [b, k] on the host."""
         s = self.slots
         fn = functools.partial(
             _decode_chunk, self.model, s.cache, b=s.batch_size, cols=cols,
             temps=s.temperature.copy(), top_ks=s.top_k.copy(),
             generators=list(s.generators), n_steps=k, eos_ids=self.eos_ids,
             freeze=self.in_dispatch_eos)
-        return self._sampled_or_graph("decode", (k, cols), flat,
-                                      fn).cpu().numpy()
+        kind, shape = ("decode", (k, cols)) if self.paged \
+            else ("chunk_rows", (k,))
+        return self._sampled_or_graph(kind, shape, flat, fn).cpu().numpy()
 
     def _run_verify(self, flat: np.ndarray, window: int, n_steps: int,
                     cols: int) -> np.ndarray:
@@ -818,8 +1018,9 @@ class Server:
             window=window, cols=cols, temps=s.temperature.copy(),
             top_ks=s.top_k.copy(), generators=list(s.generators),
             n_steps=n_steps, eos_ids=self.eos_ids)
-        return self._sampled_or_graph("verify", (window, n_steps, cols),
-                                      flat, fn).cpu().numpy()
+        kind, shape = ("verify", (window, n_steps, cols)) if self.paged \
+            else ("verify_rows", (window, n_steps))
+        return self._sampled_or_graph(kind, shape, flat, fn).cpu().numpy()
 
     def _chunk_size(self) -> int:
         """Micro-steps for this round: enough for the longest-remaining
@@ -871,9 +1072,14 @@ class Server:
         columns). The page table is fixed across the chunk, so every
         live slot is first grown to cover the positions the chunk writes
         (capped at its budget), and the table is column-sliced to a
-        power-of-two bucket of the live extent."""
+        power-of-two bucket of the live extent. Unpaged: ``cols`` = 0
+        and no table."""
         s = self.slots
         k = self._chunk_size()
+        if not self.paged:
+            flat = np.concatenate([s.last_token, s.positions(),
+                                   self._remaining()])
+            return k, 0, flat.astype(np.int64)
         hi = 0
         for slot, live in enumerate(self._live):
             if live is not None:
@@ -1012,12 +1218,13 @@ class Server:
         return out
 
     def _prepare_verify(self, drafts: list) -> tuple:
-        """The verify round's window, continuation steps, page columns,
-        packed inputs (``_verify_chunk``) and draft lengths. Every live
-        slot rides: drafting slots lay out ``[last_token, draft..]`` at
-        their own positions, the others ``[last_token]``. Each live slot
-        is first grown to cover what the round writes: its window and,
-        fused, the continuation (capped at its reservation)."""
+        """The verify round's window, continuation steps, page columns
+        (0 unpaged), packed inputs (``_verify_chunk``) and draft lengths.
+        Every live slot rides: drafting slots lay out ``[last_token,
+        draft..]`` at their own positions, the others ``[last_token]``.
+        Paged, each live slot is first grown to cover what the round
+        writes: its window and, fused, the continuation (capped at its
+        reservation)."""
         s = self.slots
         b = s.batch_size
         k_cont = self._chunk_size() if self.in_dispatch_eos else 0
@@ -1038,13 +1245,19 @@ class Server:
                 positions[slot, 1:1 + d.size] = \
                     s.lengths[slot] + 1 + np.arange(d.size)
                 draft_len[slot] = d.size
-            upto = int(s.lengths[slot]) + int(draft_len[slot]) + 1 + k_cont
-            s.ensure_pages(slot, upto)
-            hi = max(hi, upto)
-        cols = min(_bucket_pow2(-(-hi // s.pool.page_size)), s.max_pages)
-        flat = np.concatenate([toks.ravel(), positions.ravel(), draft_len,
-                               self._remaining(),
-                               s.page_table[:, :cols].ravel()])
+            if self.paged:
+                upto = int(s.lengths[slot]) + int(draft_len[slot]) + 1 \
+                    + k_cont
+                s.ensure_pages(slot, upto)
+                hi = max(hi, upto)
+        parts = [toks.ravel(), positions.ravel(), draft_len,
+                 self._remaining()]
+        cols = 0
+        if self.paged:
+            cols = min(_bucket_pow2(-(-hi // s.pool.page_size)),
+                       s.max_pages)
+            parts.append(s.page_table[:, :cols].ravel())
+        flat = np.concatenate(parts)
         return window, k_cont, cols, flat.astype(np.int64), draft_len
 
     def _verify_round(self, drafts: list) -> list[Result]:
@@ -1106,15 +1319,20 @@ class Server:
         return finished
 
     def _donate(self, live: _Live, slot: int) -> None:
-        """Give a finished slot's sequence back to the prefix store by
-        REFERENCE (a refcount on the slot's pages): its pages are
-        position-exact over prompt + generated[:-1] (the final token was
-        sampled but never fed)."""
+        """Give a finished slot's sequence back to the prefix store: its
+        row or pages are position-exact over prompt + generated[:-1]
+        (the final token was sampled but never fed). Paged, by
+        REFERENCE (a refcount on the slot's pages); unpaged, a copy of
+        the row, read only when ``wants()`` says the store takes it."""
         seq = np.asarray(list(live.request.prompt) + live.generated[:-1],
                          np.int64)
-        if seq.size:
-            self.prefix.insert(seq, self.slots.slot_pages(slot,
-                                                          int(seq.size)))
+        if not seq.size:
+            return
+        if self.paged:
+            self.prefix.insert(seq, pages=self.slots.slot_pages(
+                slot, int(seq.size)))
+        elif self.prefix.wants(seq, self._row_nbytes):
+            self.prefix.insert(seq, read_slot_row(self.slots.cache, slot))
 
     def drain(self) -> list[Result]:
         """Finish every in-flight request, parked prefills included (no
@@ -1129,12 +1347,13 @@ class Server:
     def counters(self) -> dict:
         """Engine counters: dispatch/step totals, waste and frozen-step
         accounting, speculation and chunked-prefill totals, prefix-store
-        and page-pool state; on the card also the graphs:
-        ``graph_{decode|prefill|verify|prefill_chunk}_{captures|replays|
-        eager}`` (a capture is the first call at its key) and
-        ``graph_capture_s``. ``spec_window_steps`` is the verify windows'
-        share of ``decode_steps``: the rest are single-token micro-steps,
-        each one flash-decode launch a layer."""
+        state, and the page pool's (paged) or the resident rows' bytes
+        (unpaged: always ``batch x max_seq_len``); on the card also
+        ``graph_{kind}_{captures|replays|eager}`` for each of
+        ``graph_kinds`` (a capture is the first call at its key) and
+        ``graph_capture_s``. ``spec_window_steps`` is the verify
+        windows' share of ``decode_steps``: the rest are single-token
+        micro-steps, each one flash-decode launch a layer."""
         out = {
             "prefills": self.prefills,
             "decode_steps": self.steps,
@@ -1160,10 +1379,15 @@ class Server:
             out["prefix_budget_bytes"] = st["budget_bytes"]
             out["prefix_evictions"] = st["evictions"]
         if self.graphs is not None:
-            for name, n in self.graphs.counters(
-                    ("decode", "prefill", "verify",
-                     "prefill_chunk")).items():
+            for name, n in self.graphs.counters(self.graph_kinds).items():
                 out["graph_" + name] = n
+        if not self.paged:
+            out["kv_bytes_resident"] = sum(
+                leaf.numel() * leaf.element_size()
+                for key, layer in self.slots.cache.items()
+                if key.startswith("block_") for leaf in layer.values()
+                if isinstance(leaf, torch.Tensor))
+            return out
         ps = self.slots.pool.stats()
         out["kv_pages_total"] = ps["total"]
         out["kv_pages_used"] = ps["used"]
@@ -1178,8 +1402,9 @@ class Server:
     def reset(self) -> None:
         """Hard reset, the recovery after a failed ``step()``: drop
         pending, in-flight and mid-prefill requests (no Result for
-        them) and free every slot's pages and reservation. The prefix
-        store and the graphs stay."""
+        them) and free every slot (paged: its pages and reservation;
+        unpaged: host state only, the next admit overwrites the row).
+        The prefix store and the graphs stay."""
         with self._pending_lock:
             self.pending.clear()
         self._live = [None] * self.slots.batch_size

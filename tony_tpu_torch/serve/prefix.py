@@ -1,12 +1,15 @@
-"""PrefixStore: radix-keyed page references for automatic prefix reuse.
+"""PrefixStore: radix-keyed KV-cache rows or page references for
+automatic prefix reuse.
 
-The counterpart of the paged half of ``tony_tpu/serve/prefix.py`` (the
-RadixAttention idea): previously prefilled sequences are kept as
-refcounted references to their pool pages, keyed by their TOKEN
+The counterpart of ``tony_tpu/serve/prefix.py`` (the RadixAttention
+idea): previously prefilled sequences are kept keyed by their TOKEN
 SEQUENCE in a radix tree. On admit the engine looks up the longest
-stored prefix of the prompt: an exact-prompt hit aliases the pages and
-samples the first token from the stored last-position logits, a partial
-hit aliases the matched pages and prefills only the suffix.
+stored prefix of the prompt: an exact-prompt hit samples the first
+token from the stored last-position logits, a partial hit prefills only
+the suffix. Unpaged stores keep a copied batch-1 cache ROW an entry
+(``insert(tokens, row=..., logits=...)``), which a hit copies into the
+slot; paged stores (``PrefixStore(budget, pool)``) keep refcounted
+references to pool pages, which a hit aliases.
 
 A cache position's K/V depends only on tokens at or before it, so an
 entry stored for sequence S is position-exact over ``[0, k)`` for any
@@ -15,8 +18,9 @@ overwritten before it is ever visible.
 
 Bookkeeping: entries are refcounted (``acquire`` pins until
 ``release``; eviction never touches a pinned entry), and a byte budget
-counts each UNIQUE page once. The owning scheduler thread drives the
-store; the lock keeps cross-thread stat reads consistent.
+counts a row entry's bytes, or each UNIQUE page once. The owning
+scheduler thread drives the store; the lock keeps cross-thread stat
+reads consistent.
 """
 
 from __future__ import annotations
@@ -30,9 +34,13 @@ import torch
 
 
 def tree_nbytes(tree: Any) -> int:
-    """Bytes of a tensor, or of the tensors in a (nested) dict/list."""
+    """Bytes of a tensor, or of the tensors in a (nested) dict/list; a
+    host int (a cache row's shared counter) counts as the int32 scalar
+    the JAX package's row carries."""
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
+    if isinstance(tree, int):
+        return 4
     if isinstance(tree, dict):
         return sum(tree_nbytes(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
@@ -41,16 +49,19 @@ def tree_nbytes(tree: Any) -> int:
 
 
 class _Entry:
-    """One stored sequence: the pool ``pages`` covering ``tokens``, and
+    """One stored sequence: a batch-1 cache ``row`` covering ``tokens``
+    (unpaged) or the pool ``pages`` covering them (paged), and
     optionally the last-position ``logits`` (prefill-donated entries
     have them; the exact-hit path needs them)."""
 
-    __slots__ = ("tokens", "logits", "pages", "nbytes", "node",
+    __slots__ = ("tokens", "row", "logits", "pages", "nbytes", "node",
                  "refcount", "tick")
 
-    def __init__(self, tokens: np.ndarray, logits: Any, nbytes: int,
-                 node: "_Node", tick: int, pages: list):
+    def __init__(self, tokens: np.ndarray, row: Any, logits: Any,
+                 nbytes: int, node: "_Node", tick: int,
+                 pages: list | None = None):
         self.tokens = tokens
+        self.row = row
         self.logits = logits
         self.pages = pages
         self.nbytes = nbytes
@@ -79,11 +90,12 @@ def _common_len(a: np.ndarray, b: np.ndarray) -> int:
 
 
 class PrefixStore:
-    """Radix store of page references under a byte budget over ``pool``
-    (a ``serve.slots.PagePool``): an insert pins the sequence's pages
-    (``pool.share``, no device work), an eviction unpins them."""
+    """Radix store of cache rows, or with ``pool`` (a
+    ``serve.slots.PagePool``) of page references, under a byte budget:
+    a paged insert pins the sequence's pages (``pool.share``, no device
+    work), an eviction unpins them."""
 
-    def __init__(self, budget_bytes: int, pool):
+    def __init__(self, budget_bytes: int, pool=None):
         self.budget_bytes = max(0, int(budget_bytes))
         self.bytes_used = 0
         self.pool = pool
@@ -153,47 +165,94 @@ class PrefixStore:
             node = child
             consumed += len(child.edge)
 
-    def insert(self, tokens, pages: list, logits: Any = None) -> bool:
-        """Pin ``pages`` (the pool pages covering ``tokens``) with
-        optional last-position ``logits``. False when refused (budget);
-        re-inserting a stored sequence refreshes its LRU position. The
-        charge depends on which pages are already pinned (shared pages
-        are free) and an eviction can un-share a page, so it is
-        recomputed after every eviction."""
+    def wants(self, tokens, nbytes: int) -> bool:
+        """Cheap pre-check before a donor reads a row out of its slot:
+        False when the sequence is already stored or when ``nbytes``
+        cannot fit even after evicting every unpinned entry."""
+        key = np.asarray(tokens, np.int32).tobytes()
+        with self._lock:
+            if key in self._entries:
+                return False
+            pinned = sum(e.nbytes for e in self._entries.values()
+                         if e.refcount > 0)
+            return nbytes + pinned <= self.budget_bytes
+
+    def insert(self, tokens, row: Any = None, logits: Any = None,
+               pages: list | None = None) -> bool:
+        """Store ``row`` (a batch-1 cache dict covering ``tokens``) with
+        optional last-position ``logits``; a paged store takes ``pages``
+        (the pool pages covering ``tokens``) instead of ``row``. False
+        when refused (budget); re-inserting a stored sequence refreshes
+        its LRU position."""
         tokens = np.asarray(tokens, np.int32)
         if tokens.size == 0 or self.budget_bytes <= 0:
             return False
+        if (pages is not None) != (self.pool is not None):
+            raise ValueError("pages= requires a pool-backed store "
+                             "(and vice versa)")
         key = tokens.tobytes()
-        pages = list(pages)
         with self._lock:
             existing = self._entries.get(key)
             if existing is not None:
                 existing.tick = next(self._ticks)
                 return True
-            logits_b = tree_nbytes(logits) if logits is not None else 0
-            while True:
-                fresh = sum(1 for p in set(pages)
-                            if self._page_refs.get(p, 0) == 0)
-                nbytes = fresh * self.pool.page_nbytes + logits_b
-                if self.bytes_used + nbytes <= self.budget_bytes:
-                    break
-                victim = self._lru_victim()
-                if victim is None or nbytes > self.budget_bytes:
-                    self.rejected += 1
-                    return False
-                self._evict(victim)
-            node = self._insert_node(tokens)
-            entry = _Entry(tokens, logits, nbytes, node,
-                           next(self._ticks), pages)
-            node.entry = entry
-            self._entries[key] = entry
-            self.pool.share(pages)
-            for p in pages:
-                self._page_refs[p] = self._page_refs.get(p, 0) + 1
-            self.bytes_used += nbytes
-            self.tokens_stored += int(tokens.size)
-            self.inserts += 1
+            if pages is not None:
+                return self._insert_pages(tokens, key, list(pages), logits)
+            nbytes = tree_nbytes(row)
+            if logits is not None:
+                nbytes += tree_nbytes(logits)
+            if not self._make_room(nbytes):
+                self.rejected += 1
+                return False
+            self._add(tokens, key, _Entry(tokens, row, logits, nbytes, None,
+                                          next(self._ticks)))
             return True
+
+    def _insert_pages(self, tokens: np.ndarray, key: bytes, pages: list,
+                      logits: Any) -> bool:
+        """Paged insert under ``self._lock``. The charge depends on which
+        pages are already pinned (shared pages are free) and an eviction
+        can un-share a page, so it is recomputed after every eviction."""
+        logits_b = tree_nbytes(logits) if logits is not None else 0
+        while True:
+            fresh = sum(1 for p in set(pages)
+                        if self._page_refs.get(p, 0) == 0)
+            nbytes = fresh * self.pool.page_nbytes + logits_b
+            if self.bytes_used + nbytes <= self.budget_bytes:
+                break
+            victim = self._lru_victim()
+            if victim is None or nbytes > self.budget_bytes:
+                self.rejected += 1
+                return False
+            self._evict(victim)
+        self._add(tokens, key, _Entry(tokens, None, logits, nbytes, None,
+                                      next(self._ticks), pages))
+        self.pool.share(pages)
+        for p in pages:
+            self._page_refs[p] = self._page_refs.get(p, 0) + 1
+        return True
+
+    def _add(self, tokens: np.ndarray, key: bytes, entry: _Entry) -> None:
+        node = self._insert_node(tokens)
+        entry.node = node
+        node.entry = entry
+        self._entries[key] = entry
+        self.bytes_used += entry.nbytes
+        self.tokens_stored += int(tokens.size)
+        self.inserts += 1
+
+    def _make_room(self, nbytes: int) -> bool:
+        """Evict LRU unpinned entries until ``nbytes`` more fit; False
+        when it cannot (everything left pinned, or ``nbytes`` over the
+        whole budget)."""
+        if nbytes > self.budget_bytes:
+            return False
+        while self.bytes_used + nbytes > self.budget_bytes:
+            victim = self._lru_victim()
+            if victim is None:
+                return False
+            self._evict(victim)
+        return True
 
     def evict_one(self) -> bool:
         """Evict the least-recently-used unpinned entry (the engine's
@@ -235,17 +294,20 @@ class PrefixStore:
 
     def _evict(self, entry: _Entry) -> None:
         del self._entries[entry.tokens.tobytes()]
-        # only pages no OTHER entry still holds stop being charged
-        released = 0
-        for p in entry.pages:
-            self._page_refs[p] -= 1
-            if self._page_refs[p] == 0:
-                del self._page_refs[p]
-                released += self.pool.page_nbytes
-        self.pool.unref(entry.pages)
-        if entry.logits is not None:
-            released += tree_nbytes(entry.logits)
-        self.bytes_used -= released
+        if entry.pages is not None:
+            # only pages no OTHER entry still holds stop being charged
+            released = 0
+            for p in entry.pages:
+                self._page_refs[p] -= 1
+                if self._page_refs[p] == 0:
+                    del self._page_refs[p]
+                    released += self.pool.page_nbytes
+            self.pool.unref(entry.pages)
+            if entry.logits is not None:
+                released += tree_nbytes(entry.logits)
+            self.bytes_used -= released
+        else:
+            self.bytes_used -= entry.nbytes
         self.tokens_stored -= int(entry.tokens.size)
         self.evictions += 1
         node = entry.node

@@ -1,8 +1,15 @@
-"""Paged KV cache: page pools, the host-side page allocator and the
-per-slot decode state. The counterpart of the paged half of
-``tony_tpu/serve/slots.py``.
+"""KV cache slots: the fixed-shape resident rows, page pools, the
+host-side page allocator and the per-slot decode state. The counterpart
+of ``tony_tpu/serve/slots.py``.
 
-Device side: one cache dict (``models.generate.init_cache``) whose K/V
+Unpaged, the device side is one cache dict (``models.generate.
+init_cache`` at ``batch_size``) whose K/V leaves ``[batch, max_len,
+kvh, dh]`` (int8 scales ``[batch, max_len, kvh]``) are the slots' rows,
+written in place; a batch-1 row moves in and out of a slot with
+``write_slot_row`` / ``read_slot_row``, and ``slot_view`` hands a
+slot's row to the scalar-index forward as a batch-1 cache of views.
+
+Paged, the device side is one cache dict (``models.generate.init_cache``) whose K/V
 leaves are page POOLS ``[n_pages + 1, page_size, kvh, dh]`` (int8
 scales ``[n_pages + 1, page_size, kvh]``), written in place. Host side:
 numpy page tables, a free list, refcounts and a reservation ledger. A
@@ -29,6 +36,68 @@ _POOL_LEAVES = ("cached_key", "cached_value", "cached_key_scale",
 
 def _layers(cache: dict):
     return [v for k, v in cache.items() if k.startswith("block_")]
+
+
+def write_slot_row(cache: dict, row: dict, slot: int) -> None:
+    """Copy the batch-1 cache ``row`` into slot ``slot`` of ``cache``, in
+    place: every K/V leaf (and int8 scale) of the row lands in the
+    slot's row of the resident leaf. The shared counters are not
+    copied: per-slot decode neither reads nor advances them."""
+    for key, layer in cache.items():
+        if key.startswith("block_"):
+            for name in _POOL_LEAVES:
+                leaf = layer.get(name)
+                if leaf is not None:
+                    leaf[slot].copy_(row[key][name][0])
+
+
+def read_slot_row(cache: dict, slot: int) -> dict:
+    """Slot ``slot`` of ``cache`` as a batch-1 row of copies: the
+    inverse of ``write_slot_row``. The counters pass through (a consumer
+    seeding a prefill from the row sets them anyway)."""
+    out: dict = {}
+    for key, layer in cache.items():
+        if not key.startswith("block_"):
+            out[key] = layer
+            continue
+        out[key] = {name: (leaf[slot:slot + 1].clone()
+                           if name in _POOL_LEAVES else leaf)
+                    for name, leaf in layer.items()}
+    return out
+
+
+def slot_view(cache: dict, slot: int, offset: int) -> dict:
+    """Slot ``slot``'s row of ``cache`` as a batch-1 cache of VIEWS with
+    every shared counter (``cache_index``, ``pos_index``) at ``offset``:
+    the scalar-index forward over it writes the next tokens into the
+    slot's row at ``offset``, rotates them there and lets them see every
+    position before them (the JAX package's ``_seed_offset`` over a row
+    that ``write_slot_row`` then places)."""
+    out: dict = {}
+    for key, layer in cache.items():
+        if not key.startswith("block_"):
+            out[key] = offset  # pos_index
+            continue
+        out[key] = {name: (leaf[slot:slot + 1] if name in _POOL_LEAVES
+                           else offset)
+                    for name, leaf in layer.items()}
+    return out
+
+
+def row_nbytes(cache: dict) -> int:
+    """Bytes one slot's row costs in the prefix store: each K/V leaf's
+    share of one slot, and 4 bytes for each shared counter (the int32
+    scalar the JAX package's row carries), as ``read_slot_row`` of this
+    cache would occupy."""
+    total = 0
+    for key, layer in cache.items():
+        if not key.startswith("block_"):
+            total += 4
+            continue
+        for name, leaf in layer.items():
+            total += (leaf.numel() * leaf.element_size() // leaf.shape[0]
+                      if name in _POOL_LEAVES else 4)
+    return total
 
 
 def paged_cache(model, n_pages: int, page_size: int) -> dict:
@@ -257,25 +326,33 @@ class PagePool:
 
 
 class SlotCache:
-    """``batch_size`` paged cache slots + per-slot decode state.
+    """``batch_size`` cache slots + per-slot decode state.
 
-    ``self.cache`` is the pool's page dict (ownership taken from the
-    pool). Each slot owns a page table row ``[max_pages]`` (unallocated
-    tail = the ``pool.n_pages`` sentinel), a count of allocated pages
-    and the rest of its admission-time reservation. Host arrays are
-    numpy; a sampled slot draws from its own ``torch.Generator``."""
+    With no ``pool`` the slots are the rows of one resident cache
+    (``init_cache(model, batch_size)``): admission writes a slot's row
+    in place and eviction is host bookkeeping only (an inactive slot's
+    position is -1, so nothing reads its stale row, and the next admit
+    overwrites it). With a ``pool``, ``self.cache`` is the pool's page
+    dict (ownership taken from the pool); each slot owns a page table
+    row ``[max_pages]`` (unallocated tail = the ``pool.n_pages``
+    sentinel), a count of allocated pages and the rest of its
+    admission-time reservation. Host arrays are numpy; a sampled slot
+    draws from its own ``torch.Generator``."""
 
-    def __init__(self, model, batch_size: int, pool: PagePool):
+    def __init__(self, model, batch_size: int, pool: PagePool | None = None):
         self.batch_size = batch_size
         self.max_seq_len = model.cfg.max_seq_len
         self.pool = pool
-        self.cache = pool.cache
-        pool.cache = None
-        self.max_pages = -(-self.max_seq_len // pool.page_size)
-        self.page_table = np.full((batch_size, self.max_pages),
-                                  pool.n_pages, np.int32)
-        self.n_slot_pages = np.zeros(batch_size, np.int32)
-        self.reserve_left = np.zeros(batch_size, np.int32)
+        if pool is None:
+            self.cache = init_cache(model, batch_size)
+        else:
+            self.cache = pool.cache
+            pool.cache = None
+            self.max_pages = -(-self.max_seq_len // pool.page_size)
+            self.page_table = np.full((batch_size, self.max_pages),
+                                      pool.n_pages, np.int32)
+            self.n_slot_pages = np.zeros(batch_size, np.int32)
+            self.reserve_left = np.zeros(batch_size, np.int32)
         self.lengths = np.zeros(batch_size, np.int32)
         self.active = np.zeros(batch_size, bool)
         self.last_token = np.zeros(batch_size, np.int64)
@@ -298,9 +375,9 @@ class SlotCache:
     def admit(self, slot: int, length: int, last_token: int,
               temperature: float, top_k: int,
               generator: torch.Generator | None) -> None:
-        """Arm ``slot``: ``length`` = prompt length already in its pages,
-        ``last_token`` = the first sampled continuation (fed next at
-        position ``length``)."""
+        """Arm ``slot``: ``length`` = prompt length already in its row or
+        pages, ``last_token`` = the first sampled continuation (fed next
+        at position ``length``)."""
         if self.active[slot]:
             raise ValueError(f"slot {slot} is occupied")
         if not 0 < length <= self.max_seq_len:
@@ -313,16 +390,17 @@ class SlotCache:
         self.active[slot] = True
 
     def evict(self, slot: int) -> None:
-        """Free a slot: its page references drop (pages a prefix-store
-        entry also holds stay resident) and its unspent reservation
-        returns."""
+        """Free a slot: paged, its page references drop (pages a
+        prefix-store entry also holds stay resident) and its unspent
+        reservation returns; unpaged, its row stays as it is."""
         self.active[slot] = False
         self.lengths[slot] = 0
         self.last_token[slot] = 0
         self.temperature[slot] = 0.0
         self.top_k[slot] = 0
         self.generators[slot] = None
-        self.release_pages(slot)
+        if self.pool is not None:
+            self.release_pages(slot)
 
     def release_pages(self, slot: int) -> None:
         """Drop the slot's page references + unspent reservation."""
