@@ -150,6 +150,26 @@ exits non-zero.
       (unpaged and no prefix store, with their notes); over phase 5's
       checkpoint ``--no-paged-kv`` equal to paged in fp32, one-shot
       ``--num-beams 4`` and ``--repetition-penalty 1.3``.
+15. The gateway (``tony_tpu_torch.gateway``), in process:
+   a. two replicas of phase 4's serving configuration (the same seeded
+      bf16 weights, shared) behind ``GatewayEdge`` on ``127.0.0.1:0``,
+      started cold, so that both replicas capture their first graphs in
+      the same run; phase 4's 24 requests sent at once by 24 HTTP
+      clients, every second one streamed as NDJSON: every response 200,
+      each stream equal to phase 4's or parting at a near tie,
+      flash-decode launched n_layers times a micro-step of both
+      replicas, replays included; ``/stats`` with each replica's goodput
+      ledger (every kind's HBM-BW% within 0-100) and ``/metrics`` with
+      ``tony_goodput_fraction``; tok/s and TTFT (the gateway's per-request
+      metric, submit to first token) beside phase 4's, seconds capturing
+      and each replica's capture window, the goodput buckets; then the
+      same traffic twice warm, unprofiled (wall, tok/s) and under
+      torch.profiler (the device's busy time): the host share;
+   b. ``python -m tony_tpu_torch.cli.gateway --model <phase 5's
+      checkpoint> --replicas 2 --port 0 --dtype fp32`` as a subprocess:
+      phase 5's requests over HTTP, each stream equal to one fp32
+      ``Server``'s on the same checkpoint, then SIGTERM: a drain and
+      exit 0.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
@@ -167,6 +187,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -3429,6 +3450,242 @@ def phase_unpaged_cli(ctx) -> None:
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
+# ------------------------------------------------------- the gateway (15)
+
+
+def http_generate(url: str, prompt: list, budget: int, stream: bool,
+                  rid) -> dict:
+    """One ``POST /v1/generate``; its status must be 200. Returns the
+    last line's document; a stream's deltas must spell its tokens."""
+    import urllib.request
+
+    body = json.dumps({"id": rid, "token_ids": list(prompt),
+                       "max_new_tokens": budget, "stream": stream})
+    req = urllib.request.Request(url + "/v1/generate", data=body.encode())
+    with urllib.request.urlopen(req, timeout=600) as r:
+        check(r.status == 200, f"request {rid}: status {r.status}")
+        lines = [json.loads(ln) for ln in r.read().decode().splitlines()
+                 if ln.strip()]
+    last = lines[-1]
+    if stream:
+        deltas = [t for ln in lines[:-1] for t in ln["token_ids"]]
+        check(deltas == last["token_ids"][len(prompt):],
+              f"request {rid}: the streamed deltas differ from the final "
+              "tokens")
+    return last
+
+
+def http_json(url: str, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url + path, timeout=60) as r:
+        check(r.status == 200, f"GET {path}: status {r.status}")
+        body = r.read().decode()
+    return body if path == "/metrics" else json.loads(body)
+
+
+class Streamed:
+    """A gateway response as ``near_ties`` reads a Result."""
+
+    def __init__(self, doc, prompt):
+        self.tokens = doc["token_ids"][len(prompt):]
+        self.finish_reason = doc["finish_reason"]
+
+
+def gateway_pass(url: str, specs: list, tag: str) -> tuple:
+    """``specs`` sent at once by one HTTP client each, every second
+    streamed; returns (final documents by request index, wall seconds
+    from the synchronised start to the last response)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sync()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(specs)) as ex:
+        futs = [ex.submit(http_generate, url, p, n, i % 2 == 1,
+                          f"{tag}{i}") for i, (p, n) in enumerate(specs)]
+        docs = [f.result() for f in futs]
+    sync()
+    return docs, time.perf_counter() - t0
+
+
+def phase_gateway(ctx) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import tony_tpu_torch.models.graphs as graphs_mod
+    from tony_tpu_torch.gateway import Gateway, GatewayEdge
+    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.ops.decode import flash_decode
+
+    cfg = qwen_config(dtype=torch.bfloat16)
+    model = Transformer(cfg, device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    servers = [serve_server(model) for _ in range(2)]
+    # each replica's capture windows, to show the cold starts overlap
+    spans = {id(s.graphs.backend): [] for s in servers}
+    real_capture = graphs_mod.CudaGraphs.capture
+
+    def capture(self, fn, statics):
+        t0 = time.perf_counter()
+        try:
+            return real_capture(self, fn, statics)
+        finally:
+            spans[id(self)].append((t0, time.perf_counter()))
+
+    graphs_mod.CudaGraphs.capture = capture
+    gw = Gateway(servers, max_queue=64).start()
+    edge = GatewayEdge(gw, host="127.0.0.1", port=0).start()
+    url = f"http://127.0.0.1:{edge.port}"
+    specs = ctx["serve4"]["specs"]
+    try:
+        flash_decode.launches = 0
+        t_start = time.perf_counter()
+        docs, wall = gateway_pass(url, specs, "g")
+        t_cold = time.perf_counter()
+        launches = flash_decode.launches
+        stats = http_json(url, "/stats")
+        metrics = http_json(url, "/metrics")
+        cs = [s.counters() for s in servers]
+        warm_docs, warm_wall = gateway_pass(url, specs, "w")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            gateway_pass(url, specs, "p")
+    finally:
+        graphs_mod.CudaGraphs.capture = real_capture
+        ok = gw.drain(timeout=600)
+        edge.stop()
+    check(ok, "15a: the gateway's drain timed out")
+    got = {i: Streamed(d, specs[i][0]) for i, d in enumerate(docs)}
+    want = ctx["serve4"]["results"]
+    ties = near_ties(model, specs, got, want, "15a")
+    warm = {i: Streamed(d, specs[i][0]) for i, d in enumerate(warm_docs)}
+    warm_ties = near_ties(model, specs, warm, want, "15a warm pass")
+    warm_gen = sum(len(g.tokens) for g in warm.values())
+    micro = sum(c["decode_steps"] - c["spec_window_steps"] for c in cs)
+    check(launches == cfg.n_layers * micro > 0,
+          f"15a: flash_decode launched {launches} times, expected "
+          f"{cfg.n_layers} x {micro} micro-steps of both replicas")
+    ctx["launches"] += launches
+    for i, c in enumerate(cs):
+        check(c["kv_pages_reserved"] == 0 and c["freeze_faults"] == 0,
+              f"15a replica {i}: {c['kv_pages_reserved']} pages reserved, "
+              f"{c['freeze_faults']} freeze faults")
+        for kind in ("decode", "prefill"):
+            check(c[f"graph_{kind}_eager"] == 0,
+                  f"15a replica {i}: {c[f'graph_{kind}_eager']} eager "
+                  f"{kind} calls")
+        check(c["graph_decode_captures"] > 0,
+              f"15a replica {i} captured no chunk graph")
+    cold = [[(a, b) for a, b in v if a < t_cold] for v in spans.values()]
+    windows = [(min(a for a, _ in v) - t_start, max(b for _, b in v)
+                - t_start) for v in cold]
+    overlap = windows[0][0] < windows[1][1] and windows[1][0] < windows[0][1]
+    pct = []
+    for row in stats["replicas"]:
+        util = (row.get("goodput") or {}).get("utilization") or {}
+        pct += [u["hbm_bw_pct"] for u in util.values()
+                if u.get("hbm_bw_pct") is not None]
+    check(pct and all(0.0 <= x <= 100.0 for x in pct),
+          f"15a: /stats goodput HBM-BW% {pct} not all within 0-100")
+    check("tony_goodput_fraction" in metrics,
+          "15a: /metrics has no tony_goodput_fraction")
+    buckets = stats["engine"]["goodput"]["buckets"]
+    gen = sum(len(g.tokens) for g in got.values())
+    ttft = sorted(d["metrics"]["ttft_ms"] / 1e3 for d in docs)
+    p50, p99 = percentiles(ttft)
+    dev_us, ops = device_busy(prof)
+    host = "not measured" if dev_us <= 0 else \
+        f"{max(0.0, 1.0 - dev_us * 1e-6 / warm_wall):.3f}"
+    s4 = ctx["serve4"]
+    print(f"phase 15a gateway, 2 replicas x batch 8 of phase 4's "
+          f"configuration behind GatewayEdge, cold, 24 HTTP clients (12 "
+          f"NDJSON streams): {gen} tokens in {wall:.2f} s = "
+          f"{gen / wall:.1f} tok/s (phase 4, one Server: "
+          f"{s4['rate']:.1f}); TTFT p50 {p50:.3f} s, p99 {p99:.3f} s "
+          f"(phase 4: {s4['ttft'][0]:.3f} / {s4['ttft'][1]:.3f} s); "
+          f"{ties_text(ties, len(specs))} [{ctx['card']}]")
+    print(f"phase 15a captures: replica 0 "
+          f"{cs[0]['graph_decode_captures']} chunk + "
+          f"{cs[0]['graph_prefill_captures']} prefill keys in "
+          f"{cs[0]['graph_capture_s']:.2f} s, replica 1 "
+          f"{cs[1]['graph_decode_captures']} + "
+          f"{cs[1]['graph_prefill_captures']} in "
+          f"{cs[1]['graph_capture_s']:.2f} s; capture windows "
+          + ", ".join(f"[{a:.2f}, {b:.2f}] s" for a, b in windows)
+          + (" overlap" if overlap else " do not overlap")
+          + f"; flash_decode launches {launches} = {cfg.n_layers} x "
+          f"{micro}; requests by replica "
+          f"{[c['prefills'] for c in cs]} prefills [{ctx['card']}]")
+    print(f"phase 15a warm pass: {warm_gen / warm_wall:.1f} tok/s in "
+          f"{warm_wall:.2f} s, against phase 4: "
+          f"{ties_text(warm_ties, len(specs))}; host share of wall {host} (device busy "
+          f"{dev_us * 1e-3:.1f} ms in {ops} device ops over a profiled "
+          f"warm pass) [{ctx['card']}]")
+    print("phase 15a goodput buckets (fleet, at the end of the cold "
+          "pass): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(buckets.items()))
+          + f"; HBM-BW% by replica and kind {pct} [{ctx['card']}]")
+    del gw, servers, model, prof
+    torch.cuda.empty_cache()
+
+
+def phase_gateway_cli(ctx) -> None:
+    """15b: the gateway CLI over phase 5's checkpoint, as a subprocess,
+    against one fp32 Server on the same checkpoint."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.models.hf import load_llama_dir
+    from tony_tpu_torch.serve import Request, Server
+
+    ckpt = write_checkpoint()
+    proc = None
+    try:
+        rng = np.random.default_rng(SEED + 2)
+        specs = [(rng.integers(0, 151643, n).tolist(), m)
+                 for n, m in ((40, 12), (300, 20), (5, 1), (900, 8))]
+        model, _ = load_llama_dir(ckpt, device=DEVICE)
+        # the gateway CLI's defaults: batch 4, chunks of 1, a 64 MB
+        # prefix store, the config's end-of-text id
+        srv = Server(model, batch_size=4, chunk_steps=1,
+                     eos_id=QWEN25_15B["eos_token_id"],
+                     prefix_cache_mb=64.0, device=DEVICE)
+        want = {r.id: r for r in srv.run(
+            [Request(list(p), n, id=i) for i, (p, n) in enumerate(specs)])}
+        del srv, model
+        torch.cuda.empty_cache()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tony_tpu_torch.cli.gateway", "--model",
+             ckpt, "--replicas", "2", "--port", "0", "--dtype", "fp32",
+             "--device", DEVICE],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env={**os.environ, "PYTHONPATH": ROOT})
+        line = proc.stdout.readline()
+        check("gateway at http://" in line,
+              f"15b: the gateway did not boot: {line!r}")
+        url = line.split(" at ")[1].split()[0]
+        docs, wall = gateway_pass(url, specs, "c")
+        for i, d in enumerate(docs):
+            got = Streamed(d, specs[i][0])
+            check(got.tokens == want[i].tokens
+                  and got.finish_reason == want[i].finish_reason,
+                  f"15b request {i}: the gateway's stream differs from one "
+                  "fp32 Server's")
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=300)
+        check(proc.returncode == 0 and "drained clean" in err,
+              f"15b: exit code {proc.returncode} after SIGTERM: "
+              f"{err[-800:]}")
+        print(f"phase 15b cli.gateway --replicas 2 --dtype fp32 over a "
+              f"2-layer full-width checkpoint: {len(docs)} HTTP responses "
+              f"in {wall:.2f} s token-exact to one fp32 Server; SIGTERM "
+              f"drained, exit 0 [{ctx['card']}]")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
 def mistral_kernel_line(ctx) -> dict:
     m = ctx["mistral_call"]
     return {"name": "flash_decode (Mistral-7B-v0.1, window 4096)",
@@ -3472,7 +3729,9 @@ def main() -> int:
                         ("serving-options", phase_serving_options),
                         ("unpaged-mistral", phase_unpaged_mistral),
                         ("unpaged-qwen", phase_unpaged_qwen),
-                        ("unpaged-cli", phase_unpaged_cli)):
+                        ("unpaged-cli", phase_unpaged_cli),
+                        ("gateway", phase_gateway),
+                        ("gateway-cli", phase_gateway_cli)):
         t0 = time.perf_counter()
         try:
             phase(ctx)

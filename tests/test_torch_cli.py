@@ -15,7 +15,11 @@ its own safetensors reader."""
 
 import io
 import json
+import os
+import signal
+import subprocess
 import sys
+import urllib.request
 
 import numpy as np
 import pytest
@@ -24,6 +28,7 @@ import transformers
 
 from tony_tpu.cli import generate as jax_cli
 from tony_tpu.cli import score as jax_score
+from tony_tpu_torch.cli import gateway as torch_gateway_cli
 from tony_tpu_torch.cli import generate as torch_cli
 from tony_tpu_torch.cli import score as torch_score
 from tony_tpu_torch.models.hf import read_safetensors, write_safetensors
@@ -95,6 +100,75 @@ def test_serve_speculate_k_matches_jax(ckpt, monkeypatch, capsys):
         outs.append(sorted(out))
     assert rc_j == 0
     assert outs[0] == outs[1] == sorted(out_j)
+
+
+def test_serve_replicas_match_jax(ckpt, monkeypatch, capsys):
+    """``--serve --serve-replicas 2``: the gateway core over two
+    replicas prints the JAX CLI's lines (with the flag), and the port's
+    one-replica lines."""
+    stdin = "\n".join(json.dumps(x) for x in LINES * 2) + "\n"
+    two = [*FLAGS, "--serve-replicas", "2"]
+    rc_j, out_j = _run(jax_cli.main, ["--model", ckpt, *two,
+                                      "--compile-cache", ""], stdin,
+                       monkeypatch, capsys)
+    outs = []
+    for flags in (two, FLAGS):
+        rc, out = _run(torch_cli.main, ["--model", ckpt, *flags,
+                                        "--device", "cpu"], stdin,
+                       monkeypatch, capsys)
+        assert rc == 0 and len(out) == 2 * len(LINES)
+        outs.append(sorted(out))
+    assert rc_j == 0
+    assert outs[0] == outs[1] == sorted(out_j)
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_gateway_cli_boots_serves_and_drains():
+    """``cli.gateway --demo-model --replicas 2 --port 0 --device cpu``
+    boots, answers a ``token_ids`` request (unary and streamed alike),
+    and exits 0 on SIGTERM after a drain."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tony_tpu_torch.cli.gateway", "--demo-model",
+         "--replicas", "2", "--port", "0", "--device", "cpu", "--eos-id",
+         "63"], cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "gateway at http://" in line, proc.stderr.read()
+        url = line.split(" at ")[1].split()[0]
+        got = []
+        for stream in (False, True):
+            body = json.dumps({"token_ids": [1, 2, 3], "max_new_tokens": 4,
+                               "stream": stream}).encode()
+            with urllib.request.urlopen(urllib.request.Request(
+                    url + "/v1/generate", data=body), timeout=60) as r:
+                last = json.loads(r.read().decode().splitlines()[-1])
+            got.append((last["token_ids"], last["finish_reason"]))
+        assert got[0] == got[1] and got[0][0][:3] == [1, 2, 3]
+        with urllib.request.urlopen(url + "/readyz", timeout=10) as r:
+            assert r.status == 200
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err
+    assert "drained clean" in err and "token_ids requests only" in err
+
+
+@pytest.mark.parametrize("flags,queue", [
+    (["--agents", "h:1"], 3), (["--remote-replica"], 3),
+    (["--roles", "prefill=1,decode=1"], 3), (["--autoscale-max", "4"], 3),
+    (["--rebalance"], 3), (["--kv-host-mb", "64"], 3), (["--mesh", "4"], 5)],
+    ids=lambda v: v[0] if isinstance(v, list) else str(v))
+def test_gateway_cli_refuses_what_is_not_ported(flags, queue, capsys):
+    rc = torch_gateway_cli.main(["--demo-model", "--device", "cpu", *flags])
+    assert rc == 2
+    assert f"{flags[0]} is not ported to PyTorch yet (ROADMAP.md queue " \
+        f"{queue})" in capsys.readouterr().err
 
 
 def test_one_shot_token_ids_match_jax(ckpt, monkeypatch, capsys):

@@ -1,10 +1,14 @@
 """Package rules of the PyTorch port: it imports nothing of JAX, Flax or
 the JAX package (an AST scan of every module, and a fresh interpreter
-that imports them all and inspects ``sys.modules``); its entry points
-raise without a CUDA device unless asked for the CPU; and work on CPU
-tensors never launches the CUDA kernel."""
+that imports them all and inspects ``sys.modules``); every import of a
+``tony_tpu_torch`` module in its source resolves, the lazy ones inside
+functions included; it passes the repository's lint (``tools/lint.py``)
+with ``chip_smoke.py``; its entry points raise without a CUDA device
+unless asked for the CPU; and work on CPU tensors never launches the
+CUDA kernel."""
 
 import ast
+import importlib.util
 import json
 import os
 import subprocess
@@ -14,6 +18,7 @@ import pytest
 import torch
 
 from torch_parity import QWEN_TINY, tokens
+from tony_tpu_torch.cli import gateway as torch_gateway_cli
 from tony_tpu_torch.cli import generate as torch_cli
 from tony_tpu_torch.cli import score as torch_score
 from tony_tpu_torch.models.generate import generate
@@ -55,6 +60,35 @@ def test_no_jax_imports_in_source():
     assert not bad
 
 
+def test_every_port_import_resolves():
+    """Each ``tony_tpu_torch.*`` module an ``import`` or ``from ...
+    import`` names, at any depth of the AST, exists (a name imported
+    from a module may be an attribute instead)."""
+    bad = []
+    for path, _ in _modules():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad += [(path, node.lineno, n) for n in names
+                    if n.split(".")[0] == "tony_tpu_torch"
+                    and importlib.util.find_spec(n) is None]
+    assert not bad
+
+
+def test_port_passes_the_lint():
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "tools",
+                                                       "lint.py"),
+                          "tony_tpu_torch", "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_importing_the_port_loads_no_jax():
     mods = [m for _, m in _modules()]
     code = ("import importlib, json, sys\n"
@@ -85,6 +119,12 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_score.main(["--model", str(tmp_path), "--token-ids", "1,2",
                           "--int8"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_cli.main(["--model", str(tmp_path), "--serve",
+                        "--serve-replicas", "2"])
+    for argv in (["--demo-model"], ["--model", str(tmp_path)]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            torch_gateway_cli.main([*argv, "--replicas", "2", "--port", "0"])
 
 
 def test_cpu_work_never_launches_the_kernel():

@@ -195,3 +195,47 @@ def test_reset_returns_every_page(models):
                                       for p in e.pages})
     assert np.all(srv.slots.page_table == srv.slots.pool.n_pages)
     assert torch.is_tensor(srv.slots.cache["block_0"]["cached_key"])
+
+
+def test_live_progress_tails_match_jax(models):
+    """``live_progress(since)``: each in-flight request's tail past the
+    count already seen, as the JAX ``Server`` returns it (the gateway's
+    streaming hook passes ``since`` positionally)."""
+    jm, jp, tm = models
+    servers = [(JaxServer(jm, jp, batch_size=2, eos_id=-1, chunk_steps=2,
+                          paged=True, **SERVE), JaxRequest),
+               (Server(tm, batch_size=2, eos_id=-1, chunk_steps=2,
+                       device="cpu", **SERVE), Request)]
+    for srv, req in servers:
+        for i, (p, _) in enumerate(_mix()[:2]):
+            srv.submit(req(list(p), 12, id=i))
+    seen: dict = {}
+    for _ in range(3):
+        for srv, _ in servers:
+            srv.step()
+        (js, _), (ts, _) = servers
+        full = ts.live_progress()
+        assert full == js.live_progress() and len(full) == 2
+        tail = ts.live_progress(seen)
+        assert tail == js.live_progress(seen)
+        assert all(tail[k] == full[k][seen.get(k, 0):] for k in full)
+        # one request read to its tip, the other one token behind it
+        seen = {k: len(v) - k for k, v in full.items()}
+
+
+def test_paged_counters_keys_match_jax(models, jax_results):
+    """Paged ``counters()`` carries the JAX ``Server``'s keys, with
+    ``kv_tokens_resident`` equal on the same run; the port adds its
+    documented ``graph_*`` (on the card) and ``spec_window_steps``, and
+    lacks only the handoff and migration counters (not ported)."""
+    _, _, tm = models
+    _, jc = jax_results
+    srv = Server(tm, batch_size=2, eos_id=EOS, chunk_steps=8, device="cpu",
+                 **SERVE)
+    _run(Server, Request, srv)
+    c = srv.counters()
+    later = {k for k in jc if k.startswith(("handoffs_", "migrat"))}
+    assert set(c) - {"spec_window_steps"} == set(jc) - later
+    assert c["kv_tokens_resident"] == jc["kv_tokens_resident"] > 0
+    for key in ("kv_pages_used", "prefix_entries", "prefix_bytes"):
+        assert c[key] == jc[key]

@@ -13,7 +13,9 @@ it, as the JAX CLI does. Serving (``--serve``): one JSON
 request per stdin line, ``{"id", "token_ids", "max_new_tokens"?,
 "temperature"?, "top_k"?, "seed"?}``, one JSON response per finished
 request, ``{"id", "token_ids", "finish_reason"}``, in finish order,
-from one ``Server`` stepped on this thread between stdin lines. The
+through the gateway core (``tony_tpu_torch.gateway``) over
+``--serve-replicas`` ``Server``s, each stepped by its own thread while
+stdin is still read; a full admission queue blocks the reader. The
 cache is paged unless ``--no-paged-kv`` or the model has a sliding
 window (then unpaged, with a note; the prefix store too is turned off
 over a window, with a note). Requests
@@ -70,6 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continuous-batching JSONL loop on stdin/stdout")
     p.add_argument("--serve-batch", type=int, default=4,
                    help="cache slots (resident batch size) in --serve")
+    p.add_argument("--serve-replicas", type=int, default=1,
+                   help="--serve: engine replicas behind the gateway core, "
+                        "each on its own thread (weights shared)")
     p.add_argument("--prefix-cache-mb", type=float, default=64.0,
                    help="--serve: prefix-store byte budget (0 disables)")
     p.add_argument("--speculate-k", type=int, default=0,
@@ -117,24 +122,50 @@ def resolve_prefix_cache_mb(args, model) -> float:
 
 
 def _serve_loop(model, args, eos) -> int:
-    from tony_tpu_torch.serve import QueueFull, Request, Server
+    """``--serve``: JSONL requests from stdin until EOF through the
+    gateway core; one JSONL response a finished request, printed when it
+    finishes. Exit 1 when a line was rejected or a request shed."""
+    import threading
+    import time
 
-    srv = Server(model, batch_size=args.serve_batch, eos_id=eos,
-                 prefix_cache_mb=resolve_prefix_cache_mb(args, model),
-                 speculate_k=args.speculate_k, device=args.device,
-                 **resolve_paged_kv(args, model))
+    from tony_tpu_torch.gateway import Gateway, GatewayQueueFull, GenRequest
+    from tony_tpu_torch.serve import FaultPlan, Server
+
+    n_replicas = max(1, args.serve_replicas)
+    prefix_mb = resolve_prefix_cache_mb(args, model)
+    paged_kw = resolve_paged_kv(args, model)
+    servers = [Server(model, batch_size=args.serve_batch, eos_id=eos,
+                      prefix_cache_mb=prefix_mb,
+                      speculate_k=args.speculate_k,
+                      fault_plan=FaultPlan.from_env(replica=i),
+                      device=args.device, **paged_kw)
+               for i in range(n_replicas)]
+    armed = [i for i, s in enumerate(servers) if s.fault_plan is not None]
+    if armed:
+        print(f"fault injection ARMED on replica(s) {armed} via "
+              "TONY_SERVE_FAULTS", file=sys.stderr)
+    gateway = Gateway(servers, max_queue=max(64, 32 * n_replicas)).start()
     n_bad = 0
+    n_shed = 0
+    out_lock = threading.Lock()
 
-    def emit(results) -> None:
-        for res in results:
+    def on_event(ticket, event):
+        nonlocal n_shed
+        if event[0] == "done":
+            res = event[1]
             new_ids = res.tokens
             stops = [i for i, t in enumerate(new_ids) if t in eos]
             if stops:  # trim at the first stop, as the one-shot path
                 new_ids = new_ids[:stops[0]]
-            print(json.dumps({"id": res.id,
-                              "token_ids": list(res.prompt) + new_ids,
-                              "finish_reason": res.finish_reason}),
-                  flush=True)
+            with out_lock:
+                print(json.dumps({"id": res.id,
+                                  "token_ids": list(res.prompt) + new_ids,
+                                  "finish_reason": res.finish_reason}),
+                      flush=True)
+        elif event[0] == "shed":
+            n_shed += 1
+            print(f"request {ticket.request.id} shed: {event[2]}",
+                  file=sys.stderr)
 
     for lineno, raw in enumerate(sys.stdin, 1):
         raw = raw.strip()
@@ -148,7 +179,7 @@ def _serve_loop(model, args, eos) -> int:
                 raise ValueError(
                     "request needs token_ids (text prompts need a "
                     "tokenizer, which the PyTorch port does not have yet)")
-            req = Request(
+            req = GenRequest(
                 [int(x) for x in d["token_ids"]],
                 int(d.get("max_new_tokens", args.max_new_tokens)),
                 temperature=float(d.get("temperature", args.temperature)),
@@ -156,20 +187,17 @@ def _serve_loop(model, args, eos) -> int:
                 seed=int(d.get("seed", args.seed)), id=d.get("id"))
             while True:
                 try:
-                    srv.submit(req)
+                    gateway.submit(req, on_event=on_event)
                     break
-                except QueueFull:
-                    emit(srv.step())
-        except (ValueError, TypeError, RuntimeError) as e:
-            # a malformed line must not kill the stream: report, skip
+                except GatewayQueueFull:
+                    time.sleep(0.01)  # pipe backpressure, not rejection
+        except Exception as e:  # noqa: BLE001 — a malformed line must
+            # not kill the stream and strand every queued request
             print(f"request line {lineno} rejected: "
                   f"{type(e).__name__}: {e}", file=sys.stderr)
             n_bad += 1
-            continue
-        emit(srv.step())
-    while not srv.done:
-        emit(srv.step())
-    return 0 if n_bad == 0 else 1
+    gateway.drain()
+    return 0 if n_bad == 0 and n_shed == 0 else 1
 
 
 def main(argv=None) -> int:

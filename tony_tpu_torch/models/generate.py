@@ -342,7 +342,8 @@ def beam_search(model, prompt, *, max_new_tokens: int, num_beams: int = 4,
         return torch.log_softmax(last.float(), dim=-1).reshape(b, k, vocab)
 
     for t in range(1, max_new_tokens):
-        logp = step(cache, tok) if graphs is None             else graphs.eager("beam", step, cache, tok)
+        logp = step(cache, tok) if graphs is None \
+            else graphs.eager("beam", step, cache, tok)
         if eos_ids:
             logp = torch.where(finished[:, :, None], eos_only, logp)
         cand = scores[:, :, None] + logp

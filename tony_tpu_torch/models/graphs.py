@@ -27,11 +27,23 @@ Launch counts: each kernel wrapper counts its launches in Python
 nothing, and a replay launches with no call, so a capture records what
 it added to the counts and restores them, and each replay adds that
 record back: the counts stay the launches on the card.
+
+Several engines in one process (the gateway's replica threads) share
+the card under one rule, held by ``DEVICE``: an engine's step holds it
+shared, and a key's first call and capture hold it exclusively. A
+capture's error mode is process-wide ("global"), and its first call
+turns on ``set_sync_debug_mode("error")`` for the whole process, so
+while one engine captures no other may allocate, sync, launch or even
+copy its tokens to the host. Holding it exclusively waits for every
+other engine to leave its step, and keeps new steps out until the
+capture is done; the capturing engine gives up its own shared hold for
+that time and takes it back after.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from collections import Counter
 from dataclasses import dataclass, field
@@ -44,6 +56,83 @@ from tony_tpu_torch.ops.quant import q8_matmul
 
 # the counting wrappers a captured call reaches (the decode forward)
 COUNTED = (flash_decode, q8_matmul)
+
+
+class DeviceLock:
+    """A readers-writer lock over the card: ``shared()`` for an engine's
+    step, ``exclusive()`` for a capture. Both re-enter on one thread. A
+    thread that holds it shared and asks for it exclusively gives up its
+    shared hold while it waits and takes it back after, so two engines
+    that both need a capture inside their steps cannot deadlock. A
+    waiting ``exclusive()`` keeps new shared holders out."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0      # threads holding it shared
+        self._writer = None    # the thread holding it exclusively
+        self._depth = 0        # its exclusive re-entries
+        self._waiting = 0      # threads waiting for it exclusively
+        self._local = threading.local()
+
+    def _take_shared(self) -> None:
+        with self._cond:
+            while self._writer is not None or self._waiting:
+                self._cond.wait()
+            self._readers += 1
+
+    def _drop_shared(self) -> None:
+        with self._cond:
+            self._readers -= 1
+            self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def shared(self):
+        held = getattr(self._local, "shared", 0)
+        mine = self._writer is threading.current_thread()
+        if not held and not mine:
+            self._take_shared()
+        self._local.shared = held + 1
+        try:
+            yield
+        finally:
+            self._local.shared = held
+            if not held and not mine:
+                self._drop_shared()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        me = threading.current_thread()
+        if self._writer is me:
+            self._depth += 1
+            try:
+                yield
+            finally:
+                self._depth -= 1
+            return
+        held = getattr(self._local, "shared", 0)
+        with self._cond:
+            if held:
+                self._readers -= 1
+                self._cond.notify_all()
+            self._waiting += 1
+            while self._writer is not None or self._readers:
+                self._cond.wait()
+            self._waiting -= 1
+            self._writer = me
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = None
+                self._cond.notify_all()
+            if held:
+                self._take_shared()
+
+
+# the card's lock, shared by every engine of the process
+DEVICE = DeviceLock()
+# a replay's read-add-write of the launch counts
+_COUNTS = threading.Lock()
 
 
 def launch_counts() -> list[int]:
@@ -150,23 +239,27 @@ class GraphCache:
         replayed after that."""
         if e.graph is not None:
             e.graph.replay()
-            set_launch_counts(
-                [a + d for a, d in zip(launch_counts(), e.delta)])
+            with _COUNTS:
+                set_launch_counts(
+                    [a + d for a, d in zip(launch_counts(), e.delta)])
             self.calls[e.key[0], "replays"] += 1
             return e.out
-        with self.backend.eager():
-            out = fn(*e.statics)
-        before = launch_counts()
-        t0 = time.perf_counter()
-        try:
-            e.graph, e.out = self.backend.capture(fn, e.statics)
-        except BaseException:
-            del self.entries[e.key]
-            raise
-        finally:
-            e.delta = [a - b for a, b in zip(launch_counts(), before)]
-            set_launch_counts(before)
-        self.capture_seconds += time.perf_counter() - t0
+        with DEVICE.exclusive():
+            with self.backend.eager():
+                out = fn(*e.statics)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            try:
+                e.graph, e.out = self.backend.capture(fn, e.statics)
+            except BaseException:
+                # no half-captured graph stays: the next call at the
+                # key starts over with a first call
+                del self.entries[e.key]
+                raise
+            finally:
+                e.delta = [a - b for a, b in zip(launch_counts(), before)]
+                set_launch_counts(before)
+            self.capture_seconds += time.perf_counter() - t0
         self.calls[e.key[0], "captures"] += 1
         return out
 

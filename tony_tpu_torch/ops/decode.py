@@ -107,8 +107,9 @@ def n_splits(b: int, kvh: int, extent: int, sm_count: int,
     The tensor-core route double-buffers its tiles, so an SM needs
     ceil(IN_FLIGHT_BYTES / ``in_flight``) of its blocks, ``in_flight``
     being a block's ``block_bytes``: 1 for a bf16 cache at D = 128 (64
-    KiB a block), 2 for an int8 one (33 KiB). The SIMT route (``in_flight`` None) keeps no load in flight while it
-    computes and takes two blocks an SM."""
+    KiB a block), 2 for an int8 one (33 KiB). The SIMT route
+    (``in_flight`` None) keeps no load in flight while it computes and
+    takes two blocks an SM."""
     per_sm = 2 if in_flight is None else -(-IN_FLIGHT_BYTES // in_flight)
     want = -(-per_sm * sm_count // max(1, b * kvh * mtiles))
     return max(1, min(want, -(-extent // TILE_KEYS)))

@@ -1,0 +1,23 @@
+from tony_tpu_torch.profiler.chrome_trace import (
+    device_busy_ms,
+    op_totals_ms,
+    per_plane_op_totals_ms,
+)
+from tony_tpu_torch.profiler.profiler import (
+    ServeProfiler,
+    StepProfiler,
+    trace,
+    trigger_path,
+    write_trigger,
+)
+
+__all__ = [
+    "ServeProfiler",
+    "StepProfiler",
+    "device_busy_ms",
+    "op_totals_ms",
+    "per_plane_op_totals_ms",
+    "trace",
+    "trigger_path",
+    "write_trigger",
+]

@@ -67,18 +67,37 @@ test_torch_chunked_prefill.py). Sampled requests draw from a
 per-request ``torch.Generator`` seeded from ``Request.seed`` and match
 the JAX package in distribution only.
 
+Each admission, prefill chunk, decode chunk and verify round leaves
+one record on the dispatch timeline (``obs.timeline``, ``timeline=True``
+by default), priced by ``obs.goodput.CostModel`` against the card's
+roofline; ``goodput()`` folds the records into the goodput ledger. A
+record's duration is the host's wall time up to the host copy of the
+call's tokens that the call makes anyway (an intermediate prefill chunk
+has none: its record closes when it is enqueued, and on the card it
+carries no bytes or FLOPs estimate, which that time would misprice);
+its first-call flag
+says the call ran a graph key's first call (eager, then captured). No
+record adds a sync.
+
+On the card every ``step()``, ``drain()`` and ``reset()`` holds
+``models.graphs.DEVICE`` shared, and a capture holds it exclusively:
+several servers in one process (the gateway's replicas, each stepped by
+its own thread) never meet a capture with device work of their own.
+
 Refused by the constructor, as the JAX package refuses them: a paged
 cache or a prefix store over a sliding-window model. Left out, refused
 too: a mesh, the host-RAM page tier, a shared page pool and int8-weight
-models; also migration, handoff and the timeline/goodput ledger.
+models; also migration and handoff.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import logging
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Iterable, Iterator
@@ -89,7 +108,10 @@ import torch
 from tony_tpu_torch.models.generate import (_is_eos, multi_decode_step,
                                             normalize_eos_ids,
                                             single_decode_step)
-from tony_tpu_torch.models.graphs import GraphCache
+from tony_tpu_torch.models.graphs import DEVICE, GraphCache
+from tony_tpu_torch.obs.goodput import (CostModel, detect_hbm_gbps,
+                                        detect_peak_flops, ledger)
+from tony_tpu_torch.obs.timeline import DispatchRecord, DispatchTimeline
 from tony_tpu_torch.ops.platform import resolve_device
 from tony_tpu_torch.serve.faults import FaultPlan
 from tony_tpu_torch.serve.prefix import PrefixStore
@@ -468,7 +490,10 @@ class Server:
     writes a longer prompt in chunks, one a step, between decode
     rounds. ``fault_plan`` injects failures (``serve.faults``).
     ``in_dispatch_eos=False`` decodes every micro-step of every row and
-    trims on the host (the JAX package's A/B control).
+    trims on the host (the JAX package's A/B control). ``timeline``
+    keeps the dispatch timeline (``goodput()``); ``hbm_gbps`` > 0 sets
+    the roofline's memory rate (0: the card's, from
+    ``obs.goodput.HBM_BW_TABLE``; unknown: no utilization).
 
     The model's device must be the one ``device`` resolves to (``cuda``
     unless ``device="cpu"``)."""
@@ -486,6 +511,7 @@ class Server:
                  paged: bool | None = None, kv_page_size: int = 0,
                  kv_pages: int = 0, prefill_chunk_tokens: int = 0,
                  kv_host_mb: float = 0.0, in_dispatch_eos: bool = True,
+                 timeline: bool = True, hbm_gbps: float = 0.0,
                  mesh=None, page_pool=None, device=None):
         cfg = model.cfg
         later = {
@@ -593,6 +619,27 @@ class Server:
         self._prefilling: dict[int, _PrefillState] = {}
         self.prefill_chunk_dispatches = 0  # chunk dispatches run
         self.prefill_chunked = 0           # requests that took > 1 chunk
+        # the dispatch timeline and the goodput ledger's roofline
+        self.timeline = DispatchTimeline() if timeline else None
+        self._first = False  # the last dispatch ran a key's first call
+        self._t0 = time.monotonic()
+        self.hbm_gbps = float(hbm_gbps) if hbm_gbps > 0 \
+            else detect_hbm_gbps()
+        self.peak_flops = detect_peak_flops()
+        self.cost = None
+        if self.timeline is not None:
+            kv_tok = (self.slots.pool.page_nbytes / self.slots.pool.page_size
+                      if self.paged
+                      else row_nbytes(self.slots.cache) / cfg.max_seq_len)
+            self.cost = CostModel(
+                param_bytes=sum(p.numel() * p.element_size()
+                                for p in model.parameters()),
+                param_count=sum(p.numel() for p in model.parameters()),
+                kv_token_bytes=kv_tok, n_heads=cfg.n_heads,
+                head_dim=cfg.head_dim, vocab_size=cfg.vocab_size,
+                hbm_gbps=self.hbm_gbps, peak_flops=self.peak_flops)
+        self._hold = DEVICE.shared if self.graphs is not None \
+            else contextlib.nullcontext
 
     # ------------------------------------------------------------ intake
 
@@ -653,11 +700,106 @@ class Server:
         return [i for i in self.slots.free_slots()
                 if i not in self._prefilling]
 
-    def live_progress(self) -> dict:
+    def live_progress(self, since: dict | None = None) -> dict:
         """{request_id: tokens generated so far} for every in-flight
-        request (copies)."""
-        return {lv.request.id: list(lv.generated)
-                for lv in self._live if lv is not None}
+        request: the streaming hook. ``since`` (request_id -> count
+        already seen) returns each request's TAIL past that count, so a
+        long generation's repeated snapshots cost its new tokens only.
+        Copies."""
+        out = {}
+        for live in self._live:
+            if live is not None:
+                start = since.get(live.request.id, 0) if since else 0
+                out[live.request.id] = live.generated[start:]
+        return out
+
+    def prefix_match_len(self, tokens) -> int:
+        """Longest prompt prefix this server could seed without prefill
+        work: the gateway's prefix-affinity routing signal. No counter
+        moves."""
+        return self.prefix.match_len(tokens) if self.prefix is not None \
+            else 0
+
+    def prefix_summary(self, max_items: int = 512) -> list:
+        """``[[n_tokens, crc32], ...]``: what this server could seed
+        (``PrefixStore.summary``)."""
+        return self.prefix.summary(max_items) if self.prefix is not None \
+            else []
+
+    # ----------------------------------------------------- observability
+
+    def _record_dispatch(self, kind: str, t0: float, occ: int, bucket: int,
+                         tokens: int, *, first: bool = False,
+                         request_id=None, tags: dict | None = None,
+                         work: int = 0, fed: int = 0, rejected: int = 0,
+                         est: tuple = (0.0, 0.0)) -> None:
+        """One timeline record from ``t0`` to now, with its position
+        accounting (work/fed/rejected: the ledger's split of its
+        duration), the cost model's bytes/FLOPs, and its HBM-BW% and MFU
+        where the roofline is known."""
+        dur_ms = (time.monotonic() - t0) * 1e3
+        tags = tags or {}
+        est_bytes, est_flops = est
+        if est_bytes:
+            bw, mfu = self.cost.utilization(est_bytes, est_flops, dur_ms)
+            if bw is not None:
+                tags["hbm_bw_pct"] = bw
+            if mfu is not None:
+                tags["mfu_pct"] = mfu
+        self.timeline.record(DispatchRecord(
+            kind, t0, dur_ms, occ, bucket, tokens, first,
+            request_id=request_id, tags=tags, work=work, fed=fed,
+            rejected=rejected, est_bytes=est_bytes, est_flops=est_flops))
+
+    def _record_admit(self, kind: str, t0: float, occ: int, req: Request,
+                      lb: int, off: int, cols: int, *, chunk: int = 0,
+                      hit_tokens: int = 0) -> None:
+        """The record of an admission (``prefill``, ``cow_admit`` or
+        ``hit_admit``) or an intermediate ``prefill_chunk`` of ``lb``
+        positions at offset ``off`` over ``cols`` page columns."""
+        p = len(req.prompt)
+        view = cols * self.slots.pool.page_size if cols else 0
+        tags = {"prompt_len": p}
+        if chunk:
+            tags["chunk"] = chunk
+        if hit_tokens:
+            tags["prefix_hit_tokens"] = hit_tokens
+        if off and kind != "cow_admit":
+            tags["offset"] = int(off)
+        if view:
+            tags["view_tokens"] = view
+        if kind == "prefill_chunk" and self.graphs is not None:
+            # on the card an intermediate chunk's record closes when it
+            # is enqueued (no host copy to wait for): priced against that
+            # time its bytes would read as a rate the card cannot reach
+            work, fed = lb, min(lb, p - off)
+            est = (0.0, 0.0)
+            tags["enqueued"] = True
+        elif kind == "cow_admit":
+            work = fed = 1
+            est = self.cost.cow_admit()
+        elif kind == "hit_admit":
+            work = fed = 1
+            est = self.cost.hit_admit(self._row_nbytes)
+        else:
+            work, fed = lb, min(lb, p - off)
+            est = self.cost.prefill(lb, off, view)
+        self._record_dispatch(
+            kind, t0, occ, lb, 0 if kind == "prefill_chunk" else 1,
+            first=self._first, request_id=req.id, tags=tags, work=work,
+            fed=fed, est=est)
+
+    def goodput(self) -> dict | None:
+        """The goodput ledger (``obs.goodput.ledger``): this server's
+        wall clock split into useful, first-call, padding, overshoot,
+        rejected-draft and idle fractions that sum to at most 1, with
+        each kind's HBM-BW% and MFU where the roofline is known. None
+        with the timeline off."""
+        if self.timeline is None:
+            return None
+        wall_ms = (time.monotonic() - self._t0) * 1e3
+        return ledger(self.timeline.summary(), wall_ms,
+                      hbm_gbps=self.hbm_gbps, peak_flops=self.peak_flops)
 
     # --------------------------------------------------------- scheduling
 
@@ -680,6 +822,7 @@ class Server:
         if self.fault_plan is not None:
             self.fault_plan.on_admit(req.id)
         s = self.slots
+        t0, occ = time.monotonic(), s.n_active
         p = np.asarray(req.prompt, np.int64)
         max_len = self.model.cfg.max_seq_len
         slot = self._free_slots()[0]
@@ -725,6 +868,14 @@ class Server:
         if hit_tokens:
             self._count_hit(hit_tokens, saved)
         self._arm(slot, req, last, hit_tokens, saved, chunks, finished)
+        if self.timeline is not None:
+            exact = chunks == 0
+            self._first = False  # unpaged prefills run eagerly
+            self._record_admit(
+                "hit_admit" if exact else "prefill", t0, occ, req,
+                0 if exact else bucket_len(len(p) - off, max_len,
+                                           self.min_bucket),
+                off, 0, hit_tokens=hit_tokens)
         return True
 
     def _prefill_row(self, slot: int, p: np.ndarray, off: int):
@@ -750,6 +901,7 @@ class Server:
         counted as a ``prefill_rows`` call on the card."""
         fn = functools.partial(_prefill_rows, self.model, self.slots.cache,
                                slot, self._tensor(window)[None], off, last)
+        self._first = False
         if self.graphs is None:
             return fn()
         return self.graphs.eager("prefill_rows", fn)
@@ -767,6 +919,7 @@ class Server:
         s = self.slots
         pool = s.pool
         ps = pool.page_size
+        t0, occ = time.monotonic(), s.n_active
         p = np.asarray(req.prompt, np.int64)
         max_len = self.model.cfg.max_seq_len
         slot = self._free_slots()[0]
@@ -844,6 +997,17 @@ class Server:
             self._count_hit(hit_tokens, saved)
         self._arm(slot, req, last, hit_tokens, saved, 0 if exact else 1,
                   finished)
+        if self.timeline is not None:
+            if exact:
+                self._first = False
+                self._record_admit("cow_admit", t0, occ, req, 0, off, 0,
+                                   hit_tokens=hit_tokens)
+            else:
+                self._record_admit(
+                    "prefill", t0, occ, req,
+                    bucket_len(len(p) - off, max_len, self.min_bucket),
+                    off, min(_bucket_pow2(-(-len(p) // ps)), s.max_pages),
+                    hit_tokens=hit_tokens)
         return True
 
     def _count_hit(self, hit_tokens: int, saved: int) -> None:
@@ -924,6 +1088,7 @@ class Server:
         s = self.slots
         ps = s.pool.page_size
         take = self.prefill_chunk
+        t0, occ = time.monotonic(), s.n_active
         s.ensure_pages(slot, st.done + take)
         cols = min(_bucket_pow2(-(-(st.done + take) // ps)), s.max_pages)
         flat = np.concatenate([
@@ -937,12 +1102,16 @@ class Server:
         self.prefill_chunk_dispatches += 1
         st.done += take
         st.chunks += 1
+        if self.timeline is not None:
+            self._record_admit("prefill_chunk", t0, occ, st.request, take,
+                               st.done - take, cols, chunk=st.chunks)
 
     def _prefill_chunk_rows(self, slot: int, st: _PrefillState) -> None:
         """The unpaged intermediate chunk: ``prefill_chunk`` prompt
         tokens at positions from ``st.done`` into the slot's row, with
         no LM head."""
         take = self.prefill_chunk
+        t0, occ = time.monotonic(), self.slots.n_active
         window = np.asarray(st.request.prompt[st.done:st.done + take],
                             np.int64)
         self._run_prefill_rows(slot, window, st.done, None)
@@ -950,6 +1119,9 @@ class Server:
         self.prefill_chunk_dispatches += 1
         st.done += take
         st.chunks += 1
+        if self.timeline is not None:
+            self._record_admit("prefill_chunk", t0, occ, st.request, take,
+                               st.done - take, 0, chunk=st.chunks)
 
     def _finalize_prefill(self, slot: int, st: _PrefillState,
                           finished: list) -> None:
@@ -958,18 +1130,28 @@ class Server:
         sample. Unpaged, the offset first shrinks until the suffix's
         bucket fits the row (``_usable_prefix``): the re-prefilled
         tokens write the same values at the same positions."""
+        s = self.slots
+        t0, occ = time.monotonic(), s.n_active
         p = np.asarray(st.request.prompt, np.int64)
+        max_len = self.model.cfg.max_seq_len
+        off, cols = st.done, 0
         if self.paged:
-            last = self._prefill_suffix(slot, p, st.done)
+            last = self._prefill_suffix(slot, p, off)
+            cols = min(_bucket_pow2(-(-len(p) // s.pool.page_size)),
+                       s.max_pages)
         else:
-            last = self._prefill_row(slot, p, _usable_prefix(
-                st.done, len(p), self.model.cfg.max_seq_len,
-                self.min_bucket))
+            off = _usable_prefix(off, len(p), max_len, self.min_bucket)
+            last = self._prefill_row(slot, p, off)
         self.prefill_chunk_dispatches += 1
         st.chunks += 1
         self.prefill_chunked += 1
         self._arm(slot, st.request, last, st.hit_tokens, st.saved,
                   st.chunks, finished)
+        if self.timeline is not None:
+            self._record_admit(
+                "prefill", t0, occ, st.request,
+                bucket_len(len(p) - off, max_len, self.min_bucket), off,
+                cols, chunk=st.chunks)
 
     # ------------------------------------------------------- dispatches
 
@@ -981,16 +1163,19 @@ class Server:
         device in one transfer: replayed at the key ``(kind, *shape)``
         (its first call eager, then captured), or eager on the CPU."""
         if self.graphs is None:
+            self._first = False
             return fn(self._tensor(flat))
         e = self.graphs.entry((kind, *shape), lambda: (torch.empty(
             flat.size, dtype=torch.int64, device=self.device),))
         e.statics[0].copy_(torch.from_numpy(flat))
+        self._first = e.graph is None
         return self.graphs.run(e, fn)
 
     def _sampled_or_graph(self, kind: str, shape: tuple, flat, fn):
         """A decode round: eager and counted so when a live row samples,
         else ``_dispatch``."""
         if self.graphs is not None and (self.slots.temperature > 0).any():
+            self._first = False
             return self.graphs.eager(kind, fn, self._tensor(flat))
         return self._dispatch(kind, shape, flat, fn)
 
@@ -1039,6 +1224,10 @@ class Server:
         requests that finished."""
         if self.fault_plan is not None:
             self.fault_plan.on_dispatch()
+        with self._hold():
+            return self._step()
+
+    def _step(self) -> list[Result]:
         finished: list[Result] = []
         while self._free_slots():
             with self._pending_lock:
@@ -1103,14 +1292,19 @@ class Server:
         finished: list[Result] = []
         s = self.slots
         k, cols, flat = self._prepare_chunk()
+        t0, occ = time.monotonic(), s.n_active
+        riders = [lv.request.id for lv in self._live if lv is not None]
         toks = self._run_chunk(flat, k, cols)
+        first = self._first
         self.steps += k
         self.dispatches += 1
+        landed = 0
         for slot in range(s.batch_size):
             live = self._live[slot]
             if live is None:
                 continue
             reason, j = self._append(live, toks[slot])
+            landed += j
             if reason is None:
                 s.lengths[slot] += k
                 s.last_token[slot] = int(toks[slot, k - 1])
@@ -1125,6 +1319,22 @@ class Server:
                 # overshoot: decoded, paid for, never reported
                 self.wasted_steps += k - j
             self._finish(slot, live, reason, finished)
+        if self.timeline is not None:
+            view = cols * s.pool.page_size if cols else 0
+            tags = {"requests": riders}
+            if view:
+                tags["view_tokens"] = view
+            # in-dispatch EOS: every fed position landed a kept token
+            # and frozen tails are padding; off, the excess of k x occ
+            # over landed is the overshoot
+            fed = landed if self.in_dispatch_eos else k * occ
+            if self.in_dispatch_eos:
+                tags["frozen"] = k * occ - landed
+            self._record_dispatch(
+                "decode", t0, occ, k, landed, first=first, tags=tags,
+                work=k * s.batch_size, fed=fed,
+                est=self.cost.decode(k, s.batch_size,
+                                     view or self.model.cfg.max_seq_len))
         return finished
 
     def _append(self, live: _Live, toks) -> tuple[str | None, int]:
@@ -1270,7 +1480,11 @@ class Server:
         finished: list[Result] = []
         s = self.slots
         window, k_cont, cols, flat, draft_len = self._prepare_verify(drafts)
+        t0, occ = time.monotonic(), s.n_active
+        riders = [lv.request.id for lv in self._live if lv is not None]
         out = self._run_verify(flat, window, k_cont, cols)
+        first = self._first
+        landed = cont_fed = 0
         emit, accepted = out[:, :window], out[:, window]
         cont = out[:, window + 1:]
         self.steps += window + k_cont
@@ -1295,6 +1509,7 @@ class Server:
                     self.SPEC_EMA_DECAY * self._spec_ema[slot]
                     + (1.0 - self.SPEC_EMA_DECAY) * a / d)
             reason, consumed = self._append(live, emit[slot, :a + 1])
+            landed += consumed
             cont_consumed = 0
             if k_cont:
                 if reason is None:
@@ -1306,6 +1521,8 @@ class Server:
                 # a row that finished in the window froze for the whole
                 # continuation, one that finished in it for its tail
                 self.frozen_steps += k_cont - cont_consumed
+                landed += cont_consumed
+                cont_fed += cont_consumed
             if reason is None:
                 # fed last_token + a accepted drafts (+ the continuation)
                 s.lengths[slot] += a + 1 + cont_consumed
@@ -1316,6 +1533,28 @@ class Server:
             # the donated span [0, len) covers fed, accepted tokens only;
             # rejected drafts' K/V lies past it
             self._finish(slot, live, reason, finished)
+        if self.timeline is not None:
+            drafted_n = int(draft_len.sum())
+            accepted_n = int(accepted.sum())
+            view = cols * s.pool.page_size if cols else 0
+            tags = {"requests": riders, "drafted": drafted_n,
+                    "accepted": accepted_n}
+            if view:
+                tags["view_tokens"] = view
+            if k_cont:
+                tags["cont_steps"] = k_cont
+            span = view or self.model.cfg.max_seq_len
+            est = self.cost.verify(window, s.batch_size, span)
+            if k_cont:
+                dec = self.cost.decode(k_cont, s.batch_size, span)
+                est = (est[0] + dec[0], est[1] + dec[1])
+            # fed = a seed token a live slot + every draft + the live
+            # continuation positions; fed - landed = the rejected drafts
+            self._record_dispatch(
+                "verify", t0, occ, window, landed, first=first, tags=tags,
+                work=(window + k_cont) * s.batch_size,
+                fed=occ + drafted_n + cont_fed,
+                rejected=drafted_n - accepted_n, est=est)
         return finished
 
     def _donate(self, live: _Live, slot: int) -> None:
@@ -1338,10 +1577,11 @@ class Server:
         """Finish every in-flight request, parked prefills included (no
         new admissions); pending requests stay queued."""
         finished: list[Result] = []
-        while self.slots.n_active or self._prefilling:
-            self._advance_prefills(finished)
-            if self.slots.n_active:
-                finished.extend(self._decode_round())
+        with self._hold():
+            while self.slots.n_active or self._prefilling:
+                self._advance_prefills(finished)
+                if self.slots.n_active:
+                    finished.extend(self._decode_round())
         return finished
 
     def counters(self) -> dict:
@@ -1397,6 +1637,13 @@ class Server:
         out["kv_cow_forks"] = ps["forks"]
         out["kv_page_size"] = ps["page_size"]
         out["kv_bytes_resident"] = ps["bytes_resident"]
+        # real tokens in the resident pages: live slots and the store's
+        # entries (a page shared copy-on-write counts once a holder)
+        s = self.slots
+        tokens = int(s.lengths[s.active].sum())
+        if self.prefix is not None:
+            tokens += self.prefix.stats()["tokens"]
+        out["kv_tokens_resident"] = tokens
         return out
 
     def reset(self) -> None:
@@ -1405,11 +1652,12 @@ class Server:
         them) and free every slot (paged: its pages and reservation;
         unpaged: host state only, the next admit overwrites the row).
         The prefix store and the graphs stay."""
-        with self._pending_lock:
-            self.pending.clear()
-        self._live = [None] * self.slots.batch_size
-        self._prefilling.clear()
-        self.slots.reset()
+        with self._hold():
+            with self._pending_lock:
+                self.pending.clear()
+            self._live = [None] * self.slots.batch_size
+            self._prefilling.clear()
+            self.slots.reset()
 
     def run(self, requests: Iterable[Request] = ()) -> Iterator[Result]:
         """Submit ``requests`` and drive the loop until everything

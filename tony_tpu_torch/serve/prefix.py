@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import itertools
 import threading
+import zlib
 from typing import Any
 
 import numpy as np
@@ -134,6 +135,21 @@ class PrefixStore:
             if entry.refcount <= 0:
                 raise ValueError("release() without matching acquire()")
             entry.refcount -= 1
+
+    def match_len(self, tokens) -> int:
+        """Longest stored prefix of ``tokens`` WITHOUT pinning the entry
+        or moving the lookup counters: the gateway's prefix-affinity
+        routing probe must not skew the admission hit rate."""
+        tokens = np.asarray(tokens, np.int32)
+        with self._lock:
+            hit = self._lookup(tokens)
+            return 0 if hit is None else hit[0]
+
+    def has(self, tokens) -> bool:
+        """Whether this exact sequence is stored."""
+        key = np.asarray(tokens, np.int32).tobytes()
+        with self._lock:
+            return key in self._entries
 
     def _lookup(self, tokens: np.ndarray) -> tuple[int, _Entry] | None:
         node, consumed = self.root, 0
@@ -325,22 +341,75 @@ class PrefixStore:
             child.parent = node.parent
             node.parent.children[int(child.edge[0])] = child
 
+    def summary(self, max_items: int = 512, grain: int = 8) -> list:
+        """Bounded summary of what this store could seed: ``[[n_tokens,
+        crc32], ...]``, one pair per stored sequence's prefix on a
+        ``grain``-token grid (plus its full length), most recent entries
+        first, without repeats; ``summary_match_len`` probes it. The
+        grid makes partial matches visible."""
+        with self._lock:
+            entries = sorted(self._entries.values(),
+                             key=lambda e: e.tick, reverse=True)
+        out: list = []
+        seen: set = set()
+        for e in entries:
+            n = int(e.tokens.size)
+            lens = list(range(grain, n + 1, grain))
+            if not lens or lens[-1] != n:
+                lens.append(n)
+            for ln in reversed(lens):
+                item = (ln, zlib.crc32(e.tokens[:ln].tobytes()))
+                if item in seen:
+                    continue
+                seen.add(item)
+                out.append([item[0], item[1]])
+                if len(out) >= max_items:
+                    return out
+        return out
+
     def __len__(self) -> int:
         return len(self._entries)
 
     def stats(self) -> dict:
         with self._lock:
+            # the radix tree's shape (root included; depth in tokens)
+            nodes, max_depth = 0, 0
+            stack: list[tuple[_Node, int]] = [(self.root, 0)]
+            while stack:
+                node, depth = stack.pop()
+                nodes += 1
+                max_depth = max(max_depth, depth)
+                for child in node.children.values():
+                    stack.append((child, depth + len(child.edge)))
             return {
                 "entries": len(self._entries),
                 "bytes": self.bytes_used,
                 "budget_bytes": self.budget_bytes,
                 "tokens": self.tokens_stored,
+                "nodes": nodes,
+                "max_depth": max_depth,
                 "lookups": self.lookups,
                 "matched": self.matched,
                 "inserts": self.inserts,
                 "evictions": self.evictions,
                 "rejected": self.rejected,
             }
+
+
+def summary_match_len(summary, tokens) -> int:
+    """Longest summarized prefix of ``tokens``: the probe side of
+    ``PrefixStore.summary()`` (int32 bytes, crc32, as the producer
+    hashes them). A crc collision costs one mis-routed request, never a
+    wrong token."""
+    toks = np.asarray(tokens, np.int32)
+    by_len: dict[int, set] = {}
+    for ln, crc in summary or ():
+        if 0 < int(ln) <= toks.size:
+            by_len.setdefault(int(ln), set()).add(int(crc))
+    for ln in sorted(by_len, reverse=True):
+        if zlib.crc32(toks[:ln].tobytes()) in by_len[ln]:
+            return ln
+    return 0
 
 
 def _freshest_entry(node: _Node) -> _Entry | None:
