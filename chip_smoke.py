@@ -25,7 +25,9 @@ exits non-zero.
    be a CUDA-graph replay or the first call at its key (none eager),
    and the kernel must have launched n_layers times per decode
    micro-step, replays included; the captures, their seconds and the
-   graphs' shared pool are printed. An untimed second pass of 8 long
+   graphs' shared pool are printed, and the captures' seconds by part
+   (``torch.cuda.graph``'s entry synchronize, ``gc.collect()``, cache
+   flushes, the recording; also in 15a and 16a). An untimed second pass of 8 long
    requests: on one saved state, a chunk run eagerly and one replayed
    must give the same tokens and pool bytes (4b), both are timed, and
    the eager one keeps the largest flash-decode call for the kernel
@@ -53,12 +55,19 @@ exits non-zero.
    tokens, chunked cross-entropy; one forward and backward through the
    kernels and one through the plain versions, on the same weights.
 8. Training through ``fit``: Qwen2.5-1.5B at full width and depth, bf16
-   compute over fp32 masters, FusedAdamW(3e-4) with the carry, remat
-   ``attn_saved``, chunked CE (chunk 2048), micro-batch 4 x accum 2 of
-   2048-token sequences from a DataLoader over 8 fixed sequences, 8
-   steps: losses finite and falling, launch counts as the config
-   implies, tokens/s, ms/step, MFU, peak memory and (from an untimed
-   profiled step) the host share.
+   compute over fp32 masters, FusedAdamW with the carry and a learning
+   rate of 3e-4 after a 4-step linear warmup (a tensor function of the
+   count), remat ``attn_saved``, chunked CE (chunk 2048), micro-batch 4
+   x accum 2 of 2048-token sequences from a DataLoader over 8 fixed
+   sequences, 8 steps, the step captured whole as one CUDA graph (the
+   first step eager then captured, the other 7 replays): losses finite
+   and falling, launch counts as the config implies (replays included),
+   tokens/s, ms/step, MFU, peak memory, the capture's seconds by part;
+   then on one saved state (kept on the host) 3 steps replayed and 3
+   eager: losses and masters bit-equal, each replay raising the flash
+   attention and AdamW launch counts by one step's; each way's ms a
+   step, tokens/s, MFU, peak memory and (from an untimed profiled step)
+   host share.
 9. int8 kernels against their plain versions: q8_matmul at the four
    (k, n) shapes of Qwen2.5-1.5B's seven projections, m in {1, 8, 4096},
    fp32 and bf16 x, and one ragged shape (257, 1000, 300), each output
@@ -171,8 +180,26 @@ exits non-zero.
       ``Server``'s on the same checkpoint, then SIGTERM: a drain and
       exit 0.
 
+16. Sampled serving and generation, all through replayed graphs:
+   a. phase 4's configuration and 24 requests, every second one sampled
+      (temperature 0.8, top-k 50 on half of those and none on the
+      others, a seed each), cold and then warm: every chunk a capture or
+      a replay (none eager) and ``check_run``; tok/s, TTFT and seconds
+      capturing beside phase 4's; the greedy requests' streams equal
+      phase 4's or parting at a near tie; each sampled request served
+      alone equal to its stream in the mix, or parting at a near tie of
+      its draw (``sampled_parting``);
+   b. with speculation on, on one saved state (pool and keys), a sampled
+      chunk and a sampled verify round each replayed and eager: tokens,
+      keys and pool bytes bit-equal; both timed, beside the greedy
+      variant of the chunk, and the sampler's device time a micro-step;
+   c. ``generate`` with temperature 0.8, top-k 50 and top-p 0.9 at batch
+      8, 512-token prompts, 128 tokens, replayed and eager from one
+      generator state: tokens bit-equal; tok/s beside phase 11's greedy.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists each kernel with its launches, error and times.
+lists each kernel with its launches (flash-decode's include 16a's
+replays, the training kernels' phase 8's), error and times.
 
     python3 chip_smoke.py
 """
@@ -824,13 +851,33 @@ def phase_serve(ctx) -> None:
           f"run); shared pool "
           + ("not measured" if pool is None else f"{pool / 2**30:.3f} GiB")
           + f" [{ctx['card']}]")
+    print(f"phase 4 capture cost: {capture_text(srv.graphs)} "
+          f"[{ctx['card']}]")
     ctx["launches"] = launches
     ctx["serve4"] = {"specs": [(r.prompt, r.max_new_tokens) for r in reqs],
                      "results": run["results"],
-                     "rate": gen_tokens / wall, "ttft": (p50, p99)}
+                     "rate": gen_tokens / wall, "ttft": (p50, p99),
+                     "capture_s": c["graph_capture_s"]}
     ctx["captured"] = probe_pass(ctx, srv, rng)
     del srv, model
     torch.cuda.empty_cache()
+
+
+def capture_text(*caches) -> str:
+    """The captures of ``caches`` (``GraphCache``s) and their seconds by
+    part: ``torch.cuda.graph``'s entry synchronize, ``gc.collect()`` and
+    allocator cache flushes, then the recording."""
+    from collections import Counter
+
+    parts, n = Counter(), 0
+    for g in caches:
+        parts.update(g.capture_parts)
+        n += sum(v for (_, what), v in g.calls.items() if what == "captures")
+    total = sum(g.capture_seconds for g in caches)
+    return (f"{n} captures in {total:.3f} s: synchronize "
+            f"{parts['sync']:.3f} s, gc.collect {parts['gc']:.3f} s, "
+            f"empty_cache {parts['empty_cache']:.3f} s, recording "
+            f"{parts['record']:.3f} s")
 
 
 def device_busy(prof) -> tuple[float, int]:
@@ -906,8 +953,8 @@ def probe_pass(ctx, srv, rng) -> dict:
     def eager():
         return _decode_chunk(
             srv.model, s.cache, torch.as_tensor(flat, device=DEVICE),
-            s.batch_size, cols, s.temperature.copy(), s.top_k.copy(),
-            list(s.generators), k, srv.eos_ids).cpu().numpy()
+            b=s.batch_size, cols=cols, n_steps=k,
+            eos_ids=srv.eos_ids).cpu().numpy()
 
     if ("decode", k, cols) not in srv.graphs.entries:
         srv._run_chunk(flat, k, cols)  # its first call: eager, captured
@@ -1141,6 +1188,7 @@ def kernel_line(ctx) -> dict:
 
 PEAK_BF16 = PEAK_OPS["bfloat16"]
 TRAIN_SEQ, TRAIN_MICRO, TRAIN_ACCUM, TRAIN_STEPS = 2048, 4, 2, 8
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 4
 
 
 def attention_bound(q, k, vis_pairs: int, products: int,
@@ -1372,9 +1420,9 @@ def measure_adamw(flush) -> dict:
     grads = {n: (1e-3 * torch.randn(*s, device=DEVICE, generator=gen))
              .to(gdt) for n, s in shapes.items()}
     state = opt.init(params, compute_dtype=torch.bfloat16)
-    # one step first, so the moments are not zero
+    # one step first, so the moments are not zero (the count advances
+    # in place)
     adw.fused_adamw_update(opt, grads, state, params)
-    state = state._replace(count=state.count + 1)
     ref_p = {n: t.clone() for n, t in params.items()}
     ref_s = adw.FusedAdamWState(
         count=state.count.clone(),
@@ -1623,7 +1671,6 @@ def train_flops_per_token(cfg, n_params: int) -> float:
 def phase_fit(ctx) -> None:
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import tony_tpu_torch.train.trainer as tr_mod
     from tony_tpu_torch.data import ArraySource, DataLoader
@@ -1645,8 +1692,14 @@ def phase_fit(ctx) -> None:
                                      batch["tokens"][:, 1:],
                                      chunk_size=2048, compute_dtype=cdt)
 
-    trainer = Trainer(model, apply_fn, FusedAdamW(3e-4), compute_dtype=cdt,
-                      accum_steps=TRAIN_ACCUM)
+    def warmup_lr(count):
+        """3e-4 after TRAIN_WARMUP steps, ramped linearly before: a
+        tensor of the device count, as a captured step needs."""
+        return TRAIN_LR * torch.clamp((count + 1).float() / TRAIN_WARMUP,
+                                      max=1.0)
+
+    trainer = Trainer(model, apply_fn, FusedAdamW(warmup_lr),
+                      compute_dtype=cdt, accum_steps=TRAIN_ACCUM)
     rng = np.random.default_rng(SEED)
     gb = TRAIN_MICRO * TRAIN_ACCUM
     data = rng.integers(0, cfg.vocab_size, (gb, TRAIN_SEQ)).astype(np.int64)
@@ -1705,51 +1758,60 @@ def phase_fit(ctx) -> None:
     check(launches[3] == TRAIN_STEPS,
           f"fused AdamW launches {launches[3]}, expected {TRAIN_STEPS} "
           "(one dtype group a step)")
+    g = trainer.graphs
+    calls = [g.calls["train_step", w] for w in ("captures", "replays",
+                                                "eager")]
+    check(calls == [1, TRAIN_STEPS - 1, 0],
+          f"phase 8: train_step captures/replays/eager {calls}, expected "
+          f"1/{TRAIN_STEPS - 1}/0 (one key: the first step eager then "
+          "captured, every later step a replay)")
     # steady steps: from the end of step 2 on the card to the end of the
     # last, over their count. The host's metric reads alone would not do:
     # they track how far the host runs ahead, not when the card ends a step
     check(len(stamps) == TRAIN_STEPS, f"{len(stamps)} metric stamps")
     step_ms = (t_end - stamps[0][1]) / (TRAIN_STEPS - 2) * 1e3
     tokens = gb * TRAIN_SEQ
+    flops = train_flops_per_token(cfg, n_params) * tokens
     tok_s = tokens / (step_ms / 1e3)
-    mfu = train_flops_per_token(cfg, n_params) * tokens \
-        / (step_ms / 1e3) / PEAK_BF16
+    mfu = flops / (step_ms / 1e3) / PEAK_BF16
     ctx["train_launches"] = launches
-    # the untimed probe: one unprofiled step's wall, then one step under
-    # torch.profiler for the device's busy time
-    state = result.state
-    it = loader.from_step(0)
-    batch = next(it)
-    it.close()
-    sync()
-    w0 = time.perf_counter()
-    state, _ = trainer.step(state, batch)
-    sync()
-    step_wall = time.perf_counter() - w0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        state, _ = trainer.step(state, batch)
-        sync()
-    dev_us = sum(getattr(r, "self_device_time_total",
-                         getattr(r, "self_cuda_time_total", 0.0))
-                 for r in prof.key_averages())
-    host = "not measured" if dev_us <= 0 else \
-        f"{max(0.0, 1.0 - dev_us * 1e-6 / step_wall):.3f}"
+    pool = g.pool_bytes()
+    print(f"phase 8 fit Qwen2.5-1.5B bf16 over fp32 masters, "
+          f"{cfg.n_layers} layers, remat attn_saved, {TRAIN_MICRO} x "
+          f"{TRAIN_ACCUM} x {TRAIN_SEQ} tokens a step, FusedAdamW(3e-4 "
+          f"after a {TRAIN_WARMUP}-step warmup, a tensor of count), the "
+          f"step captured whole: losses {[round(x, 4) for x in losses]}; "
+          f"{step_ms:.1f} ms/step (steps 3-{TRAIN_STEPS}, replays, on the "
+          f"card over their count; all {TRAIN_STEPS} in {wall:.1f} s), "
+          f"{tok_s:.0f} tokens/s, MFU {mfu:.4f} ({n_params} params, 989 "
+          f"TFLOP/s bf16 peak), peak memory {peak:.2f} GiB "
+          f"(max_memory_allocated over fit: the first call, the capture "
+          f"and the replays); launches fwd/dq/dkv/adamw {launches}, "
+          f"replays included [{ctx['card']}]")
+    print(f"phase 8 capture: {capture_text(g)}; graph pool "
+          + ("not measured" if pool is None else f"{pool / 2**30:.2f} GiB")
+          + f" [{ctx['card']}]")
+    state, gate = train_replay_gate(ctx, trainer, result.state, loader,
+                                    counters, cfg)
+    per = {}
+    for how, step_s in gate["step_s"].items():
+        per[how] = {"ms": step_s * 1e3, "tok_s": tokens / step_s,
+                    "mfu": flops / step_s / PEAK_BF16, **gate["probe"][how]}
+    for how, r in per.items():
+        print(f"phase 8 {how} step, on one saved state (3 steps timed "
+              f"between syncs): {r['ms']:.1f} ms/step, {r['tok_s']:.0f} "
+              f"tokens/s, MFU {r['mfu']:.4f}, host share {r['host']} "
+              f"(device busy {r['busy_ms']:.1f} ms in a profiled step, "
+              f"unprofiled step {r['wall_ms']:.1f} ms), peak memory "
+              f"{gate['peak'][how]:.2f} GiB [{ctx['card']}]")
+    prof = gate["prof"]
+    dev_us = per["eager"]["busy_ms"] * 1e3
+    host = per["eager"]["host"]
     top = sorted(prof.key_averages(),
                  key=lambda r: -getattr(r, "self_device_time_total",
                                         getattr(r, "self_cuda_time_total",
                                                 0.0)))[:6]
-    print(f"phase 8 fit Qwen2.5-1.5B bf16 over fp32 masters, "
-          f"{cfg.n_layers} layers, remat attn_saved, {TRAIN_MICRO} x "
-          f"{TRAIN_ACCUM} x {TRAIN_SEQ} tokens a step, FusedAdamW(3e-4): "
-          f"losses {[round(x, 4) for x in losses]}; {step_ms:.1f} ms/step "
-          f"(steps 3-{TRAIN_STEPS} on the card over their count; all "
-          f"{TRAIN_STEPS} in {wall:.1f} s), {tok_s:.0f} tokens/s, MFU "
-          f"{mfu:.4f} "
-          f"({n_params} params, 989 TFLOP/s bf16 peak), peak memory "
-          f"{peak:.1f} GiB; launches fwd/dq/dkv/adamw {launches}; host "
-          f"share {host} (device busy {dev_us * 1e-3:.1f} ms in a profiled"
-          f" step, unprofiled step {step_wall * 1e3:.1f} ms) "
-          f"[{ctx['card']}]")
+    print("  the eager profiled step's largest device times:")
     for r in top:
         t = getattr(r, "self_device_time_total",
                     getattr(r, "self_cuda_time_total", 0.0))
@@ -1768,13 +1830,106 @@ def phase_fit(ctx) -> None:
     attn_ms = sum(attn.values())
     share = "not measured" if dev_us <= 0 else \
         f"{attn_ms / (dev_us * 1e-3):.3f}"
-    print("  attention kernels' device time in the profiled step: "
+    print("  attention kernels' device time in the eager profiled step: "
           + ", ".join(f"{n} {t:.1f} ms" for n, t in attn.items())
           + f"; {attn_ms:.1f} ms, {share} of the device busy time")
     ctx["fit"] = {"step_ms": step_ms, "tok_s": tok_s, "mfu": mfu,
-                  "peak_gib": peak, "losses": losses, "host": host}
-    del result, state, trainer, model, prof
+                  "peak_gib": peak, "losses": losses, "host": host,
+                  "per": per}
+    del result, state, trainer, model, prof, g
     torch.cuda.empty_cache()
+
+
+def train_state_tensors(state) -> list:
+    """Every tensor a training step writes: the masters, the count, the
+    moments and the compute copies (the module's parameters)."""
+    opt = state.opt_state
+    return [*state.params.values(), opt.count, *opt.mu.values(),
+            *opt.nu.values(), *(opt.compute_params or {}).values()]
+
+
+def train_replay_gate(ctx, trainer, state, loader, counters, cfg):
+    """Phase 8's gate: on one saved state (kept on the host), 3 steps
+    replayed, then the state put back and the same 3 steps eager:
+    losses and masters bit-equal, and every step raising the flash
+    attention and AdamW launch counts by one step's launches. Each way
+    also runs an untimed probe (one unprofiled step for its wall, one
+    under torch.profiler for the device's busy time). The captured
+    step's graph and its pool (about 23 GiB) are let go before the
+    eager steps, which need that much room of their own. Returns the
+    state and each way's seconds a step, peak memory and probe."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    it = loader.from_step(0)
+    batches = [next(it) for _ in range(3)]
+    it.close()
+    live = train_state_tensors(state)
+    saved = [t.to("cpu", copy=True) for t in live]
+    per_step = [cfg.n_layers * TRAIN_ACCUM] * 3 + [1]
+    out = {"loss": {}, "masters": {}, "step_s": {}, "peak": {},
+           "probe": {}}
+    graphs = trainer.graphs
+    for how in ("replayed", "eager"):
+        if how == "eager":
+            graphs.entries.clear()
+            torch.cuda.empty_cache()
+            trainer.graphs = None
+            for t, keep in zip(live, saved):
+                t.copy_(keep)
+        replays = graphs.calls["train_step", "replays"]
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        try:
+            sync()
+            t0 = time.perf_counter()
+            for b in batches:
+                before = [c.launches for c in counters]
+                state, m = trainer.step(state, b)
+                losses.append(m["loss"])
+                rise = [c.launches - n for c, n in zip(counters, before)]
+                check(rise == per_step, f"phase 8 {how} step: launches "
+                      f"fwd/dq/dkv/adamw rose by {rise}, one step is "
+                      f"{per_step}")
+            sync()
+            out["step_s"][how] = (time.perf_counter() - t0) / len(batches)
+            out["peak"][how] = torch.cuda.max_memory_allocated() / 2 ** 30
+            if how == "replayed":
+                check(graphs.calls["train_step", "replays"] == replays + 3,
+                      "phase 8: the gate's replayed steps were not replays")
+            out["loss"][how] = torch.stack(losses).cpu()
+            out["masters"][how] = [t.to("cpu", copy=True)
+                                   for t in state.params.values()]
+            w0 = time.perf_counter()
+            state, _ = trainer.step(state, batches[0])
+            sync()
+            wall = time.perf_counter() - w0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                state, _ = trainer.step(state, batches[0])
+                sync()
+        finally:
+            trainer.graphs = graphs
+        dev_us = sum(getattr(r, "self_device_time_total",
+                             getattr(r, "self_cuda_time_total", 0.0))
+                     for r in prof.key_averages())
+        out["probe"][how] = {
+            "host": "not measured" if dev_us <= 0 else
+            f"{max(0.0, 1.0 - dev_us * 1e-6 / wall):.3f}",
+            "busy_ms": dev_us * 1e-3, "wall_ms": wall * 1e3}
+        out["prof"] = prof
+    check(torch.equal(out["loss"]["replayed"], out["loss"]["eager"]),
+          f"phase 8: replayed losses {out['loss']['replayed'].tolist()} "
+          f"against eager {out['loss']['eager'].tolist()}")
+    differ = [n for n, a, b in zip(state.params, out["masters"]["replayed"],
+                                   out["masters"]["eager"])
+              if not torch.equal(a, b)]
+    check(not differ, f"phase 8: masters differ replayed against eager: "
+          f"{differ[:4]} ({len(differ)} leaves)")
+    print(f"phase 8 gate: 3 steps replayed and 3 eager from one saved "
+          f"state: losses {out['loss']['eager'].tolist()} and all "
+          f"{len(state.params)} masters bit-equal; each step raised "
+          f"fwd/dq/dkv/adamw launches by {per_step} [{ctx['card']}]")
+    return state, out
 
 
 def train_kernel_lines(ctx) -> list[dict]:
@@ -2606,9 +2761,8 @@ def verify_replay_check(ctx, srv, rng) -> None:
     def eager():
         return _verify_chunk(
             srv.model, s.cache, torch.as_tensor(flat, device=DEVICE),
-            s.batch_size, window, cols, s.temperature.copy(),
-            s.top_k.copy(), list(s.generators), k_cont,
-            srv.eos_ids).cpu().numpy()
+            b=s.batch_size, window=window, cols=cols, n_steps=k_cont,
+            eos_ids=srv.eos_ids).cpu().numpy()
 
     def replayed():
         return srv._run_verify(flat, window, k_cont, cols)
@@ -3155,8 +3309,8 @@ def rows_replay_check(ctx, srv, rng) -> None:
     def eager():
         return _decode_chunk(
             srv.model, s.cache, torch.as_tensor(flat, device=DEVICE),
-            s.batch_size, 0, s.temperature.copy(), s.top_k.copy(),
-            list(s.generators), k, srv.eos_ids).cpu().numpy()
+            b=s.batch_size, cols=0, n_steps=k,
+            eos_ids=srv.eos_ids).cpu().numpy()
 
     def replayed():
         return srv._run_chunk(flat, k, cols)
@@ -3620,6 +3774,8 @@ def phase_gateway(ctx) -> None:
           f"{ties_text(warm_ties, len(specs))}; host share of wall {host} (device busy "
           f"{dev_us * 1e-3:.1f} ms in {ops} device ops over a profiled "
           f"warm pass) [{ctx['card']}]")
+    print(f"phase 15a capture cost, both replicas: "
+          f"{capture_text(*(s.graphs for s in servers))} [{ctx['card']}]")
     print("phase 15a goodput buckets (fleet, at the end of the cold "
           "pass): "
           + ", ".join(f"{k} {v:.4f}" for k, v in sorted(buckets.items()))
@@ -3686,6 +3842,367 @@ def phase_gateway_cli(ctx) -> None:
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
+# ------------------------------------------------------------- sampled
+
+SAMPLED_TEMP, SAMPLED_TOP_K, GEN_TOP_P = 0.8, 50, 0.9
+
+
+def sampled_knobs(i: int) -> dict:
+    """16a's knobs for phase 4's request ``i``: every second request
+    samples (temperature 0.8, top-k 50 on half of those and none on the
+    others), each with its own seed; the rest are greedy."""
+    if i % 2 == 0:
+        return {}
+    return dict(temperature=SAMPLED_TEMP,
+                top_k=SAMPLED_TOP_K if i % 4 == 1 else 0, seed=SEED + i)
+
+
+def sampled_parting(model, prompt, a: list, b: list, knobs: dict,
+                    what: str):
+    """Two streams of one sampled request held to the near-tie rule of a
+    draw: at their first parting ``j`` the plain forward over the common
+    prefix, scaled and cut as the request's sampler does, plus the
+    Gumbel variates of its ``j``-th subkey (``PRNGKey(seed)`` split once
+    a token), must put both tokens within ``NEAR_TIE`` x the row's
+    largest |logit| over the temperature. None when the streams are
+    equal; else (index, gap, tolerance)."""
+    import torch
+
+    from tony_tpu_torch.ops import sampling
+
+    j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if j is None:
+        check(len(a) == len(b), f"{what}: {len(a)} tokens against "
+              f"{len(b)}")
+        return None
+    seq = torch.tensor([list(prompt) + list(a[:j])], device=DEVICE)
+    with torch.no_grad():
+        hidden = model(seq, return_hidden=True)
+        logits = model.logits(hidden[0, -1:])
+    key = sampling.key_tensor(knobs["seed"], DEVICE)
+    for _ in range(j):
+        key = sampling.split(key)[0]
+    temp = knobs["temperature"]
+    cut = sampling._rank_cut(
+        logits / temp, torch.tensor([knobs["top_k"]], device=DEVICE))[0]
+    z = cut + sampling.gumbel(sampling.split(key)[1],
+                              (logits.shape[-1],))
+    gap = abs(float(z[a[j]] - z[b[j]]))
+    tol = NEAR_TIE * float(logits.abs().max()) / temp
+    check(gap <= tol, f"{what}: the sampled streams part at token {j} "
+          f"({a[j]} against {b[j]}), draw gap {gap:.4g} under the plain "
+          f"forward > {tol:.4g}")
+    return j, gap, tol
+
+
+def phase_sampled(ctx) -> None:
+    """16: sampled serving and sampled ``generate`` through replayed
+    graphs (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.serve import Request
+
+    cfg = qwen_config(dtype=torch.bfloat16)
+    model = Transformer(cfg, device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    specs = ctx["serve4"]["specs"]
+    s4 = ctx["serve4"]
+
+    def reqs():
+        return [Request(list(p), n, id=i, **sampled_knobs(i))
+                for i, (p, n) in enumerate(specs)]
+
+    srv = serve_server(model)
+    runs = {}
+    for how in ("cold", "warm"):
+        base = srv.counters()
+        r = reqs()
+        run = serve_timed(srv, r)
+        c = check_run(srv, r, run, f"16a {how}", base)
+        chunks = c["dispatches"] - base.get("dispatches", 0)
+        caps = c["graph_decode_captures"] - base.get(
+            "graph_decode_captures", 0)
+        reps = c["graph_decode_replays"] - base.get(
+            "graph_decode_replays", 0)
+        check(c["graph_decode_eager"] == 0 and caps + reps == chunks,
+              f"16a {how}: {caps} captures + {reps} replays + "
+              f"{c['graph_decode_eager']} eager of {chunks} chunks")
+        ctx["launches"] += run["launches"]
+        gen = sum(len(res.tokens) for res in run["results"].values())
+        p50, p99 = percentiles(run["first"][q.id] for q in r)
+        cap_s = c["graph_capture_s"] - base.get("graph_capture_s", 0.0)
+        runs[how] = run
+        print(f"phase 16a sampled serve, phase 4's configuration and 24 "
+              f"requests, 12 sampled (temperature {SAMPLED_TEMP}, top-k "
+              f"{SAMPLED_TOP_K} on 6, none on 6), {how}: {gen} tokens in "
+              f"{run['wall']:.2f} s = {gen / run['wall']:.1f} tok/s "
+              f"(phase 4 greedy, cold: {s4['rate']:.1f}); TTFT p50 "
+              f"{p50:.3f} s, p99 {p99:.3f} s (phase 4: {s4['ttft'][0]:.3f}"
+              f" / {s4['ttft'][1]:.3f} s); {cap_s:.2f} s capturing (phase "
+              f"4: {s4['capture_s']:.2f} s); {chunks} chunks: {caps} "
+              f"captures + {reps} replays, 0 eager; flash_decode launches "
+              f"{run['launches']} [{ctx['card']}]")
+    keys = sorted(k for k in srv.graphs.entries if k[0] == "decode")
+    print(f"phase 16a chunk keys: {sum(k[-1] == 'sampled' for k in keys)} "
+          f"sampled, {sum(k[-1] != 'sampled' for k in keys)} greedy; "
+          f"capture cost {capture_text(srv.graphs)} [{ctx['card']}]")
+    mixed = runs["cold"]["results"]
+    want = s4["results"]
+    greedy_ties, sampled_ties = [], []
+    for i, (prompt, _) in enumerate(specs):
+        if sampled_knobs(i):
+            continue
+        tie = parting(model, prompt, mixed[i].tokens, want[i].tokens,
+                      f"16a greedy request {i} against phase 4")
+        if tie is None:
+            check(mixed[i].finish_reason == want[i].finish_reason,
+                  f"16a request {i}: {mixed[i].finish_reason} against "
+                  f"{want[i].finish_reason}")
+        else:
+            greedy_ties.append((i, *tie))
+    warm_equal = sum(runs["warm"]["results"][i].tokens == mixed[i].tokens
+                     for i in mixed)
+    for i, (prompt, n) in enumerate(specs):
+        knobs = sampled_knobs(i)
+        if not knobs:
+            continue
+        alone = serve_timed(srv, [Request(list(prompt), n, id="alone",
+                                          **knobs)])["results"]["alone"]
+        tie = sampled_parting(model, prompt, mixed[i].tokens,
+                              alone.tokens, knobs,
+                              f"16a sampled request {i} alone")
+        if tie is None:
+            check(mixed[i].finish_reason == alone.finish_reason,
+                  f"16a sampled request {i}: {mixed[i].finish_reason} "
+                  f"mixed against {alone.finish_reason} alone")
+        else:
+            sampled_ties.append((i, *tie))
+    print(f"phase 16a greedy requests against phase 4: "
+          f"{ties_text(greedy_ties, 12)}; sampled requests alone against "
+          f"in the mix: {ties_text(sampled_ties, 12)}; warm pass equal to "
+          f"cold in {warm_equal} of 24 streams [{ctx['card']}]")
+    del srv
+    torch.cuda.empty_cache()
+    sampled_replay_check(ctx, model, np.random.default_rng(SEED + 16))
+    sampled_generate(ctx, model, np.random.default_rng(SEED + 17))
+    del model
+    torch.cuda.empty_cache()
+
+
+def sampled_replay_check(ctx, model, rng) -> None:
+    """16b: a Server with speculation (phase 13a's ``speculate_k``) and 8
+    requests of 1500 tokens, 4 greedy over a repeated pattern (they
+    draft) and 4 sampled; after their first round, on one saved state
+    (pool and keys put back before each run), one sampled chunk and one
+    sampled verify round each replayed and eager: tokens, keys and pool
+    bytes bit-equal; then each timed (median of 3), a greedy chunk
+    replayed on the same state beside the sampled one, and the sampler
+    alone on [8, V] logits under torch.profiler."""
+    import functools
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tony_tpu_torch.ops import sampling
+    from tony_tpu_torch.serve import Request
+    from tony_tpu_torch.serve.engine import _decode_chunk, _verify_chunk
+
+    srv = serve_server(model, speculate_k=SPEC_K)
+    for i in range(8):
+        if i % 2 == 0:
+            prompt = np.resize(rng.integers(0, 151643, 6), 1500).tolist()
+            knobs = {}
+        else:
+            prompt = rng.integers(0, 151643, 1500).tolist()
+            knobs = dict(temperature=SAMPLED_TEMP, seed=SEED + 100 + i,
+                         top_k=SAMPLED_TOP_K if i % 4 == 1 else 0)
+        srv.submit(Request(prompt, 64, id=f"s{i}", **knobs))
+    srv.step()  # admits all 8 and runs their first round
+    check(srv.n_active == 8, f"16b: {srv.n_active} of 8 live")
+    s = srv.slots
+    rows = (s.temps, s.top_ks, s.keys)
+    k, ccols, cflat = srv._prepare_chunk()
+    drafts = srv._collect_drafts()
+    if drafts is None:  # no draft proposed: the round's layout is the same
+        drafts = [np.full(4, s.last_token[i]) if s.temperature[i] == 0
+                  else None for i in range(8)]
+    window, k_cont, vcols, vflat, _ = srv._prepare_verify(drafts)
+    leaves = pool_leaves(srv)
+    saved = [leaf.clone() for leaf in leaves]
+    saved_keys = s.keys.clone()
+    n = s.pool.n_pages
+
+    def restore():
+        for leaf, keep in zip(leaves, saved):
+            leaf.copy_(keep)
+        s.keys.copy_(saved_keys)
+        sync()
+
+    calls = {
+        "chunk": (("decode", k, ccols, "sampled"),
+                  lambda: srv._run_chunk(cflat, k, ccols),
+                  lambda: _decode_chunk(
+                      srv.model, s.cache,
+                      torch.as_tensor(cflat, device=DEVICE), *rows,
+                      b=s.batch_size, cols=ccols, n_steps=k,
+                      eos_ids=srv.eos_ids).cpu().numpy()),
+        "verify round": (("verify", window, k_cont, vcols, "sampled"),
+                         lambda: srv._run_verify(vflat, window, k_cont,
+                                                 vcols),
+                         lambda: _verify_chunk(
+                             srv.model, s.cache,
+                             torch.as_tensor(vflat, device=DEVICE), *rows,
+                             b=s.batch_size, window=window, cols=vcols,
+                             n_steps=k_cont,
+                             eos_ids=srv.eos_ids).cpu().numpy())}
+    ms = {}
+    for name, (key, replayed, eager) in calls.items():
+        restore()
+        if key not in srv.graphs.entries:
+            replayed()  # its first call: eager, then captured
+            restore()
+        want = eager()
+        want_pool = [leaf[:n].clone() for leaf in leaves]
+        want_keys = s.keys.clone()
+        restore()
+        before = srv.graphs.calls[key[0], "replays"]
+        got = replayed()
+        check(srv.graphs.calls[key[0], "replays"] == before + 1,
+              f"16b: the sampled {name} was not a replay")
+        check((got == want).all(), f"16b: replayed sampled {name} tokens "
+              "differ from the eager run's")
+        check(torch.equal(s.keys, want_keys), f"16b: replayed sampled "
+              f"{name} keys differ from the eager run's")
+        check(all(torch.equal(leaf[:n], w)
+                  for leaf, w in zip(leaves, want_pool)),
+              f"16b: replayed sampled {name} pool bytes differ from the "
+              "eager run's")
+        check(not (want_keys == saved_keys).all(),
+              f"16b: the sampled {name} advanced no key")
+        del want_pool
+        times = {"eager": [], "replayed": []}
+        for _ in range(3):
+            for how, run in (("eager", eager), ("replayed", replayed)):
+                restore()
+                t0 = time.perf_counter()
+                run()
+                times[how].append(time.perf_counter() - t0)
+        ms[name] = {how: statistics.median(t) * 1e3
+                    for how, t in times.items()}
+    # the greedy variant of the same chunk key, replayed on the same state
+    greedy_fn = functools.partial(
+        _decode_chunk, srv.model, s.cache, b=s.batch_size, cols=ccols,
+        n_steps=k, eos_ids=srv.eos_ids)
+    restore()
+    srv._dispatch("decode", (k, ccols), cflat, greedy_fn)
+    g_times = []
+    for _ in range(3):
+        restore()
+        t0 = time.perf_counter()
+        srv._dispatch("decode", (k, ccols), cflat, greedy_fn).cpu()
+        g_times.append(time.perf_counter() - t0)
+    restore()
+    greedy_ms = statistics.median(g_times) * 1e3
+    # the sampler alone on one micro-step's logits
+    logits = torch.randn(8, model.cfg.vocab_size, device=DEVICE,
+                         generator=torch.Generator(device=DEVICE)
+                         .manual_seed(SEED)) * 4
+    done = torch.zeros(8, dtype=torch.bool, device=DEVICE)
+    for _ in range(2):
+        sampling.sample_rows(logits, s.keys, s.temps, s.top_ks, done)
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sampling.sample_rows(logits, s.keys, s.temps, s.top_ks, done)
+        sync()
+    dev_us, ops = device_busy(prof)
+    restore()
+    del saved
+    while not srv.done:
+        srv.step()
+    c = srv.counters()
+    check(c["graph_decode_eager"] == c["graph_verify_eager"] == 0,
+          "16b: a chunk or verify round ran eagerly")
+    print(f"phase 16b on one saved state, batch 8 (4 sampled), replayed "
+          f"and eager: a sampled chunk ({k} micro-steps, {ccols} page "
+          f"columns) and a sampled verify round (window {window}, {k_cont} "
+          f"continuation steps): tokens, keys and pool bytes bit-equal; "
+          f"median of 3: chunk eager {ms['chunk']['eager']:.1f} ms, "
+          f"replayed {ms['chunk']['replayed']:.1f} ms (the greedy variant "
+          f"replayed {greedy_ms:.1f} ms); verify round eager "
+          f"{ms['verify round']['eager']:.1f} ms, replayed "
+          f"{ms['verify round']['replayed']:.1f} ms [{ctx['card']}]")
+    print(f"phase 16b the sampler a micro-step (sample_rows on [8, "
+          f"{model.cfg.vocab_size}] fp32 logits, eager, torch.profiler): "
+          f"{dev_us * 1e-3:.3f} ms of device time in {ops} device ops; "
+          f"sampled less greedy chunk, replayed, over {k} micro-steps: "
+          f"{(ms['chunk']['replayed'] - greedy_ms) / k:.3f} ms "
+          f"[{ctx['card']}]")
+    ctx["sampled16b"] = {"ms": ms, "greedy_ms": greedy_ms,
+                         "sampler_ms": dev_us * 1e-3}
+
+
+def sampled_generate(ctx, model, rng) -> None:
+    """16c: a sampled ``generate`` (temperature 0.8, top-k 50, top-p 0.9;
+    batch 8, 512-token prompts, 128 tokens) replayed and eager from the
+    same generator state: tokens bit-equal, tok/s beside phase 11's
+    greedy."""
+    import torch
+
+    from tony_tpu_torch.models.generate import (_generate_eager, _picker,
+                                                generate)
+    from tony_tpu_torch.ops.sampling import key_from_generator
+
+    prompt = torch.as_tensor(rng.integers(0, 151643, (INT8_BATCH,
+                                                      INT8_PROMPT)),
+                             device=DEVICE)
+    kw = dict(temperature=SAMPLED_TEMP, top_k=SAMPLED_TOP_K, top_p=GEN_TOP_P)
+
+    def gen(seed):
+        return torch.Generator(device=DEVICE).manual_seed(seed)
+
+    generate(model, prompt[:, :16], max_new_tokens=2, generator=gen(1),
+             **kw)  # captures the sampled step
+    before = model.graphs.counters(("generate",))
+    sync()
+    t0 = time.perf_counter()
+    got = generate(model, prompt, max_new_tokens=INT8_NEW,
+                   generator=gen(SEED), **kw)
+    sync()
+    wall_r = time.perf_counter() - t0
+    after = model.graphs.counters(("generate",))
+    check(after["generate_replays"] - before["generate_replays"]
+          == INT8_NEW - 1 and after["generate_eager"] == 0
+          and after["generate_captures"] == before["generate_captures"],
+          f"16c: generate counters {before} -> {after}: every step must "
+          "be a replay")
+    sync()
+    t0 = time.perf_counter()
+    sampler = (key_from_generator(gen(SEED), DEVICE), SAMPLED_TEMP,
+               SAMPLED_TOP_K, GEN_TOP_P)
+    want = _generate_eager(model, prompt, INT8_NEW, _picker(model, sampler),
+                           ())
+    sync()
+    wall_e = time.perf_counter() - t0
+    check(torch.equal(got, want), "16c: replayed sampled generate's tokens "
+          "differ from the eager loop's")
+    distinct = int(torch.unique(got).numel())
+    check(distinct > INT8_NEW, f"16c: only {distinct} distinct tokens")
+    tokens = INT8_BATCH * INT8_NEW
+    greedy = ctx["int8_generate"]["bf16"]["replayed"]["tok_s"]
+    print(f"phase 16c sampled generate (temperature {SAMPLED_TEMP}, top-k "
+          f"{SAMPLED_TOP_K}, top-p {GEN_TOP_P}), batch {INT8_BATCH}, "
+          f"{INT8_PROMPT}-token prompts, {INT8_NEW} tokens: replayed "
+          f"{wall_r:.3f} s = {tokens / wall_r:.1f} tok/s, eager "
+          f"{wall_e:.3f} s = {tokens / wall_e:.1f} tok/s, tokens bit-equal "
+          f"({distinct} distinct); phase 11 greedy replayed "
+          f"{greedy:.1f} tok/s [{ctx['card']}]")
+    ctx["sampled16c"] = {"tok_s": tokens / wall_r,
+                         "eager_tok_s": tokens / wall_e}
+
+
 def mistral_kernel_line(ctx) -> dict:
     m = ctx["mistral_call"]
     return {"name": "flash_decode (Mistral-7B-v0.1, window 4096)",
@@ -3731,7 +4248,8 @@ def main() -> int:
                         ("unpaged-qwen", phase_unpaged_qwen),
                         ("unpaged-cli", phase_unpaged_cli),
                         ("gateway", phase_gateway),
-                        ("gateway-cli", phase_gateway_cli)):
+                        ("gateway-cli", phase_gateway_cli),
+                        ("sampled", phase_sampled)):
         t0 = time.perf_counter()
         try:
             phase(ctx)

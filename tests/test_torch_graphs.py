@@ -4,38 +4,46 @@ that replay through it held against the JAX package.
 
 The stand-in (``StandIn``) keeps what a CUDA graph does to Python: a
 capture runs the wrappers' Python but changes no state the caller
-passed in (it runs the function once on copies of the static buffers'
-values and puts them back; the engine's other writes, to the page
-pool, are the same bytes on the same inputs), and a replay changes
+passed in (it runs the function once and puts back the static buffers
+and whatever a ``functools.partial`` binds, the engine's cache among
+them: a sampled call draws anew from keys the first call advanced, so
+its writes differ), and a replay changes
 state and fills the output but calls no wrapper (the launch counts a
-replay's Python would add are taken back).
+replay's Python would add are taken back). Its capture runs under
+``HostReadGuard``, which raises on any host read of a tensor, as the
+card's capture fails on the sync such a read makes.
 
 - Keys; the first call at a key runs eagerly on the key's buffers and
   its result is the call's; the launch-count delta of a capture is
   taken back and added on each replay; a capture error raises and
-  leaves no entry.
+  leaves no entry, and so does a host read under the guard; the
+  capture's entry calls are timed and put back.
 - The ``Server`` through the stand-in: greedy streams equal the JAX
   ``Server``'s across slot re-admission (the key's buffers refilled on
   every replay); every chunk and prefill is a capture or a replay; a
-  chunk with a sampled live row is eager and counted; a capture error
-  raises out of ``step``. Unpaged, chunks and verify rounds replay
+  chunk with a sampled live row replays at its key's sampled variant;
+  a capture error raises out of ``step``. Unpaged, chunks and verify rounds replay
   over the resident rows and prefills are eager calls.
 - ``generate``'s per-slot step (the position on the device) equals the
   scalar-index step bit for bit (bf16 model, int8 weights, int8 KV
   cache); the replayed ``generate`` gives the JAX package's tokens, on
-  fp32 and int8 weights, and counts a sampled call's steps as eager.
+  fp32 and int8 weights, and replays a sampled call's steps at its own
+  key, equal to the eager loop from the same generator state.
 
 Tolerances: none; tokens and logits are compared for equality.
 """
 
 import contextlib
 import dataclasses
+import functools
+import gc
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from torch_parity import build_pair, tokens
 from tony_tpu.models.generate import generate as jax_generate
@@ -46,7 +54,8 @@ from tony_tpu_torch.models import quantize_for_serving
 from tony_tpu_torch.models.convert import from_jax_params
 from tony_tpu_torch.models.generate import (_generate_eager, generate,
                                             init_cache, single_decode_step)
-from tony_tpu_torch.models.graphs import (GraphCache, launch_counts,
+from tony_tpu_torch.models.graphs import (CAPTURE_PARTS, GraphCache,
+                                          _timed_entry, launch_counts,
                                           set_launch_counts)
 from tony_tpu_torch.models.transformer import Transformer
 from tony_tpu_torch.ops.decode import flash_decode
@@ -73,7 +82,7 @@ def _restore(x, saved):
                 _restore(x[k], saved[k])
             else:
                 x[k] = saved[k]
-    else:
+    elif isinstance(x, (tuple, list)):
         for v, s in zip(x, saved):
             _restore(v, s)
 
@@ -90,8 +99,30 @@ class StandInGraph:
             self.out.copy_(new)
 
 
+class HostRead(RuntimeError):
+    """A captured function read a tensor on the host."""
+
+
+class HostReadGuard(TorchFunctionMode):
+    """Raises on any host read of a tensor (``item``, ``tolist``,
+    ``cpu``, ``numpy``, ``__bool__``, ``__int__``, ``__float__``,
+    ``__index__``, ``__array__``): on the card each is a device sync,
+    which breaks a capture, so a CPU run under this guard fails where
+    the capture would."""
+
+    READS = frozenset(("item", "tolist", "cpu", "numpy", "__bool__",
+                       "__int__", "__float__", "__index__", "__array__"))
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", "")
+        if name in self.READS:
+            raise HostRead(f"host read of a tensor in a capture: {name}")
+        return func(*args, **(kwargs or {}))
+
+
 class StandIn:
-    """``CudaGraphs``'s three methods on the CPU."""
+    """``CudaGraphs``'s three methods on the CPU. A capture runs the
+    function under ``HostReadGuard``."""
 
     def __init__(self, fail: bool = False):
         self.fail = fail
@@ -103,11 +134,16 @@ class StandIn:
         yield
 
     def capture(self, fn, statics):
-        saved = _snapshot(statics)
-        out = fn(*statics)
+        # what the call may write: its static buffers and what a partial
+        # binds (the engine's cache); all of it is put back
+        state = (statics, (fn.args, fn.keywords)
+                 if isinstance(fn, functools.partial) else ())
+        saved = _snapshot(state)
+        with HostReadGuard():
+            out = fn(*statics)
         if self.fail:
             raise RuntimeError("stand-in capture failed")
-        _restore(statics, saved)
+        _restore(state, saved)
         return StandInGraph(fn, statics, out), out
 
     def pool_bytes(self):
@@ -179,6 +215,32 @@ def test_capture_error_raises_and_leaves_no_entry(zeroed):
     assert g.calls["decode", "captures"] == 0
 
 
+def test_stand_in_capture_refuses_host_reads(zeroed):
+    """A function that reads a tensor on the host fails its capture, as
+    it would on the card, and leaves no entry; its first call (eager)
+    ran."""
+    g = GraphCache("cpu", StandIn())
+    for read in (lambda x: x.sum().item(), lambda x: bool(x.any()),
+                 lambda x: x.tolist(), lambda x: int(x[0]),
+                 lambda x: x.cpu()):
+        e = g.entry(("decode", 1), lambda: (torch.ones(2),))
+        with pytest.raises(HostRead):
+            g.run(e, read)
+        assert g.entries == {}
+
+
+def test_capture_parts_are_timed_and_the_calls_restored():
+    """``_timed_entry`` times the calls ``torch.cuda.graph`` makes on entry
+    while it is held, and puts the real ones back after."""
+    real = gc.collect
+    parts = dict.fromkeys(CAPTURE_PARTS, 0.0)
+    with _timed_entry(parts):
+        assert gc.collect is not real
+        gc.collect()
+    assert gc.collect is real
+    assert parts["gc"] > 0 and parts["sync"] == parts["empty_cache"] == 0
+
+
 def test_eager_calls_are_counted(zeroed):
     g = GraphCache("cpu", StandIn())
     assert g.eager("decode", lambda a: a + 1, 2) == 3
@@ -240,18 +302,24 @@ def test_replayed_server_matches_jax(models, chunk_steps):
 
 
 def test_sampled_chunks_run_eagerly_and_are_counted(models):
+    """A chunk with a live sampled row is no longer eager: it replays at
+    its key's sampled variant, and the streams equal the eager
+    server's."""
     _, _, tm = models
+    temps = [0.0, 0.8, 0.0, 0.0, 0.0, 0.0, 0.0]
+    want = _serve(Server(tm, batch_size=2, eos_id=EOS, chunk_steps=4,
+                         device="cpu", **SERVE), Request, temps)
     srv = Server(tm, batch_size=2, eos_id=EOS, chunk_steps=4,
                  device="cpu", **SERVE)
     srv.graphs = GraphCache("cpu", StandIn())
-    temps = [0.0, 0.8, 0.0, 0.0, 0.0, 0.0, 0.0]
-    _serve(srv, Request, temps)
+    assert _serve(srv, Request, temps) == want
     c = srv.counters()
-    assert c["graph_decode_eager"] > 0
+    assert c["graph_decode_eager"] == 0
     assert c["graph_decode_captures"] + c["graph_decode_replays"] \
-        + c["graph_decode_eager"] == c["dispatches"]
+        == c["dispatches"]
     assert c["graph_prefill_captures"] + c["graph_prefill_replays"] \
         == c["prefills"]
+    assert any(k[-1] == "sampled" for k in srv.graphs.entries)
 
 
 def test_server_capture_error_raises(models):
@@ -366,8 +434,14 @@ def test_replayed_generate_matches_jax(int8, zeroed):
     eager = _generate_eager(tm, torch.as_tensor(prompt), 12,
                             lambda x: torch.argmax(x, -1), eos).numpy()
     np.testing.assert_array_equal(eager, want)
-    generate(tm, prompt, max_new_tokens=5, temperature=0.7,
-             generator=torch.Generator().manual_seed(0))
+    sampled = generate(tm, prompt, max_new_tokens=5, temperature=0.7,
+                       generator=torch.Generator().manual_seed(0))
     c = tm.graphs.counters(("generate",))
-    assert c["generate_eager"] == 4
-    assert c["generate_replays"] == 21
+    assert c["generate_eager"] == 0
+    assert c["generate_captures"] == 2
+    assert c["generate_replays"] == 21 + 3
+    graphs, tm.graphs = tm.graphs, None
+    again = generate(tm, prompt, max_new_tokens=5, temperature=0.7,
+                     generator=torch.Generator().manual_seed(0))
+    tm.graphs = graphs
+    assert torch.equal(sampled, again)

@@ -25,6 +25,14 @@ it; with no CUDA device they skip (a CUDA graph has no CPU mode):
   step of its second) and launched eagerly, with bf16 and int8 weights
   and with a repetition penalty: equal tokens, and q8_matmul launches
   of 7 x n_layers a forward.
+- Sampled requests through the ``Server`` (paged, with speculation,
+  unpaged with speculation) with its graphs and with none: equal
+  tokens, no chunk or verify round eager; a sampled ``generate``
+  replayed and eager from one generator state: equal tokens.
+- ``Trainer.step`` captured whole and eager from equal states, one and
+  two micro-batches: losses and masters bit-equal, each step adding
+  one step's flash attention and fused AdamW launches, and replays after
+  fused AdamW's table cache was emptied still equal.
 
 Tolerance: none (bit-equal).
 """
@@ -259,3 +267,133 @@ def test_replayed_generate_bit_equal_to_eager(int8):
         # two prefills and 2 x 23 steps, each 7 projections a layer
         assert q8_matmul.launches - before \
             == 7 * model.cfg.n_layers * (2 + 46)
+
+
+def _serve_sampled(model, graphs: bool, **option):
+    """``_serve_option``'s eight repetitive prompts, every second request
+    sampled (temperature 0.8, top-k 20 on half of those), a seed each."""
+    rng = np.random.default_rng(2)
+    srv = Server(model, batch_size=3, eos_id=(5, 7), chunk_steps=8,
+                 min_bucket=16, kv_page_size=16, prefix_cache_mb=8.0,
+                 **option)
+    if not graphs:
+        srv.graphs = None
+    for i in range(8):
+        pattern = rng.integers(0, 512, int(rng.integers(3, 9))).tolist()
+        n = int(rng.integers(20, 201))
+        knobs = {} if i % 2 == 0 else dict(
+            temperature=0.8, top_k=20 if i % 4 == 1 else 0, seed=i)
+        srv.submit(Request((pattern * 70)[:n], int(rng.integers(8, 48)),
+                           id=i, **knobs))
+    out = {}
+    while not srv.done:
+        for r in srv.step():
+            out[r.id] = (r.tokens, r.finish_reason)
+    torch.cuda.synchronize()
+    return out, srv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", [{}, {"speculate_k": 4},
+                                    {"paged": False, "speculate_k": 4}],
+                         ids=["paged", "spec", "unpaged_spec"])
+def test_sampled_rounds_replayed_bit_equal_to_eager(option):
+    """Sampled chunks and verify rounds replay at their keys' sampled
+    variants: the same tokens as the server with no graphs, none eager."""
+    model = _model()
+    want, _ = _serve_sampled(model, graphs=False, **option)
+    got, srv = _serve_sampled(model, graphs=True, **option)
+    assert got == want
+    c = srv.counters()
+    kinds = srv.graph_kinds[:2]
+    assert all(c[f"graph_{k}_eager"] == 0 for k in kinds)
+    assert any(k[-1] == "sampled" for k in srv.graphs.entries)
+
+
+@pytest.mark.cuda
+def test_replayed_sampled_generate_bit_equal_to_eager():
+    from tony_tpu_torch.models.generate import _picker
+    from tony_tpu_torch.ops.sampling import key_from_generator
+
+    model = _model()
+    prompt = torch.randint(0, 512, (4, 30), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(3))
+    kw = dict(temperature=0.8, top_k=20, top_p=0.9)
+    for penalty in (1.0, 1.3):
+        got = generate(model, prompt, max_new_tokens=24, eos_id=5,
+                       repetition_penalty=penalty,
+                       generator=torch.Generator(device="cuda")
+                       .manual_seed(9), **kw)
+        sampler = (key_from_generator(torch.Generator(device="cuda")
+                                      .manual_seed(9), "cuda"), 0.8, 20, 0.9)
+        want = _generate_eager(model, prompt, 24, _picker(model, sampler),
+                               (5,), repetition_penalty=penalty)
+        assert torch.equal(got, want), penalty
+    c = model.graphs.counters(("generate",))
+    # two calls of 23 steps at one key: the first call's first step is
+    # the key's first call and capture
+    assert (c["generate_captures"], c["generate_replays"],
+            c["generate_eager"]) == (1, 45, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", [1, 2])
+def test_captured_train_step_bit_equal_to_eager(accum):
+    """Trainer.step captured whole (flash attention forward and backward
+    and fused AdamW inside the graph) against the eager step from equal
+    states: losses and masters bit-equal, one capture and three
+    replays, and each replay adding one step's launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph has no CPU mode)")
+    from tony_tpu_torch.models.graphs import launch_counts
+    from tony_tpu_torch.ops import adamw as adw
+    from tony_tpu_torch.ops.adamw import FusedAdamW
+    from tony_tpu_torch.ops.xent import chunked_cross_entropy
+    from tony_tpu_torch.train import Trainer
+
+    def apply_fn(m, batch):
+        hidden = m(batch["tokens"], return_hidden=True)
+        return chunked_cross_entropy(hidden[:, :-1], m.embedding,
+                                     batch["tokens"][:, 1:], chunk_size=128,
+                                     compute_dtype=torch.bfloat16)
+
+    def lr(count):
+        return 1e-3 * torch.clamp((count + 1).float() / 3.0, max=1.0)
+
+    batches = [torch.randint(0, 512, (4, 128), device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(10 + i)) for i in range(4)]
+    runs = []
+    for captured in (True, False):
+        model = _model(attention_backend="pallas", remat=True,
+                       remat_policy="attn_saved")
+        tr = Trainer(model, apply_fn, FusedAdamW(lr),
+                     compute_dtype=torch.bfloat16, accum_steps=accum)
+        if not captured:
+            tr.graphs = None
+        state = tr.init_state()
+        losses, rises = [], []
+        for i, b in enumerate(batches):
+            before = launch_counts()
+            state, m = tr.step(state, {"tokens": b})
+            losses.append(m["loss"])
+            rises.append([a - c for a, c in zip(launch_counts(), before)])
+            if captured and i == 1:
+                # AdamW's table cache evicts: the graph keeps its table
+                adw._tables.clear()
+                junk = [torch.full((1 << k,), -1, dtype=torch.int64,
+                                   device="cuda") for k in range(8, 20)]
+                del junk
+        torch.cuda.synchronize()
+        runs.append((torch.stack(losses), state, rises))
+        if captured:
+            c = tr.graphs.counters(("train_step",))
+            assert (c["train_step_captures"], c["train_step_replays"]) \
+                == (1, 3)
+    (lc, sc, rc), (le, se, re_) = runs
+    assert torch.equal(lc, le)
+    for name, p in sc.params.items():
+        assert torch.equal(p, se.params[name]), name
+    # the last four counts: flash attention fwd, dQ, dK/dV and AdamW
+    assert rc == re_ and rc[0][-4:] == [model.cfg.n_layers * accum] * 3 + [1]

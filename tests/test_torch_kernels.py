@@ -537,8 +537,10 @@ def test_fused_adamw_kernel_writes_only_its_leaves(copy):
                                     clones(state.nu),
                                     clones(state.compute_params))
     n0 = adw.fused_adamw_update.launches
-    adw.fused_adamw_update(opt, grads, state, params)
+    # the hyperparameters at the count the update reads (it advances the
+    # count in place)
     lr, c1, c2 = adw._hyper(opt, state.count)
+    adw.fused_adamw_update(opt, grads, state, params)
     for n in sizes:
         adw.leaf_update_reference(
             grads[n], ref_p[n], ref_mu[n], ref_nu[n], lr, c1, c2, b1=opt.b1,

@@ -11,7 +11,8 @@ output.
 Also the drafter itself against the JAX one, the rewind over rejected
 drafts (junk K/V past a slot's length), and the verify round through a
 stand-in CUDA-graph backend: each verify key captured once then
-replayed, and a round with a sampled row eager and counted.
+replayed, and a round with a sampled row replayed at its sampled
+variant.
 
 Tolerance: none; tokens and counters are compared for equality.
 """
@@ -366,12 +367,20 @@ def test_flash_decode_runs_once_a_layer_a_micro_step(flash_models,
 
 
 def test_sampled_verify_rounds_run_eagerly_and_are_counted(models):
+    """A verify round with a live sampled row is no longer eager: it
+    replays at its key's sampled variant, and the streams equal the
+    eager server's."""
     _, _, tm = models
-    srv = Server(tm, batch_size=2, chunk_steps=2, speculate_k=4,
-                 min_bucket=8, device="cpu")
+    mix = [(REP, 16, {}), ([9, 9, 2], 12, SAMPLED)]
+    kw = dict(batch_size=2, chunk_steps=2, speculate_k=4, min_bucket=8,
+              device="cpu")
+    want = _serve(Server(tm, **kw), Request, mix)
+    srv = Server(tm, **kw)
     srv.graphs = GraphCache("cpu", StandIn())
-    _serve(srv, Request, [(REP, 16, {}), ([9, 9, 2], 12, SAMPLED)])
+    assert _serve(srv, Request, mix) == want
     c = srv.counters()
-    assert c["graph_verify_eager"] > 0
+    assert c["graph_verify_eager"] == 0
     assert c["graph_verify_captures"] + c["graph_verify_replays"] \
-        + c["graph_verify_eager"] == c["spec_rounds"] > 0
+        == c["spec_rounds"] > 0
+    assert any(k[0] == "verify" and k[-1] == "sampled"
+               for k in srv.graphs.entries)

@@ -3,27 +3,32 @@ of ``tony_tpu/models/generate.py``.
 
 The JAX package runs prefill and a ``lax.scan`` of decode steps inside
 one jitted program. Here the prefill is one eager forward, and on the
-card a greedy ``generate`` replays its decode step as a CUDA graph
+card ``generate`` replays its decode step as a CUDA graph
 (``models.graphs``), one replay a token: the step carries the token,
 the position and the frozen rows in its own buffers and reads its
 position from the device (the per-slot mode, every row at one
 position, bit-equal to the scalar-index step). The graph owns its KV
 cache, one per batch size, cache length and eos ids, kept on the model
 (``model.graphs``) so a later call at the same shape replays what an
-earlier one captured. A sampled ``generate``, a sliding-window model
-whose decode attention is not flash (the scalar step attends over a
-slice there, so the per-slot step is not bit-equal to it) and any CPU
-run launch every step eagerly; on the card those steps are counted as
-eager. The repetition penalty rides every step, replayed or eager: the
+earlier one captured. A sampled call replays too, at its own key
+(``top_k`` and ``top_p`` are static there, as in the JAX package's jit;
+the temperature and the batch's key sit in static buffers), drawing
+with ``ops.sampling.sample_logits``: its key is read once from the
+caller's generator and split a token inside the graph, so the eager
+loop from the same generator state gives the same tokens. A
+sliding-window model whose decode attention is not flash (the scalar
+step attends over a slice there, so the per-slot step is not bit-equal
+to it) and any CPU run launch every step eagerly; on the card those
+steps are counted as eager. The repetition penalty rides every step, replayed or eager: the
 ``seen`` mask [b, V] and the penalty are the step's own buffers, and a
 penalty of 1.0 divides and multiplies by one, a no-op on the same
 program. ``beam_search`` prefills once at batch b, widens the cache to
 b x k rows and reorders them a step; its steps run eagerly (counted as
 ``beam`` eager calls on the card). The cache is a dict of tensors
 (``init_cache``) written in place. Greedy decoding and beam search are
-token-exact against the JAX package on the same weights; sampled
-decoding draws from ``torch.Generator``s and matches it in distribution
-only.
+token-exact against the JAX package on the same weights; a sampled
+call draws the JAX package's way (Threefry bits, Gumbel-max) from a key
+of its generator's, so it matches the JAX package in distribution.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import functools
 import torch
 
 from tony_tpu_torch.models.graphs import GraphCache
+from tony_tpu_torch.ops.sampling import (key_from_generator, next_subkey,
+                                         sample_logits)
 
 
 def init_cache(model, batch_size: int, length: int | None = None) -> dict:
@@ -65,33 +72,6 @@ def init_cache(model, batch_size: int, length: int | None = None) -> dict:
     if cfg.positional == "learned":
         cache["pos_index"] = 0
     return cache
-
-
-def sample_logits(logits, generator, temperature: float, top_k: int,
-                  top_p: float = 1.0):
-    """Greedy when ``temperature == 0``, else softmax sampling with
-    optional top-k and top-p (nucleus) cuts, drawing from
-    ``generator``."""
-    if temperature == 0.0:
-        return torch.argmax(logits, dim=-1)
-    scaled = logits / max(float(temperature), 1e-6)
-    neg = torch.full_like(scaled, -1e30)
-    if top_k > 0:
-        kth = torch.sort(scaled, dim=-1).values[..., -top_k][..., None]
-        scaled = torch.where(scaled < kth, neg, scaled)
-    if top_p < 1.0:
-        # a token survives if the probability mass strictly before it
-        # (in descending order) is < top_p; the top token always does
-        order = torch.argsort(-scaled, dim=-1)
-        sorted_probs = torch.softmax(
-            torch.gather(scaled, -1, order).float(), dim=-1)
-        mass_before = torch.cumsum(sorted_probs, dim=-1) - sorted_probs
-        keep_sorted = mass_before < top_p
-        keep_sorted[..., 0] = True
-        keep = torch.gather(keep_sorted, -1, torch.argsort(order, dim=-1))
-        scaled = torch.where(keep, scaled, neg)
-    probs = torch.softmax(scaled.float(), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[..., 0]
 
 
 def _penalize_repeats(logits, seen, penalty):
@@ -160,20 +140,29 @@ def _replayable(cfg) -> bool:
     return not cfg.sliding_window or cfg.decode_attention == "flash"
 
 
-def _greedy_step(model, freeze: int, eos_ids: tuple, cache, tok, pos,
-                 done, seen, penalty):
-    """One greedy decode step on the step's own buffers, advanced in
-    place (the scan carry): feed ``tok`` at ``pos``, penalize the
-    tokens ``seen``, freeze the rows already ``done``; returns ``tok``,
-    now the next token."""
+def _decode_step(model, freeze: int, eos_ids: tuple, draw, cache, tok, pos,
+                 done, seen, penalty, *rows):
+    """One decode step on the step's own buffers, advanced in place (the
+    scan carry): feed ``tok`` at ``pos``, penalize the tokens ``seen``,
+    pick the next token (the argmax when ``draw`` is None, else
+    ``draw(logits, *rows)``), freeze the rows already ``done``; returns
+    ``tok``, now the next token."""
     _, last = single_decode_step(model, cache, tok, positions=pos)
-    nxt = torch.argmax(_penalize_repeats(last, seen, penalty), dim=-1)
+    logits = _penalize_repeats(last, seen, penalty)
+    nxt = torch.argmax(logits, dim=-1) if draw is None \
+        else draw(logits, *rows)
     nxt = torch.where(done, torch.full_like(nxt, freeze), nxt)
     seen.scatter_(1, nxt[:, None], True)
     done.logical_or_(_is_eos(nxt, eos_ids))
     tok.copy_(nxt)
     pos.add_(1)
     return tok
+
+
+def _draw(top_k: int, top_p: float, logits, key, temp):
+    """A sampled step's pick: ``sample_logits`` under the next subkey of
+    the batch's key [2], which advances in place."""
+    return sample_logits(logits, next_subkey(key), temp, top_k, top_p)
 
 
 @torch.no_grad()
@@ -185,9 +174,11 @@ def generate(model, prompt, *, max_new_tokens: int,
     on the model's device; returns [b, max_new_tokens] int64. Rows that
     hit an eos id re-emit the first eos id after it (the JAX package's
     frozen-row contract). ``repetition_penalty`` > 1 discourages tokens
-    already in the prompt or generated (``_penalize_repeats``). On the
-    card a greedy call replays its decode step as a CUDA graph (the
-    module docstring)."""
+    already in the prompt or generated (``_penalize_repeats``). A
+    sampled call (``temperature`` != 0) reads its key once from
+    ``generator`` (``ops.sampling.key_from_generator``) and splits it a
+    token. On the card every call replays its decode step as a CUDA
+    graph (the module docstring)."""
     eos_ids = normalize_eos_ids(eos_id)
     prompt = torch.as_tensor(prompt, device=model.device).long()
     cfg = model.cfg
@@ -196,15 +187,29 @@ def generate(model, prompt, *, max_new_tokens: int,
             f"prompt ({prompt.shape[1]}) + max_new_tokens "
             f"({max_new_tokens}) exceeds cfg.max_seq_len "
             f"({cfg.max_seq_len}): the KV cache would overflow")
+    sampler = None
+    if temperature != 0.0:
+        sampler = (key_from_generator(generator, model.device),
+                   float(temperature), int(top_k), float(top_p))
     graphs = model_graphs(model)
-    if graphs is not None and temperature == 0.0 and _replayable(cfg):
+    if graphs is not None and _replayable(cfg):
         return _generate_replayed(model, graphs, prompt, max_new_tokens,
-                                  eos_ids, repetition_penalty)
-    pick = functools.partial(sample_logits, generator=generator,
-                             temperature=temperature, top_k=top_k,
-                             top_p=top_p)
+                                  eos_ids, repetition_penalty, sampler)
+    pick = _picker(model, sampler)
     return _generate_eager(model, prompt, max_new_tokens, pick, eos_ids,
                            graphs, repetition_penalty)
+
+
+def _picker(model, sampler):
+    """The eager loop's pick from the penalized logits [b, V]: the
+    argmax, or for ``sampler`` = (key, temperature, top_k, top_p)
+    ``_draw`` on that key and a device temperature."""
+    if sampler is None:
+        return functools.partial(torch.argmax, dim=-1)
+    key, temperature, top_k, top_p = sampler
+    temp = torch.full((), temperature, dtype=torch.float32,
+                      device=model.device)
+    return lambda logits: _draw(top_k, top_p, logits, key, temp)
 
 
 def _seen_mask(prompt, vocab: int):
@@ -216,23 +221,36 @@ def _seen_mask(prompt, vocab: int):
 
 def _generate_replayed(model, graphs: GraphCache, prompt,
                        max_new_tokens: int, eos_ids: tuple,
-                       repetition_penalty: float = 1.0):
-    """Greedy generation: an eager prefill into the step graph's own
-    cache, then one replay a token."""
+                       repetition_penalty: float = 1.0, sampler=None):
+    """An eager prefill into the step graph's own cache, then one replay
+    a token. Greedy steps replay at ``("generate", b, max_seq_len,
+    eos_ids)``; sampled ones (``sampler`` = key, temperature, top_k,
+    top_p) at that key with ``("sampled", top_k, top_p)`` appended,
+    with the batch's key and the temperature in static buffers."""
     b, prompt_len = prompt.shape
     dev = model.device
     vocab = model.cfg.vocab_size
+    key = ("generate", b, model.cfg.max_seq_len, eos_ids)
+    draw = None
+    if sampler is not None:
+        _, _, top_k, top_p = sampler
+        key += ("sampled", top_k, top_p)
+        draw = functools.partial(_draw, top_k, top_p)
     entry = graphs.entry(
-        ("generate", b, model.cfg.max_seq_len, eos_ids),
+        key,
         lambda: (init_cache(model, b),
                  torch.zeros(b, dtype=torch.long, device=dev),
                  torch.zeros(b, dtype=torch.long, device=dev),
                  torch.zeros(b, dtype=torch.bool, device=dev),
                  torch.zeros(b, vocab, dtype=torch.bool, device=dev),
-                 torch.ones((), dtype=torch.float32, device=dev)))
-    cache, tok, pos, done, seen, penalty = entry.statics
-    for key, layer in cache.items():
-        if key.startswith("block_"):
+                 torch.ones((), dtype=torch.float32, device=dev))
+        + (() if sampler is None else (
+            torch.zeros(2, dtype=torch.int64, device=dev),
+            torch.zeros((), dtype=torch.float32, device=dev))))
+    cache, tok, pos, done, seen, penalty = entry.statics[:6]
+    rows = entry.statics[6:]
+    for name, layer in cache.items():
+        if name.startswith("block_"):
             layer["cache_index"] = 0
     if "pos_index" in cache:
         cache["pos_index"] = 0
@@ -242,14 +260,19 @@ def _generate_replayed(model, graphs: GraphCache, prompt,
     out = torch.empty(b, max_new_tokens, dtype=torch.long, device=dev)
     seen.copy_(_seen_mask(prompt, vocab))
     penalty.fill_(repetition_penalty)
-    tok.copy_(torch.argmax(_penalize_repeats(logits[:, -1], seen, penalty),
-                           dim=-1))
+    first = _penalize_repeats(logits[:, -1], seen, penalty)
+    if sampler is None:
+        tok.copy_(torch.argmax(first, dim=-1))
+    else:
+        rows[0].copy_(sampler[0])
+        rows[1].fill_(sampler[1])
+        tok.copy_(draw(first, *rows))
     seen.scatter_(1, tok[:, None], True)
     out[:, 0] = tok
     pos.fill_(prompt_len)
     done.copy_(_is_eos(tok, eos_ids))
-    step = functools.partial(_greedy_step, model,
-                             eos_ids[0] if eos_ids else -1, eos_ids)
+    step = functools.partial(_decode_step, model,
+                             eos_ids[0] if eos_ids else -1, eos_ids, draw)
     for t in range(1, max_new_tokens):
         out[:, t] = graphs.run(entry, step)
     return out
@@ -260,8 +283,8 @@ def _generate_eager(model, prompt, max_new_tokens: int, pick,
                     repetition_penalty: float = 1.0):
     """Generation launching every step eagerly: a prefill, then one
     scalar-index forward a token; ``pick`` chooses each token from the
-    penalized logits [b, V]; ``graphs``, when given, counts each step
-    as an eager call."""
+    penalized logits [b, V] (``_picker``); ``graphs``, when given,
+    counts each step as an eager call."""
     freeze = eos_ids[0] if eos_ids else -1
     cache = init_cache(model, prompt.shape[0])
     logits = model(prompt, decode=True, cache=cache)

@@ -3,7 +3,9 @@ callables, the port's form of the JAX package's jitted programs (the
 serving decode chunk's ``lax.scan`` and paged prefill in
 ``tony_tpu/serve/engine.py``, ``generate``'s decode scan in
 ``tony_tpu/models/generate.py``). The JAX package has no module like
-this one: ``jax.jit`` keeps its own cache.
+this one: ``jax.jit`` keeps its own cache. The training step
+(``train.trainer.Trainer.step``) is captured whole through the same
+cache.
 
 A key names one static shape, as a jitted function's static arguments
 do. The key's static buffers (``Entry.statics``) are made once; the
@@ -23,7 +25,8 @@ at full width, and the serving engine holds tens of keys.
 
 Launch counts: each kernel wrapper counts its launches in Python
 (``flash_decode.launches``, ``q8_matmul.launches`` and
-``route_launches``, ...). A capture calls the wrappers but launches
+``route_launches``, the flash attention kernels' and fused AdamW's,
+``COUNTED``). A capture calls the wrappers but launches
 nothing, and a replay launches with no call, so a capture records what
 it added to the counts and restores them, and each replay adds that
 record back: the counts stay the launches on the card.
@@ -43,6 +46,7 @@ that time and takes it back after.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from collections import Counter
@@ -51,11 +55,20 @@ from typing import Any, Callable
 
 import torch
 
+from tony_tpu_torch.ops.adamw import fused_adamw_update
+from tony_tpu_torch.ops.attention import (flash_attention_bwd_dkv,
+                                          flash_attention_bwd_dq,
+                                          flash_attention_fwd)
 from tony_tpu_torch.ops.decode import flash_decode
 from tony_tpu_torch.ops.quant import q8_matmul
 
-# the counting wrappers a captured call reaches (the decode forward)
-COUNTED = (flash_decode, q8_matmul)
+# the counting wrappers a captured call reaches: the decode forward's,
+# then the training step's
+COUNTED = (flash_decode, q8_matmul, flash_attention_fwd,
+           flash_attention_bwd_dq, flash_attention_bwd_dkv,
+           fused_adamw_update)
+# the parts of a capture that ``CudaGraphs.capture`` times
+CAPTURE_PARTS = ("sync", "gc", "empty_cache", "record")
 
 
 class DeviceLock:
@@ -182,10 +195,17 @@ class CudaGraphs:
             caller.wait_stream(self.stream)
 
     def capture(self, fn: Callable[..., Any], statics: tuple):
-        """``(graph, output)``: ``fn(*statics)`` recorded, not run."""
+        """``(graph, output)``: ``fn(*statics)`` recorded, not run. Its
+        seconds by part go to ``last_parts`` (``_timed_entry``)."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            out = fn(*statics)
+        parts = dict.fromkeys(CAPTURE_PARTS, 0.0)
+        t0 = time.perf_counter()
+        with _timed_entry(parts):
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                out = fn(*statics)
+        parts["record"] = time.perf_counter() - t0 - parts["sync"] \
+            - parts["gc"] - parts["empty_cache"]
+        self.last_parts = parts
         return graph, out
 
     def pool_bytes(self) -> int | None:
@@ -197,6 +217,39 @@ class CudaGraphs:
         return sum(s["total_size"] for s in segs
                    if tuple(s.get("segment_pool_id") or ()) ==
                    tuple(self.pool))
+
+
+@contextlib.contextmanager
+def _timed_entry(parts: dict):
+    """Time what ``torch.cuda.graph`` does on entry, as it does it: its
+    device synchronize (``sync``), its ``gc.collect()`` where this
+    PyTorch runs one (``gc``), and its device and host allocator cache
+    flushes (``empty_cache``), by wrapping those calls for the capture's
+    length; the rest of the capture is the recording. A measurement
+    only: the calls, their order and their effect are unchanged."""
+    wrapped = [(torch.cuda, "synchronize", "sync"), (gc, "collect", "gc"),
+               (torch.cuda, "empty_cache", "empty_cache"),
+               (torch._C, "_host_emptyCache", "empty_cache")]
+    saved = []
+    for mod, name, part in wrapped:
+        real = getattr(mod, name, None)
+        if real is None:
+            continue
+
+        def timed(*a, _real=real, _part=part, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _real(*a, **kw)
+            finally:
+                parts[_part] += time.perf_counter() - t0
+
+        saved.append((mod, name, real))
+        setattr(mod, name, timed)
+    try:
+        yield
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
 
 
 @dataclass
@@ -225,6 +278,9 @@ class GraphCache:
         self.entries: dict[tuple, Entry] = {}
         self.calls: Counter = Counter()
         self.capture_seconds = 0.0
+        # capture seconds by part (``CAPTURE_PARTS``), where the backend
+        # times them
+        self.capture_parts: Counter = Counter()
 
     def entry(self, key: tuple, make: Callable[[], tuple]) -> Entry:
         """The key's entry; ``make()`` gives its static buffers the first
@@ -260,6 +316,8 @@ class GraphCache:
                 e.delta = [a - b for a, b in zip(launch_counts(), before)]
                 set_launch_counts(before)
             self.capture_seconds += time.perf_counter() - t0
+            self.capture_parts.update(
+                getattr(self.backend, "last_parts", None) or {})
         self.calls[e.key[0], "captures"] += 1
         return out
 

@@ -635,8 +635,12 @@ class Block(nn.Module):
                 and cfg.remat_policy != "attn_saved":
             kw = {} if cfg.remat_policy == "nothing" \
                 else {"context_fn": _keep_dots}
+            # no module draws randomness (no dropout): nothing to stash,
+            # and stashing reads the CUDA generator, which a graph
+            # capture refuses
             return checkpoint(self._forward, x, False, segment_ids,
-                              use_reentrant=False, **kw)
+                              use_reentrant=False, preserve_rng_state=False,
+                              **kw)
         return self._forward(x, decode, segment_ids, positions, page_table,
                              cache, plan)
 
@@ -648,6 +652,7 @@ class Block(nn.Module):
             # saved tensors are kept); only the FFN is recomputed, its
             # dot outputs kept
             return checkpoint(self.mlp, x, use_reentrant=False,
+                              preserve_rng_state=False,
                               context_fn=_keep_dots)
         return self.mlp(x)
 

@@ -22,7 +22,15 @@ Differences from the JAX module, each deliberate:
   written where they lie, and the compute copy may be a model's own
   parameter (``Trainer`` writes it straight into the module).
 - lr, c1 and c2 reach the kernel in a 3-float device tensor, as the JAX
-  ``hyp`` operand does: no host sync.
+  ``hyp`` operand does: no host sync. A schedule (``learning_rate`` a
+  callable of ``count``) that returns a Python number is refused inside
+  a CUDA-graph capture, which would bake the number in.
+- The step count advances in place, so a captured call (the training
+  step, replayed as a CUDA graph) reads the count the previous replay
+  wrote; a device table missed inside a capture raises (its upload
+  would be replayed from freed page-locked memory), and a table hit
+  inside one is held past the cache's eviction (``_captured``): the
+  graph reads it on every replay.
 - A non-float leaf carries its updated value into the compute copy, and
   no sharded path exists (ROADMAP queue 3 records both JAX bugs at
   ops/adamw.py:236 and :259; neither is copied).
@@ -89,9 +97,19 @@ def _hyper(opt: FusedAdamW, count: torch.Tensor):
     c2 = const(1.0) / (const(1.0) - torch.pow(const(opt.b2), t))
     lr = opt.learning_rate(count) if callable(opt.learning_rate) \
         else opt.learning_rate
+    if callable(opt.learning_rate) and not torch.is_tensor(lr) \
+            and _capturing(dev):
+        raise ValueError("a learning-rate schedule inside a CUDA-graph "
+                         "capture must return a tensor computed from "
+                         "count on the device, not a Python number")
     lr = lr.to(device=dev, dtype=torch.float32) if torch.is_tensor(lr) \
         else const(float(lr))
     return lr, c1, c2
+
+
+def _capturing(dev: torch.device) -> bool:
+    """Whether the current stream of ``dev`` is being captured."""
+    return dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 def leaf_update_reference(g, p, mu, nu, lr, c1, c2, *, b1, b2, eps, wd,
@@ -177,6 +195,8 @@ def chunk_span(offset: int, head: int, n: int) -> tuple[int, int, int, int]:
 
 
 _tables: OrderedDict = OrderedDict()
+# the tables a CUDA graph captured, held for the graphs' lifetime
+_captured: dict = {}
 
 
 def _check_group(group: list) -> None:
@@ -232,7 +252,18 @@ def _table(key: tuple, group: list) -> tuple[torch.Tensor, int]:
     if hit is not None and all(t.is_contiguous() for leaf in group
                                for t in leaf if t is not None):
         _tables.move_to_end(key)
+        if _capturing(group[0][1].device):
+            # a graph reads this table on every replay: keep it alive
+            # past the cache's eviction
+            _captured[key] = hit
         return hit
+    if _capturing(group[0][1].device):
+        # a new table goes up by a copy from a page-locked buffer that
+        # is freed after the call: a graph would replay that copy
+        raise RuntimeError(
+            "fused AdamW's device table missed its cache during a CUDA-"
+            "graph capture: the first call at the graph's key must run on "
+            "the same tensors (static gradient buffers)")
     _check_group(group)
     heads = [vector_head([(t.data_ptr(), t.element_size())
                           for t in leaf if t is not None]) for leaf in group]
@@ -279,8 +310,10 @@ def _launch_groups(opt: FusedAdamW, items: list, hyp: torch.Tensor) -> None:
 def fused_adamw_update(opt: FusedAdamW, grads: dict, state: FusedAdamWState,
                        params: dict, *, mesh=None, param_specs=None,
                        compute_dtype=None):
-    """One fused AdamW step, in place: returns (params, new_state), the
-    same param, moment and compute-copy tensors updated, and a new count.
+    """One fused AdamW step, in place: returns (params, state), the same
+    param, moment and compute-copy tensors updated and ``state.count``
+    advanced in place (the JAX function returns a new count; a CUDA
+    graph that captured this call must see its count move).
 
     ``compute_dtype`` (JAX signature) asks for the compute copy;
     ``state.compute_params`` must then hold it (``FusedAdamW.init`` with
@@ -311,9 +344,9 @@ def fused_adamw_update(opt: FusedAdamW, grads: dict, state: FusedAdamWState,
     if on_card:
         hyp = torch.stack([lr, c1, c2]).to(on_card[0][1].device)
         _launch_groups(opt, on_card, hyp)
-    return params, FusedAdamWState(count=state.count + 1, mu=state.mu,
-                                   nu=state.nu,
-                                   compute_params=state.compute_params)
+    # in place, so a CUDA graph's replay advances the count it reads
+    state.count.add_(1)
+    return params, state
 
 
 fused_adamw_update.launches = 0

@@ -40,11 +40,17 @@ prefill runs eagerly, one dispatch an admission or chunk, counted as
 
 The host packs each call's inputs into one buffer, copies it up,
 replays, and reads the result back: one H2D and one D2H copy a call.
-The first call at a key runs eagerly and is then captured. A chunk or
-verify round with a live sampled row runs eagerly (its per-request
-generators and the host read of the frozen rows cannot be captured)
-and is counted so (``counters()``); a prefill's first-token sample runs
-after the graph. On the CPU every call runs eagerly.
+The first call at a key runs eagerly and is then captured. Each chunk
+and verify round key has two variants, picked on the host from the
+slots' temperatures: greedy (every row takes the argmax, as the JAX
+engine's ``lax.cond`` skips its sampler for an all-greedy batch) and,
+once any live slot samples, sampled (the key with a ``"sampled"``
+suffix): every micro-step draws on the device (``ops.sampling.
+sample_rows``: a top-k cut by rank and a Threefry draw a row) from the
+slots' device temperatures, top-ks and keys, and the keys advance in
+place inside the graph; nothing is read back to the host. A prefill's
+first-token sample runs after the graph. On the CPU every call runs
+eagerly.
 
 With in-dispatch EOS on (the default) a slot that samples EOS or spends
 its budget mid-chunk FREEZES: its later micro-steps write nothing, draw
@@ -63,9 +69,11 @@ caller, and ``reset()`` frees every page.
 
 Greedy outputs are token-exact against the JAX ``Server`` on the same
 weights and request mix (tests/test_torch_serve.py, test_torch_spec.py,
-test_torch_chunked_prefill.py). Sampled requests draw from a
-per-request ``torch.Generator`` seeded from ``Request.seed`` and match
-the JAX package in distribution only.
+test_torch_chunked_prefill.py), and so are sampled ones
+(tests/test_torch_sampled_serving.py): a request's key is
+``PRNGKey(Request.seed)``, split once a draw, and its draws are the JAX
+package's Threefry bits; they part only where ``torch.log`` and XLA's
+``log`` round a Gumbel variate differently at a near tie.
 
 Each admission, prefill chunk, decode chunk and verify round leaves
 one record on the dispatch timeline (``obs.timeline``, ``timeline=True``
@@ -113,6 +121,7 @@ from tony_tpu_torch.obs.goodput import (CostModel, detect_hbm_gbps,
                                         detect_peak_flops, ledger)
 from tony_tpu_torch.obs.timeline import DispatchRecord, DispatchTimeline
 from tony_tpu_torch.ops.platform import resolve_device
+from tony_tpu_torch.ops.sampling import key_tensor, sample_rows
 from tony_tpu_torch.serve.faults import FaultPlan
 from tony_tpu_torch.serve.prefix import PrefixStore
 from tony_tpu_torch.serve.slots import (PagePool, SlotCache,
@@ -161,37 +170,33 @@ def _propose_draft(ctx: np.ndarray, k: int,
     return ctx[:0]
 
 
-def _sample_rows(logits, generators, temps, top_ks, done=None):
-    """Per-row sampling: greedy rows (temp == 0) take the argmax;
-    sampled rows apply a per-row top-k cut by rank and draw from their
-    own generator. Rows flagged ``done`` take the greedy path, so a
-    frozen row never advances its generator; greedy rows never draw at
-    all, so a request's draws do not depend on its batch. An all-greedy
-    batch stays on the device (no host sync)."""
-    greedy = torch.argmax(logits, dim=-1)
-    rows = [i for i in range(len(temps)) if temps[i] > 0.0]
-    if not rows:
-        return greedy
-    if done is not None:
-        done_h = done.cpu().numpy()
-        rows = [i for i in rows if not done_h[i]]
-    out = greedy.clone()
-    for i in rows:
-        x = logits[i].float() / max(float(temps[i]), 1e-6)
-        k = int(top_ks[i])
-        if 0 < k < x.shape[-1]:
-            keep = torch.zeros_like(x, dtype=torch.bool)
-            keep[torch.topk(x, k).indices] = True
-            x = torch.where(keep, x, torch.full_like(x, -1e30))
-        out[i] = torch.multinomial(torch.softmax(x, dim=-1), 1,
-                                   generator=generators[i])[0]
-    return out
+def _pick(last, samp, done=None):
+    """The next token of every row from its logits ``last`` [b, V]:
+    the argmax when ``samp`` is None (the greedy variant), else
+    ``ops.sampling.sample_rows`` over ``samp`` = (temperatures, top-ks,
+    keys), ``done`` rows greedy and their keys kept. Returns (tokens,
+    samp with the keys advanced)."""
+    if samp is None:
+        return torch.argmax(last, dim=-1), None
+    temps, top_ks, keys = samp
+    tok, keys = sample_rows(last, keys, temps, top_ks, done)
+    return tok, (temps, top_ks, keys)
 
 
-def _sample_first(logits, temp: float, top_k: int, generator) -> int:
+def _sample_first(logits, temp: float, top_k: int, seed: int):
     """The first continuation from the last prompt position's logits
-    [1, V], with THIS request's knobs."""
-    return int(_sample_rows(logits, [generator], [temp], [top_k])[0])
+    [1, V] with THIS request's knobs, as the JAX package's admits draw
+    it: from ``PRNGKey(seed)``, split once when the request samples.
+    Returns (token, the key [2] to carry, or None for a greedy
+    request)."""
+    if temp <= 0.0:
+        return int(torch.argmax(logits[0])), None
+    dev = logits.device
+    tok, keys = sample_rows(
+        logits, key_tensor(seed, dev)[None],
+        torch.full((1,), temp, dtype=torch.float32, device=dev),
+        torch.full((1,), top_k, dtype=torch.int64, device=dev))
+    return int(tok[0]), keys[0]
 
 
 def _usable_prefix(off: int, n: int, max_len: int, minimum: int) -> int:
@@ -259,19 +264,20 @@ def _paged_prefill_chunk(model, cache, flat, lb: int, cols: int):
 
 
 def _frozen_steps(model, view, tok, positions, rem, done, n_steps: int,
-                  temps, top_ks, generators, eos_ids: tuple):
+                  samp, eos_ids: tuple):
     """``n_steps`` in-dispatch-EOS micro-steps on the page ``view`` from
     carry ``(tok, positions, rem, done)``: a row that emits an eos id or
     spends its budget ``rem`` freezes — its later micro-steps write to
     position -1 (dropped), take the greedy path (no draw) and re-emit
     its token. Shared by the decode chunk and the verify round's
-    continuation. Returns the emitted tokens [b, n_steps]."""
+    continuation. Returns the emitted tokens [b, n_steps] and ``samp``
+    (``_pick``) with the keys advanced."""
     out = []
     for _ in range(n_steps):
         eff_pos = torch.where(done, torch.full_like(positions, -1),
                               positions)
         view, last = single_decode_step(model, view, tok, positions=eff_pos)
-        nxt = _sample_rows(last, generators, temps, top_ks, done)
+        nxt, samp = _pick(last, samp, done)
         nxt = torch.where(done, tok, nxt)
         positions = torch.where(done | (positions < 0), positions,
                                 positions + 1)
@@ -279,52 +285,62 @@ def _frozen_steps(model, view, tok, positions, rem, done, n_steps: int,
         done = done | _is_eos(nxt, eos_ids) | (rem <= 0)
         tok = nxt
         out.append(nxt)
-    return torch.stack(out, dim=1)
+    return torch.stack(out, dim=1), samp
+
+
+def _keep_keys(rows: tuple, samp) -> None:
+    """Write the advanced keys back into the slots' key tensor, in place
+    (inside a graph, the replay's own update)."""
+    if rows:
+        rows[2].copy_(samp[2])
 
 
 @torch.no_grad()
-def _decode_chunk(model, cache, flat, b: int, cols: int, temps, top_ks,
-                  generators, n_steps: int, eos_ids: tuple,
-                  freeze: bool = True):
+def _decode_chunk(model, cache, flat, *rows, b: int, cols: int,
+                  n_steps: int, eos_ids: tuple, freeze: bool = True):
     """``n_steps`` decode micro-steps for every slot over the page view,
     on packed inputs ``flat`` = tokens [b] | positions [b] | remaining
     budgets [b] | page table [b, cols]; ``cols`` = 0 runs them straight
     on the resident rows of an unpaged cache (no table in ``flat``).
-    ``freeze`` (in-dispatch EOS) runs ``_frozen_steps``, empty slots
-    (position < 0) starting frozen; without it every row decodes every
-    micro-step and draws, and the host trims what follows a finish.
-    Returns the emitted tokens [b, n_steps]; the cache is updated in
-    place."""
+    ``rows`` is empty for the greedy variant (every row takes the
+    argmax) and the slots' device (temperatures, top-ks, keys) for the
+    sampled one, whose keys advance in place. ``freeze`` (in-dispatch
+    EOS) runs ``_frozen_steps``, empty slots (position < 0) starting
+    frozen; without it every row decodes every micro-step and draws, and
+    the host trims what follows a finish. Returns the emitted tokens
+    [b, n_steps]; the cache is updated in place."""
     tok, positions, rem = flat[:b], flat[b:2 * b], flat[2 * b:3 * b]
     table = flat[3 * b:].view(b, cols)
     max_len = model.cfg.max_seq_len
     start = positions
+    samp = rows or None
     view = paged_view(cache, table, max_len) if cols else cache
     if freeze:
-        toks = _frozen_steps(model, view, tok, positions, rem,
-                             positions < 0, n_steps, temps, top_ks,
-                             generators, eos_ids)
+        toks, samp = _frozen_steps(model, view, tok, positions, rem,
+                                   positions < 0, n_steps, samp, eos_ids)
     else:
         out = []
         for _ in range(n_steps):
             view, last = single_decode_step(model, view, tok,
                                             positions=positions)
-            tok = _sample_rows(last, generators, temps, top_ks)
+            tok, samp = _pick(last, samp)
             positions = torch.where(positions >= 0, positions + 1,
                                     positions)
             out.append(tok)
         toks = torch.stack(out, dim=1)
     if cols:
         paged_write_back(cache, view, table, start, n_steps, max_len)
+    _keep_keys(rows, samp)
     return toks
 
 
 @torch.no_grad()
-def _verify_chunk(model, cache, flat, b: int, window: int, cols: int,
-                  temps, top_ks, generators, n_steps: int, eos_ids: tuple):
+def _verify_chunk(model, cache, flat, *rows, b: int, window: int, cols: int,
+                  n_steps: int, eos_ids: tuple):
     """The speculative verify round on packed inputs ``flat`` = tokens
     [b, window] | positions [b, window] | draft lengths [b] | remaining
-    budgets [b] | page table [b, cols]. Row i is ``[last_token, draft_1
+    budgets [b] | page table [b, cols], and ``rows`` as
+    ``_decode_chunk`` takes them. Row i is ``[last_token, draft_1
     .. draft_d, pad..]`` at ``[p, p+1 .. p+d, -1..]`` (padding writes
     drop). One window pass scores every row (``multi_decode_step``):
 
@@ -363,12 +379,13 @@ def _verify_chunk(model, cache, flat, b: int, window: int, cols: int,
         _, logits = multi_decode_step(model, cache, toks, positions,
                                       page_table=table)
     greedy = torch.argmax(logits, dim=-1)  # [b, window]
-    tok0 = _sample_rows(logits[:, 0], generators, temps, top_ks)
+    tok0, samp = _pick(logits[:, 0], rows or None)
     emit = torch.cat([tok0[:, None], greedy[:, 1:]], dim=1)
     j = torch.arange(window - 1, device=flat.device)[None, :]
     match = (toks[:, 1:] == greedy[:, :-1]) & (j < draft_len[:, None])
     accepted = torch.cumprod(match.long(), dim=1).sum(dim=1)
     if n_steps == 0:
+        _keep_keys(rows, samp)
         return torch.cat([emit, accepted[:, None]], dim=1)
     if eos_ids:
         # the host stops at the first eos id: capping accepted there
@@ -377,18 +394,19 @@ def _verify_chunk(model, cache, flat, b: int, window: int, cols: int,
         first_stop = torch.where(_is_eos(emit, eos_ids), idx,
                                  torch.full_like(idx, window)).amin(dim=1)
         accepted = torch.minimum(accepted, first_stop)
-    rows = torch.arange(b, device=flat.device)
-    bonus = emit[rows, accepted]
+    rows_i = torch.arange(b, device=flat.device)
+    bonus = emit[rows_i, accepted]
     live = start >= 0
     consumed = accepted + 1
     rem_c = torch.where(live, rem - consumed, torch.zeros_like(rem))
     done = ~live | _is_eos(bonus, eos_ids) | (rem_c <= 0)
     cont_pos = torch.where(live, start + consumed, torch.full_like(start, -1))
-    cont = _frozen_steps(model, view, bonus, cont_pos, rem_c, done,
-                         n_steps, temps, top_ks, generators, eos_ids)
+    cont, samp = _frozen_steps(model, view, bonus, cont_pos, rem_c, done,
+                               n_steps, samp, eos_ids)
     if cols:
         paged_write_back(cache, view, table, start, window + n_steps,
                          max_len)
+    _keep_keys(rows, samp)
     return torch.cat([emit, accepted[:, None], cont], dim=1)
 
 
@@ -1047,11 +1065,7 @@ class Server:
         """Sample the first token from ``last`` [1, V] and arm the slot,
         or finish the request there when that token ends it."""
         s = self.slots
-        gen = None
-        if req.temperature > 0.0:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(int(req.seed))
-        tok = _sample_first(last, req.temperature, req.top_k, gen)
+        tok, key = _sample_first(last, req.temperature, req.top_k, req.seed)
         if tok in self.eos_ids or req.max_new_tokens == 1:
             reason = "eos" if tok in self.eos_ids else "length"
             finished.append(Result(req.id, list(req.prompt), [tok], reason,
@@ -1060,7 +1074,7 @@ class Server:
                 s.release_pages(slot)
             return
         s.admit(slot, len(req.prompt), tok, req.temperature, req.top_k,
-                gen)
+                key)
         self._spec_ema[slot] = 1.0  # a new tenant drafts again
         self._live[slot] = _Live(req, [tok], hit_tokens, saved,
                                  prefill_chunks=chunks)
@@ -1158,26 +1172,32 @@ class Server:
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.int64, device=self.device)
 
-    def _dispatch(self, kind: str, shape: tuple, flat: np.ndarray, fn):
+    def _dispatch(self, kind: str, shape: tuple, flat: np.ndarray, fn,
+                  rows: tuple = ()):
         """``fn`` on the packed int64 inputs ``flat``, copied to the
-        device in one transfer: replayed at the key ``(kind, *shape)``
-        (its first call eager, then captured), or eager on the CPU."""
+        device in one transfer, and on ``rows`` (device tensors the
+        call reads and writes in place): replayed at the key ``(kind,
+        *shape)`` (its first call eager, then captured), or eager on the
+        CPU."""
         if self.graphs is None:
             self._first = False
-            return fn(self._tensor(flat))
+            return fn(self._tensor(flat), *rows)
         e = self.graphs.entry((kind, *shape), lambda: (torch.empty(
-            flat.size, dtype=torch.int64, device=self.device),))
+            flat.size, dtype=torch.int64, device=self.device), *rows))
         e.statics[0].copy_(torch.from_numpy(flat))
         self._first = e.graph is None
         return self.graphs.run(e, fn)
 
-    def _sampled_or_graph(self, kind: str, shape: tuple, flat, fn):
-        """A decode round: eager and counted so when a live row samples,
-        else ``_dispatch``."""
-        if self.graphs is not None and (self.slots.temperature > 0).any():
-            self._first = False
-            return self.graphs.eager(kind, fn, self._tensor(flat))
-        return self._dispatch(kind, shape, flat, fn)
+    def _variant(self) -> tuple[tuple, tuple]:
+        """A decode round's variant, picked from the host's temperatures:
+        greedy (no suffix, no state) while no live slot samples, else
+        sampled (key suffix ``"sampled"``, the slots' device sampling
+        state as the call's ``rows``). One capture a key serves every
+        mix of its variant."""
+        s = self.slots
+        if (s.temperature > 0.0).any():
+            return ("sampled",), (s.temps, s.top_ks, s.keys)
+        return (), ()
 
     def _run_chunk(self, flat: np.ndarray, k: int, cols: int) -> np.ndarray:
         """One decode chunk of ``k`` micro-steps over the first ``cols``
@@ -1186,12 +1206,12 @@ class Server:
         s = self.slots
         fn = functools.partial(
             _decode_chunk, self.model, s.cache, b=s.batch_size, cols=cols,
-            temps=s.temperature.copy(), top_ks=s.top_k.copy(),
-            generators=list(s.generators), n_steps=k, eos_ids=self.eos_ids,
-            freeze=self.in_dispatch_eos)
+            n_steps=k, eos_ids=self.eos_ids, freeze=self.in_dispatch_eos)
         kind, shape = ("decode", (k, cols)) if self.paged \
             else ("chunk_rows", (k,))
-        return self._sampled_or_graph(kind, shape, flat, fn).cpu().numpy()
+        tag, rows = self._variant()
+        return self._dispatch(kind, shape + tag, flat, fn,
+                              rows).cpu().numpy()
 
     def _run_verify(self, flat: np.ndarray, window: int, n_steps: int,
                     cols: int) -> np.ndarray:
@@ -1200,12 +1220,12 @@ class Server:
         s = self.slots
         fn = functools.partial(
             _verify_chunk, self.model, s.cache, b=s.batch_size,
-            window=window, cols=cols, temps=s.temperature.copy(),
-            top_ks=s.top_k.copy(), generators=list(s.generators),
-            n_steps=n_steps, eos_ids=self.eos_ids)
+            window=window, cols=cols, n_steps=n_steps, eos_ids=self.eos_ids)
         kind, shape = ("verify", (window, n_steps, cols)) if self.paged \
             else ("verify_rows", (window, n_steps))
-        return self._sampled_or_graph(kind, shape, flat, fn).cpu().numpy()
+        tag, rows = self._variant()
+        return self._dispatch(kind, shape + tag, flat, fn,
+                              rows).cpu().numpy()
 
     def _chunk_size(self) -> int:
         """Micro-steps for this round: enough for the longest-remaining

@@ -336,8 +336,13 @@ class SlotCache:
     dict (ownership taken from the pool); each slot owns a page table
     row ``[max_pages]`` (unallocated tail = the ``pool.n_pages``
     sentinel), a count of allocated pages and the rest of its
-    admission-time reservation. Host arrays are numpy; a sampled slot
-    draws from its own ``torch.Generator``."""
+    admission-time reservation. Host arrays are numpy. The sampling
+    state lives on the device, where the decode graphs read it:
+    ``temps`` [b] float32, ``top_ks`` [b] int64 and ``keys`` [b, 2]
+    (``ops.sampling`` keys, advanced in place as rows draw); ``admit``
+    and ``evict`` write them with device fills and never read them
+    back. The host keeps each slot's temperature too
+    (``temperature``), which picks a call's greedy or sampled variant."""
 
     def __init__(self, model, batch_size: int, pool: PagePool | None = None):
         self.batch_size = batch_size
@@ -357,8 +362,12 @@ class SlotCache:
         self.active = np.zeros(batch_size, bool)
         self.last_token = np.zeros(batch_size, np.int64)
         self.temperature = np.zeros(batch_size, np.float32)
-        self.top_k = np.zeros(batch_size, np.int32)
-        self.generators: list[torch.Generator | None] = [None] * batch_size
+        dev = model.device
+        self.temps = torch.zeros(batch_size, dtype=torch.float32,
+                                 device=dev)
+        self.top_ks = torch.zeros(batch_size, dtype=torch.int64, device=dev)
+        self.keys = torch.zeros(batch_size, 2, dtype=torch.int64,
+                                device=dev)
 
     def free_slots(self) -> list[int]:
         return [i for i in range(self.batch_size) if not self.active[i]]
@@ -374,10 +383,12 @@ class SlotCache:
 
     def admit(self, slot: int, length: int, last_token: int,
               temperature: float, top_k: int,
-              generator: torch.Generator | None) -> None:
+              key: torch.Tensor | None = None) -> None:
         """Arm ``slot``: ``length`` = prompt length already in its row or
         pages, ``last_token`` = the first sampled continuation (fed next
-        at position ``length``)."""
+        at position ``length``); ``key`` [2] = the request's key after
+        its first draw (a sampled request's; a greedy one never
+        draws)."""
         if self.active[slot]:
             raise ValueError(f"slot {slot} is occupied")
         if not 0 < length <= self.max_seq_len:
@@ -385,8 +396,11 @@ class SlotCache:
         self.lengths[slot] = length
         self.last_token[slot] = last_token
         self.temperature[slot] = temperature
-        self.top_k[slot] = top_k
-        self.generators[slot] = generator
+        if temperature > 0.0:
+            # a free slot's device temperature is already 0 (``evict``)
+            self.temps[slot].fill_(temperature)
+            self.top_ks[slot].fill_(top_k)
+            self.keys[slot].copy_(key)
         self.active[slot] = True
 
     def evict(self, slot: int) -> None:
@@ -396,9 +410,9 @@ class SlotCache:
         self.active[slot] = False
         self.lengths[slot] = 0
         self.last_token[slot] = 0
+        if self.temperature[slot] > 0.0:
+            self.temps[slot].fill_(0.0)
         self.temperature[slot] = 0.0
-        self.top_k[slot] = 0
-        self.generators[slot] = None
         if self.pool is not None:
             self.release_pages(slot)
 

@@ -22,6 +22,31 @@ compute-dtype carry, with the copy written straight into the module's
 parameters, which ``FusedAdamWState.compute_params`` then holds); after
 a ``torch.optim`` step the trainer copies the masters into them.
 
+One step, one graph. The JAX package jits the whole step; on the card
+the port captures it whole as a CUDA graph (``models.graphs``) and
+replays it: forward, backward (remat included), accumulation and the
+optimizer update, with the flash attention kernels and fused AdamW
+launching inside. The key is the batch's shapes and dtypes,
+``accum_steps`` and the identity (data pointers) of every tensor of the
+state and the module, so a state that ``place()`` rebuilt (a restored
+checkpoint) is a new key, and the graph of a state it replaces is
+dropped. The batch is copied into static buffers; the gradients go
+into static buffers too (the fp32 accumulators, zeroed inside the
+graph; with one micro-batch, buffers of the gradients' own dtype),
+which keeps fused AdamW's device table (``ops.adamw``, keyed by those
+pointers) the one the first call built. Gradients are taken with
+``torch.autograd.grad`` on every path, captured or eager, so the two
+give the same bits. The update happens in place (``count`` advances
+in place), so the state a step returns holds the tensors it was given.
+A step's metrics come back as device copies of the graph's output,
+which the next replay overwrites. The first call at a key runs eagerly
+on the graph cache's side stream and is then captured; a learning-rate
+schedule must return a tensor computed from ``count`` on the device
+(a Python float is refused there, not baked in). A ``torch.optim``
+optimizer built with ``capturable=True`` runs inside the graph too;
+any other runs the step eagerly, counted as a ``train_step`` eager
+call. On the CPU every step runs eagerly.
+
 Not ported (single device): ``fsdp`` and ``batch_shardings`` raise.
 """
 
@@ -33,6 +58,7 @@ from typing import Any, Callable
 import torch
 from torch import nn
 
+from tony_tpu_torch.models.graphs import GraphCache
 from tony_tpu_torch.ops.adamw import (FusedAdamW, FusedAdamWState,
                                      fused_adamw_update)
 
@@ -98,6 +124,9 @@ class Trainer:
         self._own_dtype = {n: p.dtype
                            for n, p in self.model.named_parameters()}
         self._copies: dict[str, torch.Tensor] = {}
+        # the captured step's graph on the card (None: every step eager)
+        self.graphs = GraphCache(self.device) \
+            if self.device.type == "cuda" else None
 
     @property
     def device(self) -> torch.device:
@@ -185,17 +214,30 @@ class Trainer:
             return self.apply_fn(self.model, batch).float()
         return self.apply_fn(self.model, batch)
 
-    def _grads(self, batch) -> tuple[torch.Tensor, dict]:
+    def _grads(self, batch, acc: dict | None = None
+               ) -> tuple[torch.Tensor, dict]:
+        """(mean loss, gradients by name) over ``accum_steps`` strided
+        micro-batches, by ``torch.autograd.grad``. ``acc`` (the captured
+        step's static buffers) receives the gradients: zeroed, then
+        summed into (fp32, with several micro-batches) or copied into
+        (one); without it they are new tensors."""
         named = list(self.model.named_parameters())
-        for _, p in named:
-            p.grad = None
         accum = max(self.accum_steps, 1)
+
+        def grads_of(b) -> tuple[torch.Tensor, list]:
+            loss = self._loss(b)
+            got = torch.autograd.grad(loss, [p for _, p in named],
+                                      allow_unused=True)
+            return loss.detach(), [torch.zeros_like(p) if g is None else g
+                                   for (_, p), g in zip(named, got)]
+
         if accum == 1:
-            loss = self._loss(batch)
-            loss.backward()
-            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                     for n, p in named}
-            return loss.detach(), grads
+            loss, gs = grads_of(batch)
+            if acc is None:
+                return loss, {n: g for (n, _), g in zip(named, gs)}
+            for (n, _), g in zip(named, gs):
+                acc[n].copy_(g)
+            return loss, acc
 
         def micro(x, i):
             b = x.shape[0]
@@ -206,31 +248,41 @@ class Trainer:
             return x.reshape(b // accum, accum, *x.shape[1:])[:, i]
 
         # fp32 accumulator even when the per-micro grads are bf16
-        acc = {n: torch.zeros(p.shape, dtype=torch.float32,
-                              device=p.device) if p.is_floating_point()
-               else torch.zeros_like(p) for n, p in named}
+        if acc is None:
+            acc = self._accumulators()
+        for g in acc.values():
+            g.zero_()
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(accum):
-            loss = self._loss({k: micro(v, i) for k, v in batch.items()})
-            loss.backward()
-            loss_sum = loss_sum + loss.detach()
-            for n, p in named:
-                if p.grad is not None:
-                    acc[n].add_(p.grad)
-                    p.grad = None
+            loss, gs = grads_of({k: micro(v, i) for k, v in batch.items()})
+            loss_sum = loss_sum + loss
+            for (n, _), g in zip(named, gs):
+                acc[n].add_(g)
         scale = 1.0 / accum
         for g in acc.values():
             if g.is_floating_point():
                 g.mul_(scale)
         return loss_sum * scale, acc
 
-    def step(self, state: TrainState, batch) -> tuple[TrainState, dict]:
-        """One update: (new state, metrics); metrics are device scalars
-        (fetching them is the caller's choice)."""
-        loss, grads = self._grads(batch)
+    def _accumulators(self) -> dict:
+        """The gradients' buffers: fp32 for several micro-batches (the
+        JAX package's accumulator), else each gradient's own dtype (the
+        compute dtype's, or the parameter's)."""
+        out = {}
+        for n, p in self.model.named_parameters():
+            dt = torch.float32 if p.is_floating_point() \
+                and self.accum_steps > 1 else p.dtype
+            out[n] = torch.zeros(p.shape, dtype=dt, device=p.device)
+        return out
+
+    def _update(self, state: TrainState, batch, acc=None) -> torch.Tensor:
+        """The step's device work, in place on ``state``'s tensors:
+        gradients (``_grads``), the optimizer update, and the metrics as
+        one fp32 tensor, ``[loss]`` or ``[loss, grad_norm]``."""
+        loss, grads = self._grads(batch, acc)
         if self.fused:
-            params, opt = fused_adamw_update(self.optimizer, grads,
-                                             state.opt_state, state.params)
+            fused_adamw_update(self.optimizer, grads, state.opt_state,
+                               state.params)
         else:
             opt, params = state.opt_state, state.params
             for n, m in params.items():
@@ -241,14 +293,83 @@ class Trainer:
                     m.grad = None
                     if n in self._copies:
                         self._copies[n].copy_(m)
-        metrics = {"loss": loss}
+        out = [loss]
         if self.log_grad_norm:
-            metrics["grad_norm"] = torch.sqrt(sum(
-                (g.float() * g.float()).sum() for g in grads.values()))
-        for p in self.model.parameters():
-            p.grad = None
-        return TrainState(step=state.step + 1, params=params,
-                          opt_state=opt), metrics
+            out.append(torch.sqrt(sum(
+                (g.float() * g.float()).sum() for g in grads.values())))
+        return torch.stack(out)
+
+    def _capturable(self, state: TrainState) -> bool:
+        """Whether the step can run inside a graph: fused AdamW (its
+        schedule checked on the first call), or a ``torch.optim``
+        optimizer built with ``capturable=True``."""
+        if self.fused:
+            return True
+        return bool(state.opt_state.defaults.get("capturable", False))
+
+    def _check_schedule(self, state: TrainState) -> None:
+        lr = self.optimizer.learning_rate
+        if callable(lr) and not torch.is_tensor(lr(state.opt_state.count)):
+            raise ValueError(
+                "the learning-rate schedule returned a Python number: a "
+                "captured step would bake it in. Return a tensor computed "
+                "from count on the device (e.g. with torch.clamp or "
+                "torch.where)")
+
+    def _key(self, state: TrainState, batch) -> tuple:
+        """The captured step's key: the batch's shapes and dtypes,
+        ``accum_steps`` and the data pointers of every tensor the step
+        reads or writes in place."""
+        opt = state.opt_state
+        held = list(state.params.values()) + list(self.model.parameters()) \
+            + list(self.model.buffers())
+        if self.fused:
+            held += [opt.count, *opt.mu.values(), *opt.nu.values()]
+        else:
+            held.append(id(opt))
+        ptrs = tuple(t if isinstance(t, int) else t.data_ptr()
+                     for t in held)
+        shapes = tuple((k, tuple(v.shape), v.dtype)
+                       for k, v in sorted(batch.items()))
+        return ("train_step", shapes, self.accum_steps, ptrs)
+
+    def _statics(self, state: TrainState, batch) -> tuple:
+        """The captured step's buffers: the batch's and the gradients',
+        then what the step writes in place (the masters, the module's
+        compute copies and the optimizer's state)."""
+        opt = state.opt_state
+        written = (opt.count, opt.mu, opt.nu) if self.fused \
+            else (opt.state,)
+        return ({k: torch.empty_like(v) for k, v in batch.items()},
+                self._accumulators(), state.params, self._copies, written)
+
+    def step(self, state: TrainState, batch) -> tuple[TrainState, dict]:
+        """One update: (new state, metrics); metrics are device scalars
+        (fetching them is the caller's choice). On the card the step is
+        one replay of its captured graph (the module docstring)."""
+        if self.graphs is None:
+            out = self._update(state, batch)
+        elif not self._capturable(state):
+            out = self.graphs.eager("train_step", self._update, state,
+                                    batch)
+        else:
+            key = self._key(state, batch)
+            stale = [k for k in self.graphs.entries
+                     if k[0] == "train_step" and k != key]
+            for k in stale:  # a replaced state's graph
+                del self.graphs.entries[k]
+            if self.fused and key not in self.graphs.entries:
+                self._check_schedule(state)
+            e = self.graphs.entry(key, lambda: self._statics(state, batch))
+            for k, v in batch.items():
+                e.statics[0][k].copy_(v)
+            out = self.graphs.run(e, lambda b, acc, *_: self._update(
+                state, b, acc)).clone()
+        metrics = {"loss": out[0]}
+        if self.log_grad_norm:
+            metrics["grad_norm"] = out[1]
+        return TrainState(step=state.step + 1, params=state.params,
+                          opt_state=state.opt_state), metrics
 
     def build_step(self, state: TrainState):
         """(step_fn, placed_state); step_fn(state, batch) -> (state,
