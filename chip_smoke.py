@@ -144,11 +144,11 @@ exits non-zero.
    c. Qwen2.5-1.5B (phase 4's weights) ``paged=False`` with a 1 GB row
       prefix store at phase 4's traffic: prefix hits, tok/s and TTFT
       beside phase 4's, and where its bf16 streams part from phase 4's
-      (printed: the two paths round differently in bf16); the same
-      traffic in fp32, paged and unpaged: every stream equal; four
-      prompts served twice (the second time exact hits, near-tie equal);
-      ``speculate_k`` 8 at 13a's traffic (unpaged verify rounds
-      replayed);
+      (printed: the two paths round differently in bf16); the first 12
+      of those requests in fp32, paged and unpaged: every stream equal;
+      four prompts served twice (the second time exact hits, near-tie
+      equal); ``speculate_k`` 8 at the first 8 of 13a's requests
+      (unpaged verify rounds replayed);
    d. on one saved resident-cache state, an unpaged chunk replayed and
       eager: tokens and cache bytes bit-equal, both timed;
    e. ``generate`` at batch 2, 512-token prompts, 64 tokens, with
@@ -197,9 +197,47 @@ exits non-zero.
       8, 512-token prompts, 128 tokens, replayed and eager from one
       generator state: tokens bit-equal; tok/s beside phase 11's greedy.
 
+17. Remote replicas and the KV fabric: phase 4's model written to a
+   checkpoint directory (``max_position_embeddings`` 4096, the end-of-text
+   ids) and read back by ``python -m tony_tpu_torch.cli.replica`` agents
+   (bf16, batch 8, pages of 64, a 64 MB prefix store, flash-decode),
+   two of them, and two more over phase 5's 2-layer checkpoint in fp32,
+   all four booting at once:
+   a. the two bf16 agents behind a ``Gateway`` of ``RemoteServer``s, cold,
+      phase 4's 24 requests: tok/s, TTFT p50/p99, each agent's seconds
+      capturing, peak memory and flash-decode launches (read from the
+      agent, n_layers a single-token micro-step, replays included);
+      streams near-tie equal to phase 4's;
+   c. (bf16) a greedy and a sampled stream (512-token prompt, budget
+      768) each moved to the other agent by ``Gateway.migrate_session``
+      after 64 tokens: freeze-to-resume ms, pages and bytes moved, the
+      gateway's host spans; each near-tie equal to the same request
+      unmoved (the sampled one by the rule of a draw); after 17d the move
+      in parts, with the source agent in this process, idle and busy;
+   b. roles prefill=1, decode=1 over the same two agents, phase 4's
+      traffic: handoffs, each request's payload bytes and pages on the
+      wire, TTFT, tok/s, streams near-tie equal to phase 4's, no
+      flash-decode launch on the prefill agent; in fp32 on
+      the 2-layer checkpoint, requests one at a time, the split's streams
+      equal one ``Server``'s and a greedy and a sampled stream migrated
+      after 16 tokens equal the unmigrated ones, token for token;
+   d. one in-process ``Server`` with an 8 MB prefix store and
+      ``kv_host_mb`` 512: six distinct 192-token prompts evict each
+      other into the tier, then each returns extended by 64 tokens and
+      pages its prefix back in: spills, page-ins, prefix hits, each
+      paged-in page bit-equal to the spilled one, streams near-tie equal
+      to the run without the tier (checked after the timed runs), TTFT
+      beside it, host spans of the page-in and the spill;
+   e. ``python -m tony_tpu_torch.cli.gateway --model <phase 5's
+      checkpoint> --remote-replica --replicas 2 --dtype fp32``: two agent
+      processes that launch flash-decode, phase 5's requests over HTTP
+      token-exact to one fp32 ``Server``, SIGTERM drains to exit 0 and
+      nothing is left of the gateway's process group.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches (flash-decode's include 16a's
-replays, the training kernels' phase 8's), error and times.
+replays, the training kernels' phase 8's, and phase 17's agents'),
+error and times.
 
     python3 chip_smoke.py
 """
@@ -3376,9 +3414,9 @@ def unpaged_fp32_gate(ctx, specs) -> None:
         torch.cuda.empty_cache()
     bad = [i for i in out["paged"] if out["paged"][i] != out["unpaged"][i]]
     check(not bad, f"14c fp32: unpaged streams {bad} differ from paged")
-    print(f"phase 14c fp32 (TF32 off), phase 4's 24 requests: unpaged "
-          f"streams and finish reasons equal to paged in all 24 "
-          f"[{ctx['card']}]")
+    print(f"phase 14c fp32 (TF32 off), phase 4's first {len(specs)} "
+          f"requests: unpaged streams and finish reasons equal to paged in "
+          f"all {len(specs)} [{ctx['card']}]")
     del model
     torch.cuda.empty_cache()
 
@@ -3434,7 +3472,8 @@ def phase_unpaged_qwen(ctx) -> None:
              f"{sorted(t[0] for t in parts if t is not None)} with logit "
              f"gaps of {', '.join(f'{r:.3f}' for r in ratios)} x the "
              f"near-tie tolerance" if ratios else "") + f" [{card_}]")
-    unpaged_fp32_gate(ctx, s4["specs"])
+    # the fp32 gate at half of phase 4's traffic (the smoke's time)
+    unpaged_fp32_gate(ctx, s4["specs"][:12])
     # exact hits: four prompts served, then served again
     rng = np.random.default_rng(SEED + 141)
     again = [(rng.integers(0, 151643, int(rng.integers(300, 801))).tolist(),
@@ -3458,8 +3497,9 @@ def phase_unpaged_qwen(ctx) -> None:
     rows_replay_check(ctx, srv, rng)
     del srv
     torch.cuda.empty_cache()
-    # one speculative pass at 13a's traffic: the unpaged verify round
-    specs = spec_specs(np.random.default_rng(SEED + 13))
+    # one speculative pass at half of 13a's traffic: the unpaged verify
+    # round
+    specs = spec_specs(np.random.default_rng(SEED + 13))[:8]
     srv = serve_server(model, paged=False, prefix_cache_mb=ROW_STORE_MB,
                        speculate_k=SPEC_K)
     reqs = requests(specs)
@@ -3470,7 +3510,8 @@ def phase_unpaged_qwen(ctx) -> None:
           f"14c: {c['spec_rounds']} verify rounds, "
           f"{c['graph_verify_rows_replays']} replayed")
     toks = sum(len(r.tokens) for r in run["results"].values())
-    print(f"phase 14c speculate_k {SPEC_K} unpaged at 13a's 16 requests: "
+    print(f"phase 14c speculate_k {SPEC_K} unpaged at 13a's first "
+          f"{len(specs)} requests: "
           f"{toks / run['wall']:.1f} tok/s, {c['spec_rounds']} verify "
           f"rounds of {c['dispatches']} ({c['spec_drafted']} drafted, "
           f"{c['spec_accepted']} accepted; verify graphs "
@@ -3799,9 +3840,10 @@ def phase_gateway_cli(ctx) -> None:
         rng = np.random.default_rng(SEED + 2)
         specs = [(rng.integers(0, 151643, n).tolist(), m)
                  for n, m in ((40, 12), (300, 20), (5, 1), (900, 8))]
-        model, _ = load_llama_dir(ckpt, device=DEVICE)
-        # the gateway CLI's defaults: batch 4, chunks of 1, a 64 MB
-        # prefix store, the config's end-of-text id
+        # the gateway CLI's defaults on the card: flash-decode, batch 4,
+        # chunks of 1, a 64 MB prefix store, the config's end-of-text id
+        model, _ = load_llama_dir(ckpt, device=DEVICE,
+                                  decode_attention="flash")
         srv = Server(model, batch_size=4, chunk_steps=1,
                      eos_id=QWEN25_15B["eos_token_id"],
                      prefix_cache_mb=64.0, device=DEVICE)
@@ -4203,6 +4245,780 @@ def sampled_generate(ctx, model, rng) -> None:
                          "eager_tok_s": tokens / wall_e}
 
 
+# ------------------------------------------------------------ KV fabric
+
+FABRIC_FLAGS = ("--kv-page-size", "64", "--prefix-cache-mb", "64",
+                "--port", "0")
+# 17c (bf16): the moved streams' prompt, budget and tokens before a move
+MOVE_PROMPT, MOVE_BUDGET, MOVE_AFTER = 512, 768, 64
+# 17d: the prefix store under the host tier (about one prompt's entry)
+TIER_STORE_MB = 8.0
+
+
+class Spans:
+    """Host wall-clock spans: ``wrap(obj, attr)`` times every call of
+    ``obj.attr`` (a class's function or an instance's bound method) under
+    a name, ``key(args)`` when given (a call whose key is None is not
+    recorded); ``restore()`` puts each back. A
+    measurement only: nothing is synchronised that the call does not
+    synchronise itself."""
+
+    def __init__(self):
+        self.ms: dict = {}
+        self._undo: list = []
+
+    def wrap(self, obj, attr: str, name: str = "", key=None) -> None:
+        real = getattr(obj, attr)
+        own = attr in vars(obj)
+        self._undo.append((obj, attr, real if own or isinstance(obj, type)
+                           else None))
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                label = key(args) if key is not None else (name or attr)
+                if label is not None:
+                    self.ms.setdefault(label, []).append(
+                        (time.perf_counter() - t0) * 1e3)
+
+        setattr(obj, attr, timed)
+
+    def restore(self) -> None:
+        for obj, attr, real in reversed(self._undo):
+            if real is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, real)
+        self._undo.clear()
+
+    def text(self) -> str:
+        """'name n x p50 ms (sum ms)' for each span, in first-call order."""
+        return "; ".join(
+            f"{k} {len(v)} x p50 {statistics.median(v):.1f} ms "
+            f"(sum {sum(v):.1f})" for k, v in self.ms.items())
+
+
+def export_checkpoint(model, hf: dict) -> str:
+    """``model``'s weights as a checkpoint directory under build/ that
+    ``models.hf.load_llama_dir`` reads back to the same model:
+    ``config.json`` = ``hf``, ``model.safetensors`` in the Hugging Face
+    names, each tensor in its own dtype. The caller removes it."""
+    from tony_tpu_torch.models.hf import write_safetensors
+
+    sd = model.state_dict()
+    out = {"model.embed_tokens.weight": sd["embedding"],
+           "model.norm.weight": sd["ln_f.scale"]}
+    if "lm_head" in sd:
+        out["lm_head.weight"] = sd["lm_head"]
+    names = {"input_layernorm.weight": "ln1.scale",
+             "post_attention_layernorm.weight": "ln2.scale",
+             "mlp.gate_proj.weight": "mlp.wg.weight",
+             "mlp.up_proj.weight": "mlp.wi.weight",
+             "mlp.down_proj.weight": "mlp.wo.weight",
+             "self_attn.o_proj.weight": "attn.o.weight"}
+    for p in "qkv":
+        names[f"self_attn.{p}_proj.weight"] = f"attn.{p}.weight"
+        names[f"self_attn.{p}_proj.bias"] = f"attn.{p}.bias"
+    for i in range(model.cfg.n_layers):
+        for dst, src in names.items():
+            if f"blocks.{i}.{src}" in sd:
+                out[f"model.layers.{i}.{dst}"] = sd[f"blocks.{i}.{src}"]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="smoke_ckpt_",
+                            dir=os.path.join(ROOT, "build"))
+    with open(os.path.join(ckpt, "config.json"), "w") as fh:
+        json.dump(hf, fh)
+    write_safetensors(out, os.path.join(ckpt, "model.safetensors"))
+    return ckpt
+
+
+def launch_agents(specs: list) -> list:
+    """One ``python -m tony_tpu_torch.cli.replica`` subprocess for each
+    argv of ``specs``, all booting at once (``launch_local_agent``):
+    [(process, "host:port")]. The kernels are built already (phase 1),
+    so the agents load them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tony_tpu_torch.gateway.remote import launch_local_agent
+
+    port_dir = tempfile.mkdtemp(prefix="smoke_agents_",
+                                dir=os.path.join(ROOT, "build"))
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    with ThreadPoolExecutor(len(specs)) as ex:
+        futs = [ex.submit(launch_local_agent, list(argv),
+                          port_file=os.path.join(port_dir, f"a{i}.port"),
+                          env=env, boot_timeout_s=300.0)
+                for i, argv in enumerate(specs)]
+        return [f.result() for f in futs]
+
+
+def stop_agents(agents: list, part: str) -> None:
+    """SIGTERM each agent: it drains and must exit 0."""
+    for proc, _ in agents:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+    for proc, addr in agents:
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed after 120 s"
+        check(rc == 0, f"{part}: agent {addr} exited {rc} after SIGTERM")
+
+
+def reset_agents(agents: list) -> None:
+    """``POST /v1/reset`` to each agent between two gateways: the engine
+    resets and the agent forgets the last gateway's tickets, whose ids a
+    new gateway's (counting from 0 again, on the same epoch) would
+    otherwise meet as duplicates."""
+    import urllib.request
+
+    for _, addr in agents:
+        req = urllib.request.Request(
+            f"http://{addr}/v1/reset", data=json.dumps({"epoch": 0}).encode(),
+            method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            check(r.status == 200, f"agent {addr}: reset {r.status}")
+
+
+def agent_counters(addr: str) -> dict:
+    """The agent engine's counters, read from its ``/healthz``."""
+    return http_json(f"http://{addr}", "/healthz")["counters"]
+
+
+def fabric_gateway(agents: list, **kw):
+    """A started gateway of ``RemoteServer`` stubs over ``agents``, with
+    leases long enough for cold captures."""
+    from tony_tpu_torch.gateway import Gateway, RemoteServer
+
+    stubs = [RemoteServer(addr, heartbeat_interval_s=0.5, lease_misses=240,
+                          stall_timeout_s=600.0, boot_timeout_s=300.0)
+             for _, addr in agents]
+    return Gateway(stubs, max_queue=256, stall_timeout_s=600.0, **kw).start()
+
+
+def submit_all(gw, reqs: list) -> tuple:
+    """``reqs`` (GenRequests) at once through ``gw``: (tickets, results by
+    index, wall seconds from a synchronised start to the last result)."""
+    sync()
+    t0 = time.perf_counter()
+    tickets = [gw.submit(r) for r in reqs]
+    results = {i: t.result(timeout=900) for i, t in enumerate(tickets)}
+    wall = time.perf_counter() - t0
+    return tickets, results, wall
+
+
+def launches_per_agent(before: list, after: list, layers: int,
+                       part: str, idle_ok: bool = False) -> list:
+    """Each agent's flash-decode launches between two counter reads, held
+    to n_layers per single-token micro-step (replays included); an agent
+    with no micro-step fails the check unless ``idle_ok``."""
+    out = []
+    for i, (b, a) in enumerate(zip(before, after)):
+        n = a["flash_decode_launches"] - b.get("flash_decode_launches", 0)
+        micro = (a["decode_steps"] - b.get("decode_steps", 0)) \
+            - (a["spec_window_steps"] - b.get("spec_window_steps", 0))
+        check(n == layers * micro and (micro > 0 or idle_ok),
+              f"{part} agent {i}: flash_decode launched {n} times, "
+              f"expected {layers} x {micro} micro-steps")
+        out.append(n)
+    return out
+
+
+def phase_fabric(ctx) -> None:
+    """17: remote replicas and the KV fabric (see the module
+    docstring)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.gateway import GenRequest
+    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.serve.tier import payload_nbytes
+
+    # what the earlier phases hold goes back before four agent processes
+    # take the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = qwen_config(dtype=torch.bfloat16)
+    model = Transformer(cfg, device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    hf = dict(QWEN25_15B, max_position_embeddings=SERVE_MAX_LEN,
+              eos_token_id=list(SERVE_EOS))
+    bf16_ckpt = export_checkpoint(model, hf)
+    fp32_ckpt = write_checkpoint()
+    dev = ["--device", DEVICE]
+    t0 = time.perf_counter()
+    agents = launch_agents(
+        [["--model", bf16_ckpt, "--dtype", "bf16", "--serve-batch", "8",
+          "--chunk-steps", "8", *FABRIC_FLAGS, *dev]] * 2
+        + [["--model", fp32_ckpt, "--dtype", "fp32", "--serve-batch", "4",
+            "--chunk-steps", "1", *FABRIC_FLAGS, *dev]] * 2)
+    boot_s = time.perf_counter() - t0
+    bf16_agents, fp32_agents = agents[:2], agents[2:]
+    s4 = ctx["serve4"]
+    specs = s4["specs"]
+    want = s4["results"]
+    layers = cfg.n_layers
+    launched = 0
+    try:
+        # ---- 17a: two agents, phase 4's traffic, cold
+        gw = fabric_gateway(bf16_agents)
+        try:
+            before = [agent_counters(a) for _, a in bf16_agents]
+            tickets, res, wall = submit_all(
+                gw, [GenRequest(list(p), n, id=f"a{i}")
+                     for i, (p, n) in enumerate(specs)])
+            after = [agent_counters(a) for _, a in bf16_agents]
+            n_fd = launches_per_agent(before, after, layers, "17a")
+            launched += sum(n_fd)
+            ties = near_ties(model, specs, res, want, "17a")
+            gen = sum(len(r.tokens) for r in res.values())
+            p50, p99 = percentiles(t.metrics["ttft_ms"] / 1e3
+                                   for t in tickets)
+            print(f"phase 17a two cli.replica agents (bf16, batch 8, "
+                  f"flash-decode) behind a Gateway of RemoteServers, cold, "
+                  f"phase 4's 24 requests: {gen} tokens in {wall:.2f} s = "
+                  f"{gen / wall:.1f} tok/s (phase 4: {s4['rate']:.1f}); "
+                  f"TTFT p50 {p50:.3f} s, p99 {p99:.3f} s; "
+                  f"{ties_text(ties, len(specs))}; the four agents booted "
+                  f"in {boot_s:.1f} s [{ctx['card']}]")
+            print("phase 17a by agent: " + "; ".join(
+                f"agent {i}: {a['prefills']} prefills, "
+                f"{a['graph_capture_s']:.2f} s capturing, peak "
+                f"{a['cuda_peak_bytes'] / 2**30:.2f} GiB, flash_decode "
+                f"{n_fd[i]} = {layers} x "
+                f"{a['decode_steps'] - a['spec_window_steps']}"
+                for i, a in enumerate(after)) + f" [{ctx['card']}]")
+
+            # ---- 17c (bf16): a long greedy and a sampled stream moved
+            rng = np.random.default_rng(SEED + 17)
+            long_p = rng.integers(0, 151643, MOVE_PROMPT).tolist()
+            knobs = [{}, dict(temperature=SAMPLED_TEMP,
+                              top_k=SAMPLED_TOP_K, seed=SEED + 17)]
+            ctl = [gw.submit(GenRequest(list(long_p), MOVE_BUDGET,
+                                        id=f"m{j}", **k)).result(timeout=900)
+                   for j, k in enumerate(knobs)]
+            spans = fabric_spans(gw)
+            try:
+                moved = migrate_streams(gw, bf16_agents, long_p,
+                                        MOVE_BUDGET, knobs, "17c bf16",
+                                        after=MOVE_AFTER)
+            finally:
+                spans.restore()
+            tie = parting(model, long_p, moved["tokens"][0],
+                          ctl[0].tokens, "17c bf16 greedy")
+            stie = sampled_parting(model, long_p, moved["tokens"][1],
+                                   ctl[1].tokens, knobs[1],
+                                   "17c bf16 sampled")
+            launched += moved["launches"]
+            print(f"phase 17c live migration between the two bf16 agents "
+                  f"(Gateway.migrate_session after {MOVE_AFTER} tokens, "
+                  f"{MOVE_PROMPT}-token prompt, budget {MOVE_BUDGET}): "
+                  f"greedy and sampled (temperature "
+                  f"{SAMPLED_TEMP}, top-k {SAMPLED_TOP_K}) streams "
+                  + ("equal" if tie is None and stie is None else
+                     f"near-tie equal (greedy {tie}, sampled {stie})")
+                  + " to the unmigrated ones; freeze to resume "
+                  + ", ".join(f"{x:.1f}" for x in moved["resume_ms"])
+                  + f" ms, {moved['pages']} pages and {moved['bytes']} B "
+                  f"moved over the wire [{ctx['card']}]")
+            print(f"phase 17c host spans in the gateway process over the "
+                  f"two moves: {spans.text()} [{ctx['card']}]")
+        finally:
+            gw.drain(timeout=600)
+
+        # ---- 17b: the role split over the same two agents (warm)
+        reset_agents(bf16_agents)
+        gw = fabric_gateway(bf16_agents, roles=["prefill", "decode"])
+        try:
+            before = [agent_counters(a) for _, a in bf16_agents]
+            tickets, res, wall = submit_all(
+                gw, [GenRequest(list(p), n, id=f"b{i}")
+                     for i, (p, n) in enumerate(specs)])
+            after = [agent_counters(a) for _, a in bf16_agents]
+            n_fd = launches_per_agent(before, after, layers, "17b",
+                                      idle_ok=True)
+            check(n_fd[0] == 0 and n_fd[1] > 0,
+                  f"17b: flash_decode launched {n_fd[0]} times on the "
+                  f"prefill agent, {n_fd[1]} on the decode agent")
+            launched += n_fd[1]
+            ties = near_ties(model, specs, res, want, "17b")
+            snap = gw.snapshot()
+            check(snap["routing"]["handoffs"] == len(specs),
+                  f"17b: {snap['routing']['handoffs']} handoffs of "
+                  f"{len(specs)}")
+            check(after[1]["prefills"] == before[1]["prefills"],
+                  "17b: the decode agent prefilled")
+            wire = [(payload_nbytes(t.handoff["pages"]),
+                     -(-len(p) // 64)) for t, (p, _) in zip(tickets, specs)]
+            gen = sum(len(r.tokens) for r in res.values())
+            p50, p99 = percentiles(t.metrics["ttft_ms"] / 1e3
+                                   for t in tickets)
+            print(f"phase 17b roles prefill=1, decode=1 over the two bf16 "
+                  f"agents (warm: 17a's graphs and prefix stores): "
+                  f"{snap['routing']['handoffs']} handoffs; {gen} tokens "
+                  f"in {wall:.2f} s = {gen / wall:.1f} tok/s; TTFT p50 "
+                  f"{p50:.3f} s, p99 {p99:.3f} s; "
+                  f"{ties_text(ties, len(specs))} [{ctx['card']}]")
+            print("phase 17b pages and bytes on the wire by request "
+                  "(payload bucket's bytes, real pages): "
+                  + ", ".join(f"{i}: {b} B / {n} p"
+                              for i, (b, n) in enumerate(wire))
+                  + f"; {sum(b for b, _ in wire) / sum(n for _, n in wire):.0f}"
+                  f" B a real page (28 layers x 2 x 2 KV heads x 128 x 2 B"
+                  f" x 64 tokens = {28 * 2 * 2 * 128 * 2 * 64} B) "
+                  f"[{ctx['card']}]")
+        finally:
+            gw.drain(timeout=600)
+
+        # ---- 17b/17c fp32 on phase 5's 2-layer checkpoint: exact
+        launched += fabric_fp32(ctx, fp32_ckpt, fp32_agents)
+    finally:
+        stop_agents(agents, "17")
+        shutil.rmtree(bf16_ckpt, ignore_errors=True)
+
+    # ---- 17d: the host tier, in process; then 17c's move in parts
+    host_tier_part(ctx, model)
+    move_parts(ctx, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- 17e: the CLI
+    try:
+        fabric_cli(ctx, fp32_ckpt)
+    finally:
+        shutil.rmtree(fp32_ckpt, ignore_errors=True)
+    ctx["launches"] += launched
+
+
+def fabric_spans(gw) -> Spans:
+    """Spans over a migration as the gateway process runs it: the stub's
+    two agent calls (``POST /v1/migrate_out``: the source agent's
+    extract, encode and reply; ``POST /v1/migrate_in``: the request to
+    the adopter and its reply), the codec steps the stub runs itself,
+    and ``Gateway.migrate_session`` whole."""
+    import tony_tpu_torch.serve.migrate as migrate_mod
+    from tony_tpu_torch.gateway.remote import AgentTransport
+
+    spans = Spans()
+    spans.wrap(AgentTransport, "call",
+               key=lambda a: f"POST {a[2]}" if "/v1/migrate" in a[2]
+               else None)
+    for f in ("snapshot_from_doc", "snapshot_to_doc", "delta_trim_doc"):
+        spans.wrap(migrate_mod, f)
+    spans.wrap(gw, "migrate_session")
+    return spans
+
+
+def move_parts(ctx, model) -> None:
+    """17c's move taken apart, at its size (bf16, the same prompt, frozen
+    after the same number of tokens), with the source agent in this
+    process: a ``ReplicaAgent`` stepping on its own thread behind
+    ``AgentHTTP``, asked for the session by ``POST /v1/migrate_out`` as
+    the stub asks, once with the source otherwise idle and once while
+    it steps a second stream. Spans: the call, the agent's
+    ``migrate_out``, ``extract_session`` (gather and stream synchronize),
+    ``snapshot_to_doc`` (the copy to the host and base64), the reply
+    (``json.dumps`` and the socket write); then the adopter's admission
+    (``decode_payload`` and the scatter inside it)."""
+    import numpy as np
+
+    import tony_tpu_torch.serve.engine as engine_mod
+    import tony_tpu_torch.serve.migrate as migrate_mod
+    from tony_tpu_torch.gateway.remote import AgentTransport
+    from tony_tpu_torch.serve import Request
+    from tony_tpu_torch.serve.agent import AgentHandler, AgentHTTP, \
+        ReplicaAgent
+
+    rng = np.random.default_rng(SEED + 17)
+    long_p = rng.integers(0, 151643, MOVE_PROMPT).tolist()
+    other_p = rng.integers(0, 151643, MOVE_PROMPT).tolist()
+    spans = Spans()
+    body = {}
+    for load in ("idle", "busy"):
+        src = serve_server(model)
+        http = AgentHTTP(ReplicaAgent(src)).start()
+        try:
+            http.agent.submit({"prompt": long_p, "id": "m", "epoch": 0,
+                               "max_new_tokens": MOVE_BUDGET})
+            if load == "busy":
+                http.agent.submit({"prompt": other_p, "id": "o",
+                                   "epoch": 0,
+                                   "max_new_tokens": MOVE_BUDGET})
+            deadline = time.monotonic() + 300
+            while len(src.live_progress().get("m", ())) < MOVE_AFTER \
+                    and time.monotonic() < deadline:
+                time.sleep(0.005)
+            spans.wrap(AgentTransport, "call", f"POST /v1/migrate_out "
+                       f"({load})")
+            spans.wrap(http.agent, "migrate_out", f"agent migrate_out "
+                       f"({load})")
+            spans.wrap(src, "extract_session", f"extract_session ({load})")
+            spans.wrap(migrate_mod, "snapshot_to_doc",
+                       f"snapshot_to_doc ({load})")
+            spans.wrap(AgentHandler, "_send", f"reply: json.dumps and "
+                       f"write ({load})")
+            try:
+                out = AgentTransport(http.address, read_timeout_s=120.0
+                                     ).call("POST", "/v1/migrate_out",
+                                            {"id": "m", "epoch": 0})
+            finally:
+                spans.restore()
+            check(out.get("found"), f"17c parts ({load}): nothing frozen")
+            body[load] = out["snapshot"]
+        finally:
+            http.stop()
+            del src
+    dst = serve_server(model)
+    spans.wrap(engine_mod, "decode_payload")
+    spans.wrap(dst, "_scatter")
+    spans.wrap(dst, "_admit_migrate")
+    try:
+        dst.submit(Request(list(long_p), MOVE_BUDGET, id="m",
+                           migrate=body["busy"]))
+        dst.step()
+        sync()
+    finally:
+        spans.restore()
+    check(dst.counters()["migrations_in"] == 1, "17c parts: no adoption")
+    n_tok = body["busy"]["n_tokens"]
+    print(f"phase 17c parts, the source agent in this process ({n_tok} "
+          f"tokens, {-(-n_tok // 64)} pages, a "
+          f"{len(json.dumps(body['busy']))} B snapshot doc): "
+          f"{spans.text()} [{ctx['card']}]")
+    del dst
+
+
+def migrate_streams(gw, agents, prompt, budget, knobs, part,
+                    after: int = 64) -> dict:
+    """One stream for each of ``knobs``, each moved mid-decode (after
+    ``after`` emitted tokens) to the other agent by
+    ``Gateway.migrate_session``:
+    the streams' tokens, each move's freeze-to-resume ms (the adopter's
+    counter), the pages and bytes the adopters took over the wire, and
+    the agents' flash-decode launches in the run."""
+    from tony_tpu_torch.gateway import GenRequest
+
+    before = [agent_counters(a) for _, a in agents]
+    tickets = [gw.submit(GenRequest(list(prompt), budget, id=f"{part}{j}",
+                                    **k)) for j, k in enumerate(knobs)]
+    for t in tickets:
+        deadline = time.monotonic() + 600
+        while t._n_emitted < after and time.monotonic() < deadline:
+            time.sleep(0.005)
+        check(t._n_emitted >= after, f"{part}: the stream never reached "
+              f"{after} tokens")
+        src = t.replica
+        check(gw.migrate_session(t.request.id), f"{part}: the move of "
+              f"{t.request.id} failed")
+        check(t.replica != src, f"{part}: the stream did not move")
+    results = [t.result(timeout=900) for t in tickets]
+    after = [agent_counters(a) for _, a in agents]
+    d = {k: sum(a[k] - b.get(k, 0) for a, b in zip(after, before))
+         for k in ("migrations_in", "migrations_out", "migrate_pages_moved",
+                   "migrate_bytes_wire", "migrate_freeze_resume_ms",
+                   "flash_decode_launches")}
+    check(d["migrations_in"] == d["migrations_out"] == len(knobs),
+          f"{part}: {d['migrations_out']} out, {d['migrations_in']} in")
+    for t, r in zip(tickets, results):
+        check(len(r.tokens) == budget or r.finish_reason == "eos",
+              f"{part}: {t.request.id} ended {r.finish_reason} after "
+              f"{len(r.tokens)}")
+    return {"tokens": [r.tokens for r in results],
+            "resume_ms": [d["migrate_freeze_resume_ms"] / len(knobs)],
+            "pages": d["migrate_pages_moved"] // 2,
+            "bytes": d["migrate_bytes_wire"],
+            "launches": d["flash_decode_launches"]}
+
+
+def fabric_fp32(ctx, ckpt: str, agents: list) -> int:
+    """17b and 17c in fp32 over phase 5's 2-layer full-width checkpoint:
+    the role split's streams and the migrated streams equal one
+    ``Server``'s and the unmigrated ones, token for token. Requests go
+    one at a time on both sides, so each decode step sees the same live
+    extent (page columns, and with them flash-decode's KV splits) in
+    the fleet as in the reference. Returns the agents' flash-decode
+    launches."""
+    import numpy as np
+
+    from tony_tpu_torch.gateway import GenRequest
+    from tony_tpu_torch.models.hf import load_llama_dir
+    from tony_tpu_torch.serve import Request, Server
+
+    rng = np.random.default_rng(SEED + 2)
+    specs = [(rng.integers(0, 151643, n).tolist(), m)
+             for n, m in ((40, 12), (300, 20), (5, 1), (900, 8))]
+    # 200 + 48 positions stay inside one 4-page column bucket
+    long_p = rng.integers(0, 151643, 200).tolist()
+    knobs = [{}, dict(temperature=SAMPLED_TEMP, top_k=SAMPLED_TOP_K,
+                      seed=SEED + 5)]
+    model, _ = load_llama_dir(ckpt, device=DEVICE, decode_attention="flash")
+    srv = Server(model, batch_size=4, chunk_steps=1, kv_page_size=64,
+                 eos_id=QWEN25_15B["eos_token_id"], prefix_cache_mb=64.0,
+                 device=DEVICE)
+    want = [list(srv.run([Request(list(p), n, id=i)]))[0]
+            for i, (p, n) in enumerate(specs)]
+    ctl = [list(srv.run([Request(list(long_p), 48, id=f"c{j}", **k)]))[0]
+           for j, k in enumerate(knobs)]
+    del srv, model
+    before = [agent_counters(a) for _, a in agents]
+    gw = fabric_gateway(agents, roles=["prefill", "decode"])
+    try:
+        for i, (p, n) in enumerate(specs):
+            got = gw.submit(GenRequest(list(p), n, id=f"f{i}")).result(
+                timeout=900)
+            check(got.tokens == want[i].tokens
+                  and got.finish_reason == want[i].finish_reason,
+                  f"17b fp32 request {i}: the role split's stream differs "
+                  "from one Server's")
+        handoffs = gw.snapshot()["routing"]["handoffs"]
+    finally:
+        gw.drain(timeout=600)
+    reset_agents(agents)
+    gw = fabric_gateway(agents)
+    moves = []
+    try:
+        for j, k in enumerate(knobs):
+            moved = migrate_streams(gw, agents, long_p, 48, [k],
+                                    f"17c fp32 {j}", after=16)
+            check(moved["tokens"][0] == ctl[j].tokens,
+                  f"17c fp32 stream {j}: the migrated stream differs from "
+                  "the unmigrated one")
+            moves.append(moved)
+    finally:
+        gw.drain(timeout=600)
+    after = [agent_counters(a) for _, a in agents]
+    print(f"phase 17b/c fp32 over the 2-layer full-width checkpoint "
+          f"(flash-decode): roles prefill=1, decode=1, {handoffs} handoffs,"
+          f" {len(specs)} streams token-exact to one Server; a greedy and a"
+          f" sampled stream each migrated after 16 tokens, token-exact to "
+          f"the unmigrated ones, freeze to resume "
+          + ", ".join(f"{m['resume_ms'][0]:.1f}" for m in moves)
+          + " ms, " + ", ".join(f"{m['pages']} pages / {m['bytes']} B"
+                                for m in moves)
+          + f" over the wire [{ctx['card']}]")
+    return sum(a["flash_decode_launches"] - b["flash_decode_launches"]
+               for a, b in zip(after, before))
+
+
+def host_tier_part(ctx, model) -> None:
+    """17d: one in-process Server with an 8 MB prefix store (about one
+    prompt's entry) and a 512 MB host tier: six distinct 192-token
+    prompts evict each other from the store into the tier, then each
+    comes back extended by 64 tokens, so the tier holds a longer prefix
+    of it than the store and pages it back in, each paged-in page
+    bit-equal to the spilled one. Streams near-tie equal to the run
+    without the tier, which re-prefills; the second round's TTFT beside
+    it."""
+    import numpy as np
+    import torch
+
+    import tony_tpu_torch.serve.tier as tier_mod
+    from tony_tpu_torch.serve import Request
+    from tony_tpu_torch.serve.slots import gather_pages, pool_leaf_keys
+    from tony_tpu_torch.serve.tier import payload_pages
+
+    rng = np.random.default_rng(SEED + 4)
+    first = [rng.integers(0, 151643, 192).tolist() for _ in range(6)]
+    second = [p + rng.integers(0, 151643, 64).tolist() for p in first]
+    paged_in = []  # (device pages as paged in, the host entry's row)
+    spans = Spans()
+
+    def run(kv_host_mb: float):
+        srv = serve_server(model, prefix_cache_mb=TIER_STORE_MB,
+                           kv_host_mb=kv_host_mb, prefix_donate=False)
+        if kv_host_mb:
+            spans.wrap(srv, "_maybe_page_in", "page-in")
+            real = srv._maybe_page_in
+
+            def page_in(p, off, entry):
+                ins = srv.host_tier.page_ins
+                out = real(p, off, entry)
+                _, dev_entry = out
+                _, host = srv.host_tier.store.acquire(p)
+                if host is not None:
+                    srv.host_tier.store.release(host)
+                if srv.host_tier.page_ins > ins and dev_entry is not None \
+                        and host is not None:
+                    # a copy of the pages on the device now; the bytes
+                    # are held to the host entry after the timed run
+                    n = payload_pages(host.row)
+                    paged_in.append((gather_pages(
+                        srv.slots.cache, torch.tensor(
+                            dev_entry.pages[:n], device=DEVICE)), host.row))
+                return out
+
+            srv._maybe_page_in = page_in
+            spans.wrap(srv.host_tier, "acquire", "page-in tier.acquire "
+                       "(waits for the spills in flight)")
+            spans.wrap(srv, "_scatter", "page-in scatter")
+            spans.wrap(srv.prefix, "on_evict", "spill (gather, queued)")
+            spans.wrap(tier_mod, "pages_to_host",
+                       "spill copy to the host (its own thread)")
+        tag = "with the tier" if kv_host_mb else "without"
+        spans.wrap(srv, "_admit_paged", f"admission ({tag})")
+        spans.wrap(srv, "_run_chunk", f"decode chunk ({tag})")
+        ttft, results = [], {}
+        try:
+            for rnd, prompts in enumerate((first, second)):
+                c0 = srv.counters()
+                for i, p in enumerate(prompts):
+                    run_i = serve_timed(srv, [Request(list(p), 16, id=i)])
+                    if rnd == 1:
+                        results[i] = run_i["results"][i]
+                        ttft.append(run_i["first"][i])
+        finally:
+            spans.restore()
+        c = srv.counters()
+        # the second round's graph work: first calls (captures), replays
+        graphs = {k: c[k] - c0.get(k, 0) for k in c
+                  if k.startswith("graph_") and isinstance(c[k], int)
+                  and c[k] != c0.get(k, 0)}
+        return c, ttft, results, graphs
+
+    c_off, ttft_off, res_off, g_off = run(0.0)
+    c_on, ttft_on, res_on, g_on = run(512.0)
+    check(c_on["kv_host_spills"] > 0 and c_on["kv_host_page_ins"] > 0,
+          f"17d: {c_on['kv_host_spills']} spills, "
+          f"{c_on['kv_host_page_ins']} page-ins")
+    check(len(paged_in) == c_on["kv_host_page_ins"],
+          f"17d: {len(paged_in)} of {c_on['kv_host_page_ins']} paged-in "
+          "entries held to their spilled bytes")
+    for got, row in paged_in:
+        for key, name in pool_leaf_keys(row):
+            check(torch.equal(got[key][name].cpu().view(torch.uint8),
+                              row[key][name].view(torch.uint8)),
+                  f"17d: paged-in page {key}.{name} differs from the "
+                  "spilled one")
+    ties = near_ties(model, [(p, 16) for p in second], res_on, res_off,
+                     "17d")
+    print(f"phase 17d host tier (a {TIER_STORE_MB:g} MB prefix store, 512 "
+          f"MB on the host; 6 distinct 192-token prompts, then each "
+          f"extended by 64 tokens): {c_on['kv_host_spills']} spills, "
+          f"{c_on['kv_host_page_ins']} page-ins "
+          f"({c_on['kv_host_page_in_bytes']} B), prefix hits "
+          f"{c_on['prefix_hits']} ({c_on['prefix_hit_tokens']} tokens) "
+          f"against {c_off['prefix_hits']} without the tier; "
+          f"{len(paged_in)} paged-in entries "
+          f"({sum(payload_pages(r) for _, r in paged_in)} pages) "
+          f"bit-equal to the spilled pages; second round TTFT p50 "
+          f"{percentiles(ttft_on)[0] * 1e3:.1f} ms with the tier, "
+          f"{percentiles(ttft_off)[0] * 1e3:.1f} ms without; "
+          f"{ties_text(ties, len(second))} [{ctx['card']}]")
+    print(f"phase 17d host spans (host walls: device work a span queues is "
+          f"waited for by the next one that reads a result): "
+          f"{spans.text()}; second round's graph counters: with the tier "
+          f"{g_on}, without {g_off} [{ctx['card']}]")
+
+
+def group_pids(pgid: int) -> list:
+    """Pids of the live processes in process group ``pgid`` (a group
+    this script started with ``start_new_session``; zombies left out)."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                # "pid (comm) state ppid pgrp ...": comm may hold spaces
+                state, _, pgrp = f.read().rsplit(")", 1)[1].split()[:3]
+        except (OSError, ValueError, IndexError):
+            continue
+        if int(pgrp) == pgid and state != "Z":
+            out.append(int(pid))
+    return out
+
+
+def fabric_cli(ctx, ckpt: str) -> None:
+    """17e: ``cli.gateway --remote-replica --replicas 2 --dtype fp32`` over
+    phase 5's checkpoint, against one fp32 Server with flash-decode (what
+    the agents run on the card); the agents' flash-decode launches are
+    read from them. The gateway runs in a session of its own, so its
+    process group holds it and the agents it launches, and nothing else:
+    SIGTERM drains it to exit 0 with no process of that group left."""
+    import numpy as np
+
+    from tony_tpu_torch.models.hf import load_llama_dir
+    from tony_tpu_torch.serve import Request, Server
+
+    rng = np.random.default_rng(SEED + 2)
+    specs = [(rng.integers(0, 151643, n).tolist(), m)
+             for n, m in ((40, 12), (300, 20), (5, 1), (900, 8))]
+    model, _ = load_llama_dir(ckpt, device=DEVICE, decode_attention="flash")
+    layers = model.cfg.n_layers
+    srv = Server(model, batch_size=4, chunk_steps=1,
+                 eos_id=QWEN25_15B["eos_token_id"], prefix_cache_mb=64.0,
+                 device=DEVICE)
+    want = {r.id: r for r in srv.run(
+        [Request(list(p), n, id=i) for i, (p, n) in enumerate(specs)])}
+    del srv, model
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tony_tpu_torch.cli.gateway", "--model",
+         ckpt, "--remote-replica", "--replicas", "2", "--port", "0",
+         "--dtype", "fp32", "--device", DEVICE],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "PYTHONPATH": ROOT},
+        start_new_session=True)
+    try:
+        # the launched agents share the gateway's stdout: their boot
+        # lines ("... replica agent <id> at http://host:port") come first
+        line, addrs = "", []
+        for _ in range(8):
+            line = proc.stdout.readline()
+            if "replica agent" in line and " at http://" in line:
+                addrs.append(line.split(" at http://")[1].split()[0])
+            if "gateway at http://" in line or not line:
+                break
+        check("gateway at http://" in line and "remote agents" in line,
+              f"17e: the gateway did not boot: {line!r}")
+        url = line.split(" at ")[1].split()[0]
+        members = group_pids(proc.pid)
+        check(len(addrs) == 2 and len(members) == 3,
+              f"17e: {len(addrs)} agents booted, {len(members)} processes "
+              "in the gateway's group")
+        before = [agent_counters(a) for a in addrs]
+        docs, wall = gateway_pass(url, specs, "e")
+        after = [agent_counters(a) for a in addrs]
+        n_fd = launches_per_agent(before, after, layers, "17e",
+                                  idle_ok=True)
+        check(sum(n_fd) > 0, "17e: the agents launched no flash_decode")
+        for i, d in enumerate(docs):
+            got = Streamed(d, specs[i][0])
+            check(got.tokens == want[i].tokens
+                  and got.finish_reason == want[i].finish_reason,
+                  f"17e request {i}: the gateway's stream differs from one "
+                  "fp32 Server's")
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=300)
+        check(proc.returncode == 0 and "drained clean" in err,
+              f"17e: exit code {proc.returncode} after SIGTERM: "
+              f"{err[-800:]}")
+        deadline = time.monotonic() + 10
+        while group_pids(proc.pid) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        left = group_pids(proc.pid)
+        check(not left, f"17e: processes {left} outlived the gateway")
+        print(f"phase 17e cli.gateway --remote-replica --replicas 2 --dtype "
+              f"fp32 over the 2-layer full-width checkpoint: 2 agent "
+              f"processes, {len(docs)} HTTP responses in {wall:.2f} s "
+              f"token-exact to one fp32 Server; flash_decode launched "
+              f"{' + '.join(map(str, n_fd))} times in the agents; SIGTERM "
+              f"drained, exit 0, no agent left [{ctx['card']}]")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
 def mistral_kernel_line(ctx) -> dict:
     m = ctx["mistral_call"]
     return {"name": "flash_decode (Mistral-7B-v0.1, window 4096)",
@@ -4249,7 +5065,8 @@ def main() -> int:
                         ("unpaged-cli", phase_unpaged_cli),
                         ("gateway", phase_gateway),
                         ("gateway-cli", phase_gateway_cli),
-                        ("sampled", phase_sampled)):
+                        ("sampled", phase_sampled),
+                        ("fabric", phase_fabric)):
         t0 = time.perf_counter()
         try:
             phase(ctx)

@@ -12,8 +12,8 @@ ids:
   requests finish, new ones are shed) and a journal replay
   (``recover_from_journal``), each token-exact to the JAX gateway's.
 
-Also what the port's gateway refuses: remote replicas and the
-prefill/decode role split (ROADMAP.md queue 3); and the lock by which
+Also the role split it refuses as the JAX gateway does; and the lock by
+which
 replica threads share the card (``models.graphs.DEVICE``), under more
 threads than cores: no capture overlaps another holder, no step is
 lost, nothing deadlocks."""
@@ -229,13 +229,19 @@ def test_journal_replay_matches_jax(models, tmp_path):
 
 
 def test_refuses_what_is_not_ported(models):
+    """Remote replicas and the role split are ported now
+    (tests/test_torch_remote.py, tests/test_torch_disagg.py): the
+    gateway refuses only a role split it could not serve, as the JAX
+    gateway does."""
     servers = _servers(PORT, models, True)
-    remote = _servers(PORT, models, True)[0]
-    remote.transport = object()
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        Gateway([remote])
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        Gateway(servers, roles=["prefill", "decode"])
+    jax_servers = _servers(JAX, models, True)
+    for gw_cls, pair in ((JaxGateway, jax_servers), (Gateway, servers)):
+        with pytest.raises(ValueError, match="at least one"):
+            gw_cls(pair, roles=["decode", "decode"])
+        with pytest.raises(ValueError, match="names 1 replicas"):
+            gw_cls(pair, roles=["prefill"])
+    gw = Gateway(servers, roles=["prefill", "decode"])
+    assert [r.role for r in gw.replicas] == ["prefill", "decode"]
 
 
 def test_device_lock_keeps_captures_alone():

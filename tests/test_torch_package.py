@@ -4,8 +4,9 @@ that imports them all and inspects ``sys.modules``); every import of a
 ``tony_tpu_torch`` module in its source resolves, the lazy ones inside
 functions included; it passes the repository's lint (``tools/lint.py``)
 with ``chip_smoke.py``; its entry points raise without a CUDA device
-unless asked for the CPU; and work on CPU tensors never launches the
-CUDA kernel."""
+unless asked for the CPU; the gateway CLI refuses only what is not
+ported (``--mesh``); and work on CPU tensors never launches the CUDA
+kernel."""
 
 import ast
 import importlib.util
@@ -20,6 +21,7 @@ import torch
 from torch_parity import QWEN_TINY, tokens
 from tony_tpu_torch.cli import gateway as torch_gateway_cli
 from tony_tpu_torch.cli import generate as torch_cli
+from tony_tpu_torch.cli import replica as torch_replica_cli
 from tony_tpu_torch.cli import score as torch_score
 from tony_tpu_torch.models.generate import generate
 from tony_tpu_torch.models.transformer import Transformer, TransformerConfig
@@ -125,6 +127,36 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
     for argv in (["--demo-model"], ["--model", str(tmp_path)]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             torch_gateway_cli.main([*argv, "--replicas", "2", "--port", "0"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            torch_replica_cli.main([*argv, "--port", "0"])
+
+
+class _Built(Exception):
+    """Raised in place of building the gateway: the CLI got past its
+    flag checks."""
+
+
+@pytest.mark.parametrize("flags", [
+    ["--agents", "127.0.0.1:1"], ["--remote-replica", "--demo-model"],
+    ["--roles", "prefill=1,decode=1", "--demo-model"],
+    ["--autoscale-max", "4", "--demo-model"],
+    ["--rebalance", "--demo-model"],
+    ["--kv-host-mb", "64", "--demo-model"]],
+    ids=lambda v: v[0])
+def test_gateway_cli_takes_the_fabric_flags(flags, monkeypatch, capsys):
+    """The flags of remote replicas and the KV fabric no longer exit 2:
+    the CLI goes on to build its gateway (stopped there)."""
+    def build(*a, **kw):
+        raise _Built
+
+    monkeypatch.setattr(torch_gateway_cli, "build_gateway", build)
+    with pytest.raises(_Built):
+        torch_gateway_cli.main([*flags, "--device", "cpu", "--port", "0"])
+    assert "not ported" not in capsys.readouterr().err
+    assert torch_gateway_cli.main(["--demo-model", "--device", "cpu",
+                                   "--mesh", "4"]) == 2
+    assert torch_replica_cli.main(["--demo-model", "--device", "cpu",
+                                   "--mesh", "4"]) == 2
 
 
 def test_cpu_work_never_launches_the_kernel():

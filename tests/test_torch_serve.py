@@ -6,8 +6,8 @@ and 8. EOS ids are chosen up front, never read off a model's output;
 the mix is checked to end some requests on them.
 
 Also the allocator (reserve/alloc/share/unref), the store, and what the
-constructor (the options and models not ported yet, a paged cache over
-a sliding window) and ``submit`` refuse.
+constructor (a mesh and int8 models, not ported yet; a paged cache over
+a sliding window; the host tier without a store) and ``submit`` refuse.
 """
 
 import copy
@@ -142,10 +142,20 @@ def test_submit_validation(models):
 
 def test_server_refuses_what_is_not_ported(models):
     _, _, tm = models
-    for kw in ({"kv_host_mb": 1.0}, {"mesh": object()},
-               {"page_pool": object()}):
-        with pytest.raises(NotImplementedError):
-            Server(tm, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Server(tm, device="cpu", mesh=object())
+    # ported since: the host page tier (it needs a prefix store, as in
+    # the JAX package) and a shared page pool (paged only);
+    # tests/test_torch_tier.py, tests/test_torch_migrate.py
+    with pytest.raises(ValueError, match="prefix store"):
+        Server(tm, device="cpu", kv_host_mb=1.0)
+    assert Server(tm, device="cpu", kv_host_mb=1.0,
+                  prefix_cache_mb=1.0).host_tier is not None
+    pool = PagePool(tm, 16, 8, shared=True)
+    assert Server(tm, device="cpu", page_pool=pool).slots.cache \
+        is pool.cache
+    with pytest.raises(ValueError, match="needs the paged"):
+        Server(tm, device="cpu", paged=False, page_pool=pool)
     # ported since: the unpaged cache and sliding-window models (served
     # unpaged, as the JAX package serves them); parity in
     # tests/test_torch_unpaged.py and tests/test_torch_window.py
@@ -226,16 +236,18 @@ def test_live_progress_tails_match_jax(models):
 def test_paged_counters_keys_match_jax(models, jax_results):
     """Paged ``counters()`` carries the JAX ``Server``'s keys, with
     ``kv_tokens_resident`` equal on the same run; the port adds its
-    documented ``graph_*`` (on the card) and ``spec_window_steps``, and
-    lacks only the handoff and migration counters (not ported)."""
+    documented ``graph_*`` and ``flash_decode_launches`` (on the card)
+    and ``spec_window_steps``; the handoff and migration counters (ported
+    since) are there and equal too."""
     _, _, tm = models
     _, jc = jax_results
     srv = Server(tm, batch_size=2, eos_id=EOS, chunk_steps=8, device="cpu",
                  **SERVE)
     _run(Server, Request, srv)
     c = srv.counters()
-    later = {k for k in jc if k.startswith(("handoffs_", "migrat"))}
-    assert set(c) - {"spec_window_steps"} == set(jc) - later
+    assert set(c) - {"spec_window_steps"} == set(jc)
+    fabric = [k for k in jc if k.startswith(("handoffs_", "migrat"))]
+    assert fabric and {k: c[k] for k in fabric} == {k: jc[k] for k in fabric}
     assert c["kv_tokens_resident"] == jc["kv_tokens_resident"] > 0
     for key in ("kv_pages_used", "prefix_entries", "prefix_bytes"):
         assert c[key] == jc[key]

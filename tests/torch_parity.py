@@ -68,3 +68,44 @@ def build_pair(seed: int = 0, jax_dtype=jnp.float32,
 def tokens(seed: int, shape, vocab: int = QWEN_TINY["vocab_size"]):
     return np.random.default_rng(seed).integers(0, vocab, shape,
                                                 dtype=np.int64)
+
+
+def wait_for(cond, timeout: float = 120.0, what: str = "condition"):
+    """Poll ``cond()`` until it holds; a long deadline, not a timing."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+class Gate:
+    """Holds a server's stepping at a step boundary once one of its live
+    requests has ``after`` tokens, until ``open()``: the mid-stream
+    window a migration test needs, made by an event and not by a sleep.
+    The hold sits outside the engine's locks (it wraps ``step``), so an
+    ``extract_session`` from another thread goes through while it
+    holds. Works on a JAX and a port ``Server`` alike."""
+
+    def __init__(self, server, after: int):
+        import threading
+
+        self.held = threading.Event()
+        self._go = threading.Event()
+        real = server.step
+
+        def step():
+            if not self._go.is_set() and any(
+                    len(t) >= after
+                    for t in server.live_progress().values()):
+                self.held.set()
+                self._go.wait(300)
+            return real()
+
+        server.step = step
+
+    def open(self) -> None:
+        self._go.set()

@@ -26,12 +26,25 @@ Shutdown: SIGTERM/SIGINT stops admission (``/readyz`` -> 503), finishes
 every queued + in-flight request, then exits 0. A second signal
 force-exits.
 
-Refused with exit 2, each not ported yet (ROADMAP.md): ``--agents`` and
-``--remote-replica`` (remote replicas), ``--roles`` (disaggregated
-prefill/decode), ``--autoscale-max``, ``--rebalance`` and
-``--kv-host-mb`` (queue 3), ``--mesh`` (queue 5). Every replica owns
-its page pool (the JAX CLI's default shared pool is queue 3).
-``--compile-cache`` is XLA's and has no counterpart.
+Remote replicas: ``--remote-replica`` launches one ``python -m
+tony_tpu_torch.cli.replica`` agent per replica on this host and drives
+each through a ``gateway.remote.RemoteServer`` (lease heartbeats, epoch
+fencing, resumable streams, token-exact failover); ``--agents
+host:port,...`` attaches to agents already running, and the gateway
+process then loads no weights. ``--roles prefill=N,decode=M`` splits the
+fleet into a prefill pool, whose finished prompts hand their pages off,
+and a decode pool. ``--kv-host-mb`` puts a host-RAM page tier under each
+replica's prefix store. ``--autoscale-max`` arms the autoscaler and
+``--rebalance`` the rebalancer, which live-migrates sessions off the
+fullest replica. In-process replicas share one page pool (the JAX CLI's
+default; handoffs and migrations between them are page-table swaps);
+``--no-shared-pool`` gives each its own.
+
+On the card a checkpoint's replicas (and the agents ``cli.replica``
+boots) run the decode attention through the CUDA flash-decode kernel;
+on the CPU, its plain einsum. Refused with exit 2:
+``--mesh`` (ROADMAP.md queue 5). ``--compile-cache`` is XLA's and has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -45,12 +58,6 @@ import threading
 
 # (flag, set in args?, ROADMAP.md queue)
 REFUSED = (
-    ("--agents", lambda a: bool(a.agents.strip()), 3),
-    ("--remote-replica", lambda a: a.remote_replica, 3),
-    ("--roles", lambda a: bool(a.roles.strip()), 3),
-    ("--autoscale-max", lambda a: a.autoscale_max > 0, 3),
-    ("--rebalance", lambda a: a.rebalance, 3),
-    ("--kv-host-mb", lambda a: a.kv_host_mb > 0, 3),
     ("--mesh", lambda a: bool(a.mesh.strip()), 5),
 )
 
@@ -67,9 +74,31 @@ def build_parser() -> argparse.ArgumentParser:
                      help="serve a tiny random decoder (no checkpoint, "
                           "token_ids requests only) — for smoke tests")
     p.add_argument("--remote-replica", action="store_true",
-                   help="not ported to PyTorch yet (ROADMAP.md queue 3): refused")
+                   help="serve ON replica agents instead of in-process "
+                        "threads: launch one `python -m "
+                        "tony_tpu_torch.cli.replica` subprocess per "
+                        "replica and drive each through a RemoteServer "
+                        "stub — lease heartbeats, epoch fencing, "
+                        "resumable token streams, token-exact failover "
+                        "on agent death")
     p.add_argument("--agents", default="",
-                   help="not ported to PyTorch yet (ROADMAP.md queue 3): refused")
+                   help="comma-separated host:port of ALREADY RUNNING "
+                        "replica agents to attach to (implies remote "
+                        "mode; the gateway process loads no weights)")
+    p.add_argument("--agent-heartbeat", type=float, default=1.0,
+                   help="gateway->agent heartbeat interval in seconds; "
+                        "the lease horizon is interval x max(3, "
+                        "--agent-lease-misses)")
+    p.add_argument("--agent-lease-misses", type=int, default=5,
+                   help="missed heartbeats before an agent's lease "
+                        "expires (see --agent-heartbeat)")
+    p.add_argument("--agent-channel", choices=("mux", "per-ticket"),
+                   default="mux",
+                   help="gateway->agent streaming transport: 'mux' is "
+                        "ONE long-lived connection per replica carrying "
+                        "every ticket stream as tagged frames; "
+                        "'per-ticket' keeps one connection a request as "
+                        "the A/B control")
     p.add_argument("--replicas", type=int, default=1,
                    help="data-parallel serve.Server replicas (each with "
                         "its own KV cache and scheduler thread)")
@@ -87,7 +116,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "rounds, capping co-tenant TPOT/TTFT "
                         "starvation. 0 = monolithic (the default)")
     p.add_argument("--roles", default="",
-                   help="not ported to PyTorch yet (ROADMAP.md queue 3): refused")
+                   help="disaggregated prefill/decode: "
+                        "'prefill=N,decode=M' splits the fleet into a "
+                        "prefill pool (admission + chunked prefill "
+                        "only; finished prompts hand off as page lists) "
+                        "and a decode pool. Overrides --replicas to N+M; "
+                        "needs the paged KV cache; token-exact vs a "
+                        "generalist fleet")
     p.add_argument("--no-prefix-affinity", action="store_true",
                    help="disable prefix-affinity routing (requests "
                         "route to the replica whose radix tree holds "
@@ -95,7 +130,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "the A/B control — routing degrades to "
                         "least-outstanding-tokens)")
     p.add_argument("--kv-host-mb", type=float, default=0.0,
-                   help="not ported to PyTorch yet (ROADMAP.md queue 3): refused")
+                   help="per-replica host-RAM page tier under the prefix "
+                        "store: evicted entries spill to the host and "
+                        "page back in on a later hit. 0 disables; needs "
+                        "the paged cache and a prefix store")
     p.add_argument("--prefix-cache-mb", type=float, default=64.0,
                    help="per-replica byte budget for the prefix "
                         "KV-cache store (radix reuse of shared prompt "
@@ -124,9 +162,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "of the paged pool (A/B escape hatch; "
                         "sliding-window models downgrade automatically)")
     p.add_argument("--no-shared-pool", action="store_true",
-                   help="each in-process replica owns its KV page pool: "
-                        "the port's only mode (a gateway-owned shared "
-                        "pool is not ported yet, ROADMAP.md queue 3)")
+                   help="give each in-process replica its own private "
+                        "KV page pool instead of one gateway-owned "
+                        "shared pool (the shared pool makes "
+                        "prefill->decode handoffs and live session "
+                        "migration zero-copy owner swaps, and pools the "
+                        "fleet's free-page headroom)")
     p.add_argument("--mesh", default="",
                    help="not ported to PyTorch yet (ROADMAP.md queue 5): refused")
     p.add_argument("--host", default="127.0.0.1")
@@ -216,6 +257,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "at the gateway (GET /v1/stream/<id>) and a "
                         "launched agent keeps orphaned sessions "
                         "adoptable")
+    p.add_argument("--agent-grace", type=float, default=0.0,
+                   help="launched agents: seconds of gateway silence "
+                        "before their in-flight slots freeze into "
+                        "parked snapshots (forwarded as the replica "
+                        "CLI's --gateway-grace; 0 = park only finished "
+                        "results)")
     p.add_argument("--trace-capacity", type=int, default=256,
                    help="recent request traces kept for "
                         "GET /debug/trace/<request_id>; 0 disables "
@@ -259,9 +306,48 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-tenant burst bucket in tokens "
                         "(default 4x --tenant-quota)")
     p.add_argument("--autoscale-max", type=int, default=0,
-                   help="not ported to PyTorch yet (ROADMAP.md queue 3): refused")
+                   help="arm the elastic autoscaler: grow the fleet "
+                        "up to this many replicas under queue/SLO "
+                        "pressure (probe-admitted), drain back to "
+                        "--autoscale-min when idle. 0 = fixed fleet")
+    p.add_argument("--autoscale-min", type=int, default=0,
+                   help="fleet floor for scale-down (default: "
+                        "--replicas)")
+    p.add_argument("--autoscale-interval", type=float, default=1.0,
+                   help="autoscaler control-loop tick in seconds")
+    p.add_argument("--autoscale-up-queue", type=float, default=4.0,
+                   help="queued requests per routable replica that "
+                        "count as scale-up pressure")
+    p.add_argument("--autoscale-up-wait", type=float, default=1.0,
+                   help="oldest queued wait (s) that counts as "
+                        "scale-up pressure")
+    p.add_argument("--autoscale-ttft-slo", type=float, default=0.0,
+                   help="TTFT SLO in seconds: scale-up pressure when "
+                        ">10%% of a tick's completions exceed it (0 "
+                        "disables the SLO-burn signal)")
+    p.add_argument("--autoscale-cooldown-up", type=float, default=5.0,
+                   help="lockout after a scale-up (s)")
+    p.add_argument("--autoscale-cooldown-down", type=float, default=30.0,
+                   help="lockout after a scale-down (s)")
     p.add_argument("--rebalance", action="store_true",
-                   help="not ported to PyTorch yet (ROADMAP.md queue 3): refused")
+                   help="arm the pressure-driven rebalancer "
+                        "(gateway/rebalance.py): watches per-replica "
+                        "slot-occupancy skew and live-migrates "
+                        "in-flight sessions off the fullest replica, "
+                        "token-exact")
+    p.add_argument("--no-rebalance", action="store_true",
+                   help="explicitly disable the rebalancer (the A/B "
+                        "control; wins over --rebalance)")
+    p.add_argument("--rebalance-interval", type=float, default=1.0,
+                   help="rebalancer control-loop tick in seconds")
+    p.add_argument("--rebalance-skew", type=float, default=0.5,
+                   help="hot-minus-cold occupancy-fraction gap that "
+                        "counts as skew (0.5 = 50 points fuller)")
+    p.add_argument("--rebalance-stable", type=int, default=2,
+                   help="consecutive skewed ticks before a move")
+    p.add_argument("--rebalance-cooldown", type=float, default=5.0,
+                   help="lockout after a successful move (s); a move "
+                        "that found no victim waits twice as long")
     p.add_argument("--no-in-dispatch-eos", action="store_true",
                    help="disable the in-dispatch EOS/refill freeze "
                    " and fused speculation rounds — the "
@@ -358,16 +444,51 @@ def demo_model(device=None):
         torch.Generator().manual_seed(0))
 
 
+def decode_attention_for(device) -> dict:
+    """The checkpoint loader's decode-attention override for ``device``:
+    the CUDA flash-decode kernel on the card (default ``cuda``), the
+    plain einsum elsewhere."""
+    import torch
+
+    if torch.device(device or "cuda").type == "cuda":
+        return {"decode_attention": "flash"}
+    return {}
+
+
 def server_factory(args, model, eos):
     """``make(index) -> Server``: one replica engine from parsed args,
-    over the shared ``model``, with its own KV cache and prefix store;
-    ``TONY_SERVE_FAULTS`` applies by its fleet index."""
+    over the shared ``model``, with its own prefix store (and host tier
+    with ``--kv-host-mb``); ``TONY_SERVE_FAULTS`` applies by its fleet
+    index. Shared by the boot replicas and the autoscaler, so a grown
+    replica is configured as a boot one. Paged replicas share ONE page
+    pool (sized for the fleet ceiling, allocated before any replica
+    captures a graph) unless ``--no-shared-pool``."""
     from tony_tpu_torch.cli.generate import (resolve_paged_kv,
                                              resolve_prefix_cache_mb)
     from tony_tpu_torch.serve import FaultPlan, Server
 
     prefix_mb = resolve_prefix_cache_mb(args, model)
     paged_kw = resolve_paged_kv(args, model)
+    ceiling = max(1, args.replicas, getattr(args, "autoscale_max", 0) or 0)
+    # the host tier spills EVICTED prefix-store entries: with the store
+    # off there is nothing to spill, so it goes off loudly
+    kv_host_mb = args.kv_host_mb
+    if kv_host_mb > 0 and (prefix_mb <= 0 or not paged_kw["paged"]):
+        logging.getLogger(__name__).warning(
+            "--kv-host-mb ignored: the host page tier needs the paged "
+            "KV cache and a prefix store (--prefix-cache-mb > 0)")
+        kv_host_mb = 0.0
+    pool = None
+    if paged_kw["paged"] and not args.no_shared_pool:
+        from tony_tpu_torch.serve.slots import PagePool, default_page_size
+
+        cfg = model.cfg
+        ps = paged_kw.get("kv_page_size", 0) or default_page_size(cfg)
+        ps = max(1, min(int(ps), cfg.max_seq_len))
+        per_replica = paged_kw.get("kv_pages", 0) \
+            or args.serve_batch * (-(-cfg.max_seq_len // ps))
+        pool = PagePool(model, int(per_replica) * ceiling, ps,
+                        shared=True)
 
     def make(index: int):
         return Server(model, batch_size=args.serve_batch,
@@ -378,19 +499,154 @@ def server_factory(args, model, eos):
                       fault_plan=FaultPlan.from_env(replica=index),
                       hbm_gbps=args.hbm_gbps,
                       prefill_chunk_tokens=args.prefill_chunk_tokens,
+                      kv_host_mb=kv_host_mb,
                       in_dispatch_eos=not args.no_in_dispatch_eos,
-                      device=args.device, **paged_kw)
+                      page_pool=pool, device=args.device, **paged_kw)
+
+    return make
+
+
+def parse_roles(spec: str) -> list | None:
+    """``--roles prefill=N,decode=M`` -> the per-replica role list
+    (prefill replicas first)."""
+    if not spec.strip():
+        return None
+    counts = {"prefill": 0, "decode": 0}
+    for part in spec.split(","):
+        name, sep, n = part.strip().partition("=")
+        if not sep or name not in counts:
+            raise SystemExit(
+                f"--roles expects 'prefill=N,decode=M', got {spec!r}")
+        try:
+            counts[name] = int(n)
+        except ValueError:
+            raise SystemExit(f"--roles count {n!r} is not an integer") \
+                from None
+    if counts["prefill"] < 1 or counts["decode"] < 1:
+        raise SystemExit("--roles needs at least one prefill AND one "
+                         "decode replica")
+    return ["prefill"] * counts["prefill"] \
+        + ["decode"] * counts["decode"]
+
+
+def agent_argv(args, index: int) -> list:
+    """The ``python -m tony_tpu_torch.cli.replica`` argv mirroring this
+    gateway's engine knobs: a launched agent is configured exactly as an
+    in-process replica would have been."""
+    argv = ["--serve-batch", str(args.serve_batch),
+            "--chunk-steps", str(args.chunk_steps),
+            "--prefill-chunk-tokens", str(args.prefill_chunk_tokens),
+            "--prefix-cache-mb", str(args.prefix_cache_mb),
+            "--kv-host-mb", str(args.kv_host_mb),
+            "--speculate-k", str(args.speculate_k),
+            "--kv-page-size", str(args.kv_page_size),
+            "--kv-pages", str(args.kv_pages),
+            "--max-pending", str(args.max_pending),
+            "--eos-id", str(args.eos_id),
+            "--dtype", args.dtype,
+            "--hbm-gbps", str(args.hbm_gbps),
+            "--replica-index", str(index),
+            "--park-ttl", str(args.park_ttl),
+            "--gateway-grace", str(args.agent_grace),
+            "--port", "0"]
+    if args.device:
+        argv += ["--device", args.device]
+    if args.profile_dir:
+        # launched agents share THIS host: their captures land under the
+        # gateway's profile dir, one subdir an agent
+        argv += ["--profile-dir",
+                 os.path.join(args.profile_dir, f"agent-{index}")]
+    if args.no_paged_kv:
+        argv.append("--no-paged-kv")
+    if args.no_in_dispatch_eos:
+        argv.append("--no-in-dispatch-eos")
+    if args.demo_model:
+        argv.append("--demo-model")
+    else:
+        argv += ["--model", args.model]
+    return argv
+
+
+def remote_server_factory(args):
+    """``make(index, hosts=None) -> RemoteServer``, the remote twin of
+    ``server_factory``: a ``host:port`` entry in ``hosts`` attaches to
+    an agent already listening there; no hosts (or localhost) launches
+    the agent as a local subprocess (``launch_local_agent``).
+    ``TONY_SERVE_FAULTS`` transport faults arm at the stub by fleet
+    index, engine faults in the launched agent's environment."""
+    import tempfile
+
+    from tony_tpu_torch.gateway.remote import (RemoteServer,
+                                               launch_local_agent)
+    from tony_tpu_torch.serve import FaultPlan
+
+    def stub(address: str, index: int, proc=None) -> RemoteServer:
+        return RemoteServer(
+            address,
+            heartbeat_interval_s=args.agent_heartbeat,
+            lease_misses=args.agent_lease_misses,
+            stall_timeout_s=args.stall_timeout,
+            agent_channel=args.agent_channel,
+            transport_faults=FaultPlan.transport_from_env(replica=index),
+            agent_proc=proc)
+
+    def make(index: int, hosts=None) -> RemoteServer:
+        if hosts:
+            h = str(hosts[0])
+            if ":" in h:
+                return stub(h, index)
+            if h not in ("localhost", "127.0.0.1"):
+                raise ValueError(
+                    f"remote host {h!r} must either run `python -m "
+                    f"tony_tpu_torch.cli.replica` itself and be given as "
+                    f"host:port, or be localhost (subprocess launch)")
+        port_dir = tempfile.mkdtemp(prefix=f"tony-agent-{index}-")
+        proc, address = launch_local_agent(
+            agent_argv(args, index),
+            port_file=os.path.join(port_dir, "agent.port"))
+        try:
+            return stub(address, index, proc=proc)
+        except Exception:
+            # the stub never existed, so nothing will close() it: reap
+            # the agent here
+            proc.terminate()
+            try:
+                proc.wait(timeout=10)
+            except Exception:  # noqa: BLE001 — best-effort teardown
+                proc.kill()
+            raise
 
     return make
 
 
 def build_gateway(args, model, eos, *, metrics_store=None):
-    """Servers + Gateway from parsed args (shared with tests)."""
+    """Servers + Gateway from parsed args (shared with tests). Remote
+    mode (``--agents`` attach / ``--remote-replica`` launch) ignores
+    ``model``: the agents own the weights and the gateway is a pure
+    router."""
     from tony_tpu_torch.gateway import Gateway, GatewayHistory
 
-    make = server_factory(args, model, eos)
-    servers = [make(i) for i in range(max(1, args.replicas))]
-    armed = [i for i, s in enumerate(servers) if s.fault_plan is not None]
+    agents = [a.strip() for a in args.agents.split(",") if a.strip()]
+    # a role split sizes the fleet itself: prefill=N,decode=M is N+M
+    roles = parse_roles(args.roles)
+    if roles:
+        if agents and len(agents) != len(roles):
+            raise SystemExit(
+                f"--roles names {len(roles)} replicas but --agents "
+                f"lists {len(agents)}")
+        args.replicas = len(roles)
+    if agents:
+        rmake = remote_server_factory(args)
+        servers = [rmake(i, hosts=[addr]) for i, addr in enumerate(agents)]
+    elif args.remote_replica:
+        rmake = remote_server_factory(args)
+        servers = [rmake(i) for i in range(max(1, args.replicas))]
+    else:
+        make = server_factory(args, model, eos)
+        servers = [make(i) for i in range(max(1, args.replicas))]
+    armed = [i for i, s in enumerate(servers)
+             if s.fault_plan is not None
+             or getattr(s, "transport_faults", None) is not None]
     if armed:
         logging.getLogger(__name__).warning(
             "fault injection ARMED on replica(s) %s via TONY_SERVE_FAULTS",
@@ -437,6 +693,7 @@ def build_gateway(args, model, eos, *, metrics_store=None):
                        "shed_storm_window_s": args.alert_shed_window,
                    },
                    bundle_on_alert=not args.no_alert_bundles,
+                   roles=roles,
                    prefix_affinity=not args.no_prefix_affinity,
                    autotune=args.autotune,
                    autotune_interval_s=args.autotune_interval,
@@ -450,6 +707,70 @@ def build_gateway(args, model, eos, *, metrics_store=None):
                    } if args.autotune else None)
 
 
+def build_scaler(args, gateway, model, eos):
+    """The elastic autoscaler when ``--autoscale-max`` asks for one: a
+    ThreadBackend over the factory the boot replicas came from (a
+    grown replica shares the weights, or is another launched agent in
+    remote mode). None when not armed."""
+    max_replicas = args.autoscale_max
+    if not max_replicas:
+        return None
+    if args.roles.strip():
+        raise SystemExit("--autoscale-max cannot be combined with "
+                         "--roles (fixed role-split fleets only)")
+    from tony_tpu_torch.gateway import AutoScaler, ThreadBackend
+
+    boot = max(1, args.replicas)
+    if max_replicas < boot:
+        raise SystemExit(f"--autoscale-max {max_replicas} is below "
+                         f"--replicas {boot}")
+    floor = max(1, args.autoscale_min or boot)
+    if floor > max_replicas:
+        raise SystemExit(f"--autoscale-min {floor} is above "
+                         f"--autoscale-max {max_replicas}")
+    if args.agents.strip():
+        raise SystemExit(
+            "--autoscale-max cannot mint new agents in --agents attach "
+            "mode (the fleet is the given list); use --remote-replica")
+    # a grown replica's fleet index is where the replica list ends when
+    # it is made (only the scaler thread adds)
+    if args.remote_replica:
+        rmake = remote_server_factory(args)
+        backend = ThreadBackend(
+            lambda: rmake(len(gateway.replicas)), label="remote-agent")
+    else:
+        make = server_factory(args, model, eos)
+        backend = ThreadBackend(lambda: make(len(gateway.replicas)))
+    return AutoScaler(
+        gateway, backend,
+        min_replicas=floor,
+        max_replicas=max_replicas,
+        interval_s=args.autoscale_interval,
+        up_queue_depth=args.autoscale_up_queue,
+        up_wait_s=args.autoscale_up_wait,
+        ttft_slo_s=args.autoscale_ttft_slo,
+        cooldown_up_s=args.autoscale_cooldown_up,
+        cooldown_down_s=args.autoscale_cooldown_down,
+        drain_timeout_s=args.drain_timeout)
+
+
+def build_rebalancer(args, gateway):
+    """The pressure-driven rebalancer when ``--rebalance`` asks for one
+    (``--no-rebalance`` wins). None when not armed."""
+    if args.no_rebalance or not args.rebalance:
+        return None
+    from tony_tpu_torch.gateway import Rebalancer
+
+    cooldown = args.rebalance_cooldown
+    return Rebalancer(
+        gateway,
+        interval_s=args.rebalance_interval,
+        skew_frac=args.rebalance_skew,
+        stable=args.rebalance_stable,
+        cooldown_s=cooldown,
+        fail_cooldown_s=2 * cooldown)
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -458,13 +779,21 @@ def main(argv=None) -> int:
             print(f"{flag} is not ported to PyTorch yet (ROADMAP.md "
                   f"queue {queue})", file=sys.stderr)
             return 2
-    if not args.model and not args.demo_model:
-        parser.error("one of --model / --demo-model is required")
+    remote = bool(args.agents.strip()) or args.remote_replica
+    if not args.model and not args.demo_model and not args.agents:
+        parser.error("one of --model / --demo-model / --agents is "
+                     "required")
+    if args.remote_replica and not (args.model or args.demo_model):
+        parser.error("--remote-replica needs --model or --demo-model "
+                     "to hand to the launched agents")
     logging.basicConfig(level=logging.INFO)
 
     from tony_tpu_torch.models.generate import normalize_eos_ids
 
-    if args.demo_model:
+    model, eos = None, []
+    if remote:
+        pass  # a pure router: the agents own the weights
+    elif args.demo_model:
         model = demo_model(args.device)
         eos = normalize_eos_ids(args.eos_id)
     else:
@@ -475,15 +804,12 @@ def main(argv=None) -> int:
         overrides = {"dtype": torch.bfloat16} if args.dtype == "bf16" \
             else {}
         model, hf = load_llama_dir(args.model, device=args.device,
-                                   **overrides)
+                                   **overrides,
+                                   **decode_attention_for(args.device))
         eos = normalize_eos_ids(args.eos_id) or \
             normalize_eos_ids(hf.get("eos_token_id"))
     print("note: no tokenizer in the PyTorch port; token_ids requests "
           "only", file=sys.stderr)
-    if not args.no_paged_kv and max(1, args.replicas) > 1 \
-            and not args.no_shared_pool:
-        print("note: each replica owns its KV page pool (a shared pool "
-              "is not ported yet, ROADMAP.md queue 3)", file=sys.stderr)
 
     from tony_tpu_torch.gateway import GatewayEdge, GatewayHTTP
     from tony_tpu_torch.metrics import MetricsStore
@@ -512,6 +838,12 @@ def main(argv=None) -> int:
               f"{report['shed']} shed "
               f"({report.get('wall_ms', 0):.0f}ms)",
               file=sys.stderr, flush=True)
+    scaler = build_scaler(args, gateway, model, eos)
+    if scaler is not None:
+        scaler.start()
+    rebalancer = build_rebalancer(args, gateway)
+    if rebalancer is not None:
+        rebalancer.start()
     if args.edge == "event":
         http = GatewayEdge(
             gateway, host=args.host, port=args.port,
@@ -522,9 +854,17 @@ def main(argv=None) -> int:
             io_timeout_s=args.edge_io_timeout).start()
     else:
         http = GatewayHTTP(gateway, host=args.host, port=args.port).start()
+    elastic = "" if scaler is None else \
+        f", autoscale {scaler.min_replicas}-{scaler.max_replicas}"
+    if rebalancer is not None:
+        elastic += ", rebalance on"
+    mode = ""
+    if remote:
+        mode = " remote agents: " + ", ".join(
+            r.host for r in gateway.replicas)
     print(f"tony-tpu-torch gateway at http://{http.host}:{http.port} "
           f"({len(gateway.replicas)} replica(s) x {args.serve_batch} "
-          f"slots)", flush=True)
+          f"slots{elastic}{mode})", flush=True)
 
     stop = threading.Event()
 

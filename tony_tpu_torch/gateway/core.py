@@ -1,19 +1,12 @@
 """Multi-replica serving front door: admission, deadlines, routing, drain.
 
 The PyTorch port's copy of ``tony_tpu/gateway/core.py``, in front of
-the port's ``serve.Server``: N in-process replicas, each stepped by its
-own thread. Several replicas share the card under the rule
-``models.graphs.DEVICE`` states (a replica's step holds it shared, a
-CUDA-graph capture exclusively). Not ported yet, refused where a caller
-could reach them (ROADMAP.md queue 3): remote replicas (a server with a
-``transport``; ``gateway/remote.py``, ``serve/agent.py``), the
-disaggregated prefill/decode ``roles`` (the port's ``Server`` has no
-page handoff) and journal recovery of results an agent buffered. The
-migration, handoff and autoscale branches below stay as copies: each is
-reached only through a remote or shared-pool replica, which the port's
-``Server`` refuses, or through an engine's ``extract_session``, which
-it lacks. The ``/stats`` host block reads the memory that torch's
-allocator holds on the card.
+the port's ``serve.Server`` (in-process replicas, each stepped by its
+own thread) and of ``gateway.remote.RemoteServer`` stubs over replica
+agents (``serve/agent.py``). Several in-process replicas share the card
+under the rule ``models.graphs.DEVICE`` states (a replica's step holds
+it shared, a CUDA-graph capture exclusively). The ``/stats`` host block
+reads the memory that torch's allocator holds on the card.
 
 The layer above ``tony_tpu_torch.serve``: the ``Server`` multiplexes many
 requests onto ONE resident KV cache; this module multiplexes many
@@ -154,16 +147,6 @@ from tony_tpu_torch.obs.timeline import DispatchTimeline
 from tony_tpu_torch.serve import PoolExhausted, QueueFull, Request, Server
 
 log = logging.getLogger(__name__)
-
-# what the port has not ported of the gateway (see the module docstring)
-NOT_PORTED = "is not ported to PyTorch yet (ROADMAP.md queue 3)"
-
-
-def _refuse_remote(server) -> None:
-    """Refuse a replica the port cannot drive: a remote stub (it has a
-    ``transport``)."""
-    if getattr(server, "transport", None) is not None:
-        raise NotImplementedError(f"a remote replica {NOT_PORTED}")
 
 
 class Shed(Exception):
@@ -854,12 +837,20 @@ class _Replica:
             req = ticket.request
             engine_id = self._next_id
             self._next_id += 1
-            # no role split, handoff or migrated-in session reaches a
-            # port replica (the module docstring): a plain request
             engine_req = Request(
                 list(req.prompt), req.max_new_tokens,
                 temperature=req.temperature, top_k=req.top_k,
-                seed=req.seed, id=engine_id)
+                seed=req.seed, id=engine_id,
+                # role-split plumbing: a prefill-pool replica runs
+                # admission/prefill only (the result is a page
+                # handoff); a ticket carrying a handoff payload
+                # admits it instead of prefilling
+                prefill_only=self.role == "prefill",
+                handoff=ticket.handoff,
+                # a migrated-in session resumes mid-stream: the
+                # engine arms a slot from the snapshot instead of
+                # prefilling (serve/migrate.py)
+                migrate=ticket.migrate)
             # the GATEWAY request id rides along: remote
             # stubs ship it so the agent can park an orphaned session
             # under the one id a restarted gateway still knows
@@ -1704,11 +1695,6 @@ class Gateway:
                  journal=None, park_ttl_s: float = 60.0):
         if not servers:
             raise ValueError("gateway needs at least one replica server")
-        for server in servers:
-            _refuse_remote(server)
-        if roles:
-            raise NotImplementedError(
-                f"the disaggregated prefill/decode split {NOT_PORTED}")
         # disaggregated prefill/decode: ``roles`` names each
         # replica's pool ("prefill" runs admission/chunked-prefill only
         # and hands finished page lists to "decode" replicas). The
@@ -1935,6 +1921,14 @@ class Gateway:
             self._watchdog = None
             if wd is not None:
                 wd.stop()
+            # remote replicas: stop lease/heartbeat machinery after
+            # the fleet join (attached agents keep running — they
+            # belong to whoever started them; launched agents are
+            # drained and reaped)
+            from tony_tpu_torch.gateway.remote import close_server
+
+            for r in self.replicas:
+                close_server(r.server, f"replica {r.index} drain")
             # a profile capture left mid-flight (operator armed it,
             # traffic stopped) is finalized so its trace file lands
             self.profiler.close()
@@ -1978,7 +1972,6 @@ class Gateway:
         Returns the new replica's index."""
         if not self._started:
             raise RuntimeError("add_replica() needs a started gateway")
-        _refuse_remote(server)
         with self._lock:
             if self._closed:
                 raise GatewayClosed("gateway is draining")
@@ -2059,6 +2052,12 @@ class Gateway:
                     self.stats.migrate_carry[key] = \
                         self.stats.migrate_carry.get(key, 0) \
                         + counts[key]
+        # remote replicas: stop the stub's lease/heartbeat machinery
+        # (and, for agents the stub launched, drain + reap the agent
+        # process) — a retired replica must not keep pinging a host
+        from tony_tpu_torch.gateway.remote import close_server
+
+        close_server(server, f"replica {index} retire")
         with self.stats.lock:
             self.stats.replicas_removed += 1
         log.warning("replica %d retired (zero-loss drain complete)",
@@ -2239,18 +2238,71 @@ class Gateway:
         return any(getattr(r.server, "transport", None) is not None
                    for r in self.live_replicas)
 
+    def _remote_profile_fanout(self, call) -> dict:
+        """Run ``call(server) -> dict`` against every remote replica
+        CONCURRENTLY (each call handles its own errors): the per-host
+        results are independent, and N sequential timeouts against a
+        half-dead fleet — exactly when an operator profiles — would
+        tie a gateway handler thread up for N x timeout."""
+        import concurrent.futures
+
+        targets = [r.server for r in self.live_replicas
+                   if getattr(r.server, "transport", None) is not None]
+        if not targets:
+            return {}
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(8, len(targets))) as pool:
+            futures = [(s.host_addr, pool.submit(call, s))
+                       for s in targets]
+            return {addr: fut.result() for addr, fut in futures}
+
     def arm_remote_profiles(self, steps: int) -> dict:
-        """The remote half of ``POST /debug/profile``: the JAX package
-        fans the capture out to every remote replica's agent. A port
-        fleet has no remote replica (refused at construction), so the
-        map is empty."""
-        del steps
-        return {}
+        """The remote half of ``POST /debug/profile``: fan
+        the capture request out to every remote replica's agent
+        (``POST /v1/profile``), so one operator curl profiles the
+        WHOLE fleet — local replicas through this process's
+        ``ServeProfiler``, each agent host through its own (trace
+        files land on that host, under the agent's profile dir).
+        Best-effort per host: an unreachable or already-capturing
+        agent reports its error in the returned map and never blocks
+        the rest. Empty map = no remote replicas."""
+        from tony_tpu_torch.gateway.remote import AgentHTTPError
+
+        def arm(server) -> dict:
+            try:
+                doc = server.transport.call(
+                    "POST", "/v1/profile", {"steps": int(steps)},
+                    epoch=server.epoch, timeout=3.0)
+                return {"armed": True, "logdir": doc.get("logdir")}
+            except AgentHTTPError as e:
+                return {"armed": False, "status": e.status,
+                        "error": e.doc.get("error", str(e))}
+            except Exception as e:  # noqa: BLE001 — best-effort PER
+                # HOST is the contract: json.loads ValueErrors,
+                # http.client garbled-response exceptions, anything —
+                # one bad agent reports its error, never 500s the
+                # whole fan-out
+                return {"armed": False,
+                        "error": f"{type(e).__name__}: {e}"}
+
+        return self._remote_profile_fanout(arm)
 
     def remote_profile_status(self) -> dict:
-        """Per-agent profile statuses behind ``GET /debug/profile``:
-        empty, as ``arm_remote_profiles`` says."""
-        return {}
+        """Per-agent ``GET /v1/profile`` statuses for the fleet view
+        behind ``GET /debug/profile`` — best-effort (a debug read
+        must not 5xx because one host is down)."""
+        from tony_tpu_torch.gateway.remote import AgentHTTPError
+
+        def status(server) -> dict:
+            try:
+                return server.transport.call(
+                    "GET", "/v1/profile", epoch=server.epoch,
+                    timeout=3.0)
+            except Exception as e:  # noqa: BLE001 — see arm(): a
+                # debug read is best-effort per host, never a 5xx
+                return {"error": f"{type(e).__name__}: {e}"}
+
+        return self._remote_profile_fanout(status)
 
     def debug_bundle(self, reason: str = "manual",
                      trigger: list | None = None,
@@ -3255,13 +3307,41 @@ class Gateway:
 
     def _recover_finished(self, request: GenRequest, resp: dict,
                           entry) -> None:
-        """A request that FINISHED while the gateway was dead, whose
-        result a replica agent buffered: the JAX package materializes it
-        as a terminal ticket. Only a remote replica's agent buffers
-        results, and the port refuses remote replicas."""
-        del request, resp, entry
-        raise NotImplementedError(
-            f"recovering a result a replica agent buffered {NOT_PORTED}")
+        """A request that FINISHED while the gateway was dead: the
+        agent buffered the undelivered result — materialize it as an
+        immediately-terminal ticket so the client's resume fetches the
+        whole stream + done line. Bypasses ``_record_done`` on
+        purpose: the latency fields a live completion carries
+        (queue_wait/ttft/tpot) do not exist for a result that crossed
+        a crash, and a fabricated zero would poison the histograms."""
+        from tony_tpu_torch.serve.agent import result_from_doc
+
+        res = result_from_doc({**resp["result"], "id": request.id})
+        ticket = Ticket(request, None)
+        ticket.tier = request.priority if request.priority \
+            else DEFAULT_TIER
+        ticket.tenant = request.tenant
+        metrics = {
+            "id": request.id, "recovered": True,
+            "tokens_in": len(res.prompt),
+            "tokens_out": len(res.tokens),
+            "finish_reason": res.finish_reason,
+            "attempts": 0,
+        }
+        with ticket._emit_lock:
+            ticket._tokens = list(res.tokens)
+            ticket._n_emitted = len(res.tokens)
+            ticket.metrics = metrics
+            ticket.state = DONE
+            ticket.t_terminal = time.monotonic()
+            ticket._emit(("done", res, metrics))
+        self._register_resume(ticket)
+        if self.journal is not None:
+            # admit + done into the NEW journal: a second crash must
+            # not try to adopt a session this boot already closed
+            self.journal.admit(request.id, entry.request or {},
+                               time.time())
+            self.journal.done(request.id)
 
     def kill(self) -> None:
         """Die the way SIGKILL would — for chaos harnesses that crash

@@ -113,6 +113,22 @@ class DeviceLock:
                 self._drop_shared()
 
     @contextlib.contextmanager
+    def joining(self):
+        """A shared hold for a helper thread that a shared holder may be
+        waiting on (the host page tier's copy thread, whose spills an
+        engine's step flushes): it waits while the lock is HELD
+        exclusively, but not for a thread waiting to take it so, which
+        itself waits on that very shared holder."""
+        with self._cond:
+            while self._writer is not None:
+                self._cond.wait()
+            self._readers += 1
+        try:
+            yield
+        finally:
+            self._drop_shared()
+
+    @contextlib.contextmanager
     def exclusive(self):
         me = threading.current_thread()
         if self._writer is me:

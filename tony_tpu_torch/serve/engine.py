@@ -92,10 +92,22 @@ On the card every ``step()``, ``drain()`` and ``reset()`` holds
 several servers in one process (the gateway's replicas, each stepped by
 its own thread) never meet a capture with device work of their own.
 
+The KV fabric (paged only), as the JAX package has it: a
+``prefill_only`` request leaves as a handoff of its prompt's pages and
+logits, which a ``Request(handoff=...)`` admits elsewhere (the role
+split); ``extract_session`` freezes a live slot between two dispatches
+and a ``Request(migrate=...)`` adopts it (live migration); a pool lent
+to several servers (``page_pool``, ``PagePool(shared=True)``) turns both
+into page-table swaps; ``kv_host_mb`` spills evicted prefix entries to
+host RAM and pages them back in (``serve.tier``). Their page moves are
+eager gathers and scatters on the current stream, never inside a
+capture. ``step``, ``drain``, ``reset`` and ``extract_session`` hold
+the engine's own ``_dispatch_lock``.
+
 Refused by the constructor, as the JAX package refuses them: a paged
-cache or a prefix store over a sliding-window model. Left out, refused
-too: a mesh, the host-RAM page tier, a shared page pool and int8-weight
-models; also migration and handoff.
+cache or a prefix store over a sliding-window model, a shared pool or
+the host tier without the paged cache (the tier without a prefix store
+too). Left out, refused too: a mesh and int8-weight models.
 """
 
 from __future__ import annotations
@@ -120,15 +132,22 @@ from tony_tpu_torch.models.graphs import DEVICE, GraphCache
 from tony_tpu_torch.obs.goodput import (CostModel, detect_hbm_gbps,
                                         detect_peak_flops, ledger)
 from tony_tpu_torch.obs.timeline import DispatchRecord, DispatchTimeline
+from tony_tpu_torch.ops.decode import flash_decode
 from tony_tpu_torch.ops.platform import resolve_device
 from tony_tpu_torch.ops.sampling import key_tensor, sample_rows
 from tony_tpu_torch.serve.faults import FaultPlan
+from tony_tpu_torch.serve.migrate import (SessionSnapshot, StaleDelta,
+                                          snapshot_from_doc)
 from tony_tpu_torch.serve.prefix import PrefixStore
 from tony_tpu_torch.serve.slots import (PagePool, SlotCache,
-                                        default_page_size, paged_view,
-                                        paged_write_back, read_slot_row,
-                                        row_nbytes, slot_view,
-                                        write_slot_row)
+                                        default_page_size, gather_pages,
+                                        paged_view, paged_write_back,
+                                        pool_leaf_keys, read_slot_row,
+                                        row_nbytes, scatter_pages,
+                                        slot_view, write_slot_row)
+from tony_tpu_torch.serve.tier import (HostPageTier, decode_array,
+                                       decode_payload, pages_to_host,
+                                       payload_pages)
 
 log = logging.getLogger(__name__)
 
@@ -423,7 +442,18 @@ class PoolExhausted(RuntimeError):
 @dataclass
 class Request:
     """One generation request: ``prompt`` token ids and per-request
-    sampling knobs (greedy default); ``id`` is echoed on the Result."""
+    sampling knobs (greedy default); ``id`` is echoed on the Result.
+
+    The role-split fields (paged only): ``prefill_only`` stops after the
+    prefill, and the Result comes back ``finish_reason="handoff"`` with
+    the prompt's page content and last-position logits in place of
+    tokens; ``handoff`` is the other half, such a payload, which the
+    admission scatters into fresh pages before it samples the first
+    token with THIS request's knobs and seed and decodes (token-exact
+    against one engine doing both). ``migrate`` adopts a
+    ``SessionSnapshot`` (or its wire doc) that another engine froze with
+    ``extract_session``: no prefill and no first draw, decode resumes at
+    the exact position."""
 
     prompt: list
     max_new_tokens: int
@@ -431,6 +461,9 @@ class Request:
     top_k: int = 0
     seed: int = 0
     id: Any = None
+    prefill_only: bool = False
+    handoff: Any = None
+    migrate: Any = None
 
 
 @dataclass
@@ -441,7 +474,8 @@ class Result:
     ``prefill_tokens_saved`` = bucketed prefill work skipped;
     ``drafted``/``accepted`` = draft tokens this request sent through
     verify rounds / had accepted; ``prefill_chunks`` = prefill
-    dispatches its prompt took (>= 2 means chunked; 0 = exact hit)."""
+    dispatches its prompt took (>= 2 means chunked; 0 = exact hit);
+    ``handoff`` = a prefill_only run's payload."""
 
     id: Any
     prompt: list
@@ -452,6 +486,9 @@ class Result:
     drafted: int = 0
     accepted: int = 0
     prefill_chunks: int = 0
+    # finish_reason "handoff" only: the page payload and last-position
+    # logits a prefill_only run produced
+    handoff: Any = None
 
     @property
     def draft_hit_rate(self) -> float:
@@ -512,6 +549,9 @@ class Server:
     keeps the dispatch timeline (``goodput()``); ``hbm_gbps`` > 0 sets
     the roofline's memory rate (0: the card's, from
     ``obs.goodput.HBM_BW_TABLE``; unknown: no utilization).
+    ``page_pool`` (a ``PagePool(shared=True)``) lends one pool to several
+    servers; ``kv_host_mb`` > 0 puts a host-RAM tier of that size under
+    the prefix store (``serve.tier``).
 
     The model's device must be the one ``device`` resolves to (``cuda``
     unless ``device="cpu"``)."""
@@ -535,8 +575,6 @@ class Server:
         later = {
             "int8-weight (quantized) models": cfg.quantized,
             "mesh (sharded serving)": mesh is not None,
-            "kv_host_mb > 0 (host page tier)": kv_host_mb > 0,
-            "a shared page_pool": page_pool is not None,
         }
         for name, on in later.items():
             if on:
@@ -566,15 +604,30 @@ class Server:
         self.freeze_faults = 0  # frozen-tail consistency violations
         self.paged = not cfg.sliding_window if paged is None \
             else bool(paged)
+        if page_pool is not None and not self.paged:
+            raise ValueError("a shared page_pool needs the paged KV "
+                             "cache")
         if self.paged:
-            ps = int(kv_page_size) or default_page_size(cfg)
-            ps = max(1, min(ps, cfg.max_seq_len))
-            max_pages = -(-cfg.max_seq_len // ps)
-            n_pages = int(kv_pages) or batch_size * max_pages
-            self.slots = SlotCache(model, batch_size,
-                                   PagePool(model, n_pages, ps))
+            if page_pool is not None:
+                # a fleet pool lent to every co-located engine: the
+                # device dict stays the pool's (serve.slots.PagePool)
+                pool = page_pool
+            else:
+                ps = int(kv_page_size) or default_page_size(cfg)
+                ps = max(1, min(ps, cfg.max_seq_len))
+                max_pages = -(-cfg.max_seq_len // ps)
+                n_pages = int(kv_pages) or batch_size * max_pages
+                pool = PagePool(model, n_pages, ps)
+            self.slots = SlotCache(model, batch_size, pool)
         else:
             self.slots = SlotCache(model, batch_size)
+        # this engine's scheduler lock: ``step``, ``drain``, ``reset``
+        # and ``extract_session`` (called from another thread) hold it,
+        # so a freeze lands between two dispatches
+        self._dispatch_lock = threading.RLock()
+        # the page-pool leaves in wire order (the codec's receiving side)
+        self._pool_keys = pool_leaf_keys(self.slots.cache) \
+            if self.paged else []
         # the graph kinds of this server's calls (``counters()``):
         # unpaged keys never meet paged ones, and unpaged prefills are
         # eager calls of ``prefill_rows``
@@ -637,6 +690,37 @@ class Server:
         self._prefilling: dict[int, _PrefillState] = {}
         self.prefill_chunk_dispatches = 0  # chunk dispatches run
         self.prefill_chunked = 0           # requests that took > 1 chunk
+        self.handoffs_out = 0  # prefill_only requests handed off
+        self.handoffs_in = 0   # handoff admissions (decode side)
+        # live session migration
+        self.migrations_out = 0      # sessions frozen and extracted here
+        self.migrations_in = 0       # sessions adopted and resumed here
+        self.migrations_local = 0    # as zero-copy owner swaps
+        self.migrations_remote = 0   # as gathered content
+        self.migrate_pages_moved = 0  # pages whose CONTENT moved
+        self.migrate_bytes_avoided = 0  # bytes owner swaps did not move
+        #                                 (migration and shared-pool
+        #                                 handoff aliasing)
+        self.migrate_freeze_resume_ms = 0.0  # summed freeze->resume ms
+        self.migrate_bytes_wire = 0  # page bytes that crossed the wire
+        #                              INTO this engine
+        self.migrate_delta_in = 0    # adoptions whose prefix came from
+        #                              this engine's own store pages
+        # prefix entries pinned between a delta doc's submit-time check
+        # and its admission (an eviction between the two would free the
+        # pages the adopt aliases), by request id
+        self._migrate_pins: dict = {}
+        # the host-RAM page tier under the prefix store: evicted entries
+        # spill to the host and page back in on a later hit
+        self.host_tier = None
+        if kv_host_mb > 0:
+            if not self.paged or self.prefix is None:
+                raise ValueError(
+                    "kv_host_mb needs the paged KV cache and a prefix "
+                    "store (prefix_cache_mb > 0): the tier holds "
+                    "evicted prefix-store pages")
+            self.host_tier = HostPageTier(int(kv_host_mb * (1 << 20)))
+            self.prefix.on_evict = self._spill_entry
         # the dispatch timeline and the goodput ledger's roofline
         self.timeline = DispatchTimeline() if timeline else None
         self._first = False  # the last dispatch ran a key's first call
@@ -676,24 +760,72 @@ class Server:
                 f"max_seq_len ({max_len})")
         if request.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if request.prefill_only and request.handoff is not None:
+            raise ValueError("prefill_only and handoff are the two "
+                             "HALVES of a disaggregated request — one "
+                             "request cannot be both")
+        if request.migrate is not None \
+                and (request.prefill_only or request.handoff is not None):
+            raise ValueError("a migrated session is already past "
+                             "prefill — it cannot also be a "
+                             "prefill_only/handoff half")
+        if (request.prefill_only or request.handoff is not None
+                or request.migrate is not None) and not self.paged:
+            raise ValueError(
+                "prefill/decode disaggregation needs the paged KV "
+                "cache (the handoff unit is a page list)")
         if request.id is None:
             request.id = next(self._ids)
+        if request.migrate is not None:
+            # checked HERE, where a mismatch is one request's refusal
+            # and not a failed admission inside step(); needs the id: a
+            # delta doc's check pins a prefix entry under it
+            self._check_migrate(request, p)
+        if request.handoff is not None:
+            if int(request.handoff["n_tokens"]) != len(p):
+                raise ValueError(
+                    f"handoff payload covers "
+                    f"{request.handoff['n_tokens']} tokens, prompt "
+                    f"has {len(p)}")
+            self._check_handoff_geometry(request.handoff, len(p))
+            if "page_ids" in request.handoff \
+                    and request.handoff.get("pool") \
+                    is not self.slots.pool:
+                raise ValueError(
+                    "an owner-swap handoff carries page ids in a "
+                    "shared pool this engine does not hold — gather "
+                    "it to wire form to cross pools")
         request.max_new_tokens = min(request.max_new_tokens,
                                      max_len - len(p))
-        pool = self.slots.pool
-        worst = -(-(len(p) + request.max_new_tokens) // pool.page_size) \
-            if self.paged else 0
-        if self.paged and worst > pool.n_pages:
-            raise PoolExhausted(
-                f"request needs {worst} KV pages worst-case, the pool "
-                f"holds {pool.n_pages} (raise --kv-pages or lower "
-                "max_new_tokens)")
-        with self._pending_lock:
-            if len(self.pending) >= self.max_pending:
-                raise QueueFull(f"pending queue at "
-                                f"max_pending={self.max_pending}")
-            self.pending.append(request)
+        try:
+            if self.paged:
+                pool = self.slots.pool
+                # a prefill_only request never decodes here: its worst
+                # case is the prompt's pages
+                life = len(p) if request.prefill_only \
+                    else len(p) + request.max_new_tokens
+                worst = -(-life // pool.page_size)
+                if worst > pool.n_pages:
+                    raise PoolExhausted(
+                        f"request needs {worst} KV pages worst-case, "
+                        f"the pool holds {pool.n_pages} (raise "
+                        "--kv-pages or lower max_new_tokens)")
+            with self._pending_lock:
+                if len(self.pending) >= self.max_pending:
+                    raise QueueFull(f"pending queue at "
+                                    f"max_pending={self.max_pending}")
+                self.pending.append(request)
+        except BaseException:
+            # a refusal after _check_migrate pinned a prefix entry must
+            # not strand the pin
+            self._release_migrate_pin(request.id)
+            raise
         return request.id
+
+    def _release_migrate_pin(self, rid) -> None:
+        entry = self._migrate_pins.pop(rid, None)
+        if entry is not None and self.prefix is not None:
+            self.prefix.release(entry)
 
     @property
     def n_pending(self) -> int:
@@ -733,16 +865,28 @@ class Server:
 
     def prefix_match_len(self, tokens) -> int:
         """Longest prompt prefix this server could seed without prefill
-        work: the gateway's prefix-affinity routing signal. No counter
-        moves."""
-        return self.prefix.match_len(tokens) if self.prefix is not None \
+        work, from the device store or the host tier: the gateway's
+        prefix-affinity routing signal. No counter moves."""
+        n = self.prefix.match_len(tokens) if self.prefix is not None \
             else 0
+        if self.host_tier is not None:
+            n = max(n, self.host_tier.match_len(tokens))
+        return n
 
     def prefix_summary(self, max_items: int = 512) -> list:
         """``[[n_tokens, crc32], ...]``: what this server could seed
-        (``PrefixStore.summary``)."""
-        return self.prefix.summary(max_items) if self.prefix is not None \
-            else []
+        (``PrefixStore.summary`` of the device store and the host tier,
+        without repeats)."""
+        out: list = []
+        seen: set = set()
+        for store in (self.prefix, self.host_tier):
+            if store is None:
+                continue
+            for ln, crc in store.summary(max_items):
+                if (ln, crc) not in seen:
+                    seen.add((ln, crc))
+                    out.append([ln, crc])
+        return out[:max_items]
 
     # ----------------------------------------------------- observability
 
@@ -933,7 +1077,13 @@ class Server:
         into the slot's pages, or, for a suffix longer than the prefill
         chunk, its first chunk with the slot parked. A request whose
         first token already ends it finishes here without arming the
-        slot."""
+        slot. A migrated session or a handoff takes its own admission; a
+        ``prefill_only`` request reserves its prompt's pages only and
+        leaves as a handoff (an exact hit without any prefill)."""
+        if req.migrate is not None:
+            return self._admit_migrate(req, finished)
+        if req.handoff is not None:
+            return self._admit_handoff(req, finished)
         s = self.slots
         pool = s.pool
         ps = pool.page_size
@@ -945,10 +1095,28 @@ class Server:
         if self.prefix is not None:
             self.prefix_lookups += 1
             off, entry = self.prefix.acquire(p)
+            if self.host_tier is not None:
+                # the host tier may hold a LONGER prefix: restore it
+                # into the pool and the store, so the admission hits it
+                off, entry = self._maybe_page_in(p, off, entry)
         full_bucket = bucket_len(len(p), max_len, self.min_bucket)
         exact = (entry is not None and off == len(p)
                  and len(entry.tokens) == len(p)
                  and entry.logits is not None)
+        if exact and req.prefill_only:
+            # the whole prompt is resident with its logits: no
+            # reservation, no writes, no sampling; hand the pages off
+            try:
+                if self.fault_plan is not None:
+                    self.fault_plan.on_admit(req.id)
+                self._finish_handoff(req, entry.pages, len(p),
+                                     entry.logits, finished,
+                                     hit_tokens=len(p),
+                                     saved=full_bucket, chunks=0)
+            finally:
+                self.prefix.release(entry)
+            self._count_hit(len(p), full_bucket)
+            return True
         if not exact and entry is not None:
             # partial hit: seed at most len(p) - 1 tokens so >= 1 real
             # token remains to prefill the first-continuation logits
@@ -957,15 +1125,14 @@ class Server:
                 self.prefix.release(entry)
                 off, entry = 0, None
         seed = len(p) if exact else off
-        worst = -(-(len(p) + req.max_new_tokens) // ps)
+        # prefill_only reserves the prompt's pages only: the decode side
+        # pays for the generation budget
+        life = len(p) if req.prefill_only else len(p) + req.max_new_tokens
+        worst = -(-life // ps)
         n_alias = -(-seed // ps)
         fork = 1 if seed % ps else 0
         need = worst - n_alias + fork
-        granted = pool.reserve(need)
-        while not granted and self.prefix is not None \
-                and self.prefix.evict_one():
-            granted = pool.reserve(need)
-        if not granted:
+        if not self._reserve(need):
             if entry is not None:
                 self.prefix.release(entry)
             if self.prefix is not None:
@@ -1028,6 +1195,16 @@ class Server:
                     hit_tokens=hit_tokens)
         return True
 
+    def _reserve(self, need: int) -> bool:
+        """Reserve ``need`` pages, squeezing LRU prefix-store entries
+        while the pool is short; False = not now (stay pending)."""
+        pool = self.slots.pool
+        granted = pool.reserve(need)
+        while not granted and self.prefix is not None \
+                and self.prefix.evict_one():
+            granted = pool.reserve(need)
+        return granted
+
     def _count_hit(self, hit_tokens: int, saved: int) -> None:
         self.prefix_hits += 1
         self.prefix_hit_tokens += hit_tokens
@@ -1063,8 +1240,17 @@ class Server:
     def _arm(self, slot: int, req: Request, last, hit_tokens: int,
              saved: int, chunks: int, finished: list) -> None:
         """Sample the first token from ``last`` [1, V] and arm the slot,
-        or finish the request there when that token ends it."""
+        or finish the request there when that token ends it; a
+        ``prefill_only`` request leaves as a handoff of the slot's pages
+        instead."""
         s = self.slots
+        if req.prefill_only:
+            n = len(req.prompt)
+            self._finish_handoff(req, s.slot_pages(slot, n), n, last,
+                                 finished, hit_tokens=hit_tokens,
+                                 saved=saved, chunks=chunks)
+            s.release_pages(slot)
+            return
         tok, key = _sample_first(last, req.temperature, req.top_k, req.seed)
         if tok in self.eos_ids or req.max_new_tokens == 1:
             reason = "eos" if tok in self.eos_ids else "length"
@@ -1167,6 +1353,573 @@ class Server:
                 bucket_len(len(p) - off, max_len, self.min_bucket), off,
                 cols, chunk=st.chunks)
 
+    # ------------------------------------------------ role-split handoff
+
+    def _gather(self, pages: list) -> dict:
+        """The content of ``pages`` (``gather_pages``), on the device:
+        eager, so any page count goes as it is, with no bucket padding
+        on the wire or in the tier."""
+        idx = self._tensor(np.asarray(pages, np.int64))
+        with self.slots.pool.lock:
+            return gather_pages(self.slots.cache, idx)
+
+    def _scatter(self, payload: dict, dst: list) -> None:
+        """Write ``payload``'s pages onto the pool pages ``dst``
+        (sentinels land on the junk page), in place."""
+        idx = self._tensor(np.asarray(dst, np.int64))
+        with self.slots.pool.lock:
+            scatter_pages(self.slots.cache, payload, idx)
+
+    def _finish_handoff(self, req: Request, pages: list, n_tok: int,
+                        logits, finished: list, *, hit_tokens: int = 0,
+                        saved: int = 0, chunks: int = 0) -> None:
+        """The prefill side's exit: the prompt's page CONTENT (a padded
+        gather, on the device) and the last-position logits, finished
+        ``finish_reason="handoff"``. A decode engine in this process
+        scatters it into its own pool (device to device); the agent wire
+        encodes it (``serve.tier``). On a SHARED pool nothing is
+        gathered: the payload is the page ids, pinned by one refcount
+        that transfers to whoever consumes the doc (a co-located decode
+        engine's owner-swap admission, or the remote stub's late
+        gather)."""
+        pool = self.slots.pool
+        n = len(pages)
+        t0, occ = time.monotonic(), self.slots.n_active
+        res = Result(req.id, list(req.prompt), [], "handoff", hit_tokens,
+                     saved, prefill_chunks=chunks)
+        if pool.shared:
+            pool.share(pages)  # the doc's own ref; its consumer unrefs
+            res.handoff = {"n_tokens": int(n_tok),
+                           "page_ids": [int(pg) for pg in pages],
+                           "pool": pool, "logits": logits}
+            finished.append(res)
+            self.handoffs_out += 1
+            if self.timeline is not None:
+                self._record_dispatch(
+                    "handoff_out", t0, occ, n, 0, request_id=req.id,
+                    tags={"pages": n, "n_tokens": int(n_tok),
+                          "owner_swap": True}, work=1, fed=1)
+            return
+        payload = self._gather(pages)
+        res.handoff = {"n_tokens": int(n_tok), "pages": payload,
+                       "logits": logits}
+        finished.append(res)
+        self.handoffs_out += 1
+        if self.timeline is not None:
+            self._record_dispatch(
+                "handoff_out", t0, occ, payload_pages(payload), 0,
+                request_id=req.id,
+                tags={"pages": n, "n_tokens": int(n_tok)}, work=1, fed=1,
+                est=self.cost.host_move(n * pool.page_nbytes))
+
+    def _handoff_page_count(self, doc: dict) -> int:
+        """Page-axis length of a handoff payload in any form: shared-pool
+        page ids, wire (shapes carried by each leaf), or a payload of
+        tensors; nothing is decoded."""
+        if "page_ids" in doc:
+            return len(doc["page_ids"])
+        pages = doc["pages"]
+        if isinstance(pages, dict) and "leaves" in pages:
+            if len(pages["leaves"]) != len(self._pool_keys):
+                raise ValueError(
+                    f"handoff payload carries {len(pages['leaves'])} "
+                    f"leaves, this engine's cache has "
+                    f"{len(self._pool_keys)} — mismatched model configs "
+                    "between the prefill and decode pools")
+            leaf = pages["leaves"][0]
+            return int(leaf["shape"][int(leaf.get("page_axis", 0))])
+        return payload_pages(pages)
+
+    def _check_handoff_geometry(self, doc: dict, n_tok: int) -> None:
+        ps = self.slots.pool.page_size
+        need = -(-n_tok // ps)
+        have = self._handoff_page_count(doc)
+        if have < need:
+            raise ValueError(
+                f"handoff payload holds {have} pages, the prompt "
+                f"needs {need} at page_size {ps} — mismatched page "
+                "geometry between the prefill and decode pools")
+
+    def _decode_handoff(self, doc: dict) -> tuple:
+        """A handoff payload's pages and logits, from either form: a
+        payload of tensors (used as it is) or the agent wire form
+        (rebuilt against THIS engine's cache leaves)."""
+        pages, logits = doc["pages"], doc["logits"]
+        if isinstance(pages, dict) and "leaves" in pages:
+            pages = decode_payload(pages, self._pool_keys)
+        if isinstance(logits, dict) and "b64" in logits:
+            logits = decode_array(logits)
+        return pages, torch.as_tensor(logits).to(self.device)
+
+    def _admit_handoff(self, req: Request, finished: list) -> bool:
+        """The decode side's entry: reserve the request's whole-life
+        worst case, scatter the payload into fresh pages, sample the
+        first token from the carried logits with THIS request's knobs
+        and seed, arm the slot. Token-exact against one engine doing
+        both: the pages arrive bit for bit and the first draw uses the
+        key the prefill admission would have. The shared-pool form
+        (``page_ids``) aliases the pages instead."""
+        s = self.slots
+        pool = s.pool
+        ps = pool.page_size
+        p = np.asarray(req.prompt, np.int64)
+        n_tok = int(req.handoff["n_tokens"])
+        worst = -(-(len(p) + req.max_new_tokens) // ps)
+        if "page_ids" in req.handoff:
+            return self._admit_handoff_shared(req, finished, p, n_tok,
+                                              worst)
+        if not self._reserve(worst):
+            return False  # transient: stays pending until pages free
+        if self.fault_plan is not None:
+            try:
+                self.fault_plan.on_admit(req.id)
+            except BaseException:
+                pool.cancel(worst)
+                raise
+        slot = self._free_slots()[0]
+        t0, occ = time.monotonic(), s.n_active
+        pages_tree, logits = self._decode_handoff(req.handoff)
+        s.seed_pages(slot, [], 0, worst)
+        s.ensure_pages(slot, n_tok)
+        n = -(-n_tok // ps)
+        n_ship = payload_pages(pages_tree)
+        if n_ship < n:  # submit() checked it; a caller bug lands here
+            s.release_pages(slot)
+            raise ValueError(
+                f"handoff payload holds {n_ship} pages, prompt needs "
+                f"{n} at page_size {ps}")
+        self._scatter(pages_tree, s.page_table[slot, :n].tolist()
+                      + [pool.n_pages] * (n_ship - n))
+        if self.prefix is not None:
+            # the decode side learns the prompt too: the next sharer
+            # routed here hits without another handoff
+            self.prefix.insert(p, pages=s.slot_pages(slot, n_tok),
+                               logits=logits)
+        self.handoffs_in += 1
+        if self.timeline is not None:
+            self._record_dispatch(
+                "handoff_admit", t0, occ, n_ship, 1, request_id=req.id,
+                tags={"prompt_len": len(p), "pages": n}, work=1, fed=1,
+                est=self.cost.host_move(n * pool.page_nbytes))
+        self._arm_handed(slot, req, logits, finished)
+        return True
+
+    def _admit_handoff_shared(self, req: Request, finished: list,
+                              p: np.ndarray, n_tok: int,
+                              worst: int) -> bool:
+        """Owner-swap admission: the handoff pages already live in THIS
+        engine's pool, so the slot aliases them (``seed_pages``: full
+        pages shared, a partial tail page forked, since several decode
+        requests may adopt the same prompt) and the doc's transfer ref
+        drops. KV bytes moved: one page when the prompt ends mid-page,
+        else none."""
+        s = self.slots
+        pool = s.pool
+        ps = pool.page_size
+        page_ids = [int(pg) for pg in req.handoff["page_ids"]]
+        n_alias = -(-n_tok // ps)
+        fork = 1 if n_tok % ps else 0
+        need = worst - n_alias + fork
+        if not self._reserve(need):
+            return False  # transient; the doc's ref keeps the pages
+        if self.fault_plan is not None:
+            try:
+                self.fault_plan.on_admit(req.id)
+            except BaseException:
+                pool.cancel(need)
+                raise
+        slot = self._free_slots()[0]
+        t0, occ = time.monotonic(), s.n_active
+        s.seed_pages(slot, page_ids[:n_alias], n_tok, need)
+        pool.unref(page_ids)  # the transfer ref moves to the slot
+        logits = torch.as_tensor(req.handoff["logits"]).to(self.device)
+        if self.prefix is not None:
+            self.prefix.insert(p, pages=s.slot_pages(slot, n_tok),
+                               logits=logits)
+        self.handoffs_in += 1
+        self.migrate_bytes_avoided += (n_alias - fork) * pool.page_nbytes
+        if self.timeline is not None:
+            self._record_dispatch(
+                "handoff_admit", t0, occ, n_alias, 1, request_id=req.id,
+                tags={"prompt_len": len(p), "pages": n_alias,
+                      "owner_swap": True}, work=1, fed=1,
+                est=self.cost.host_move(fork * pool.page_nbytes))
+        self._arm_handed(slot, req, logits, finished)
+        return True
+
+    def _arm_handed(self, slot: int, req: Request, logits,
+                    finished: list) -> None:
+        """Sample a handed-off request's first token from the carried
+        logits and arm its slot, or finish it there."""
+        s = self.slots
+        tok, key = _sample_first(logits, req.temperature, req.top_k,
+                                 req.seed)
+        if tok in self.eos_ids or req.max_new_tokens == 1:
+            reason = "eos" if tok in self.eos_ids else "length"
+            finished.append(Result(req.id, list(req.prompt), [tok],
+                                   reason))
+            s.release_pages(slot)
+            return
+        s.admit(slot, len(req.prompt), tok, req.temperature, req.top_k,
+                key)
+        self._spec_ema[slot] = 1.0
+        self._live[slot] = _Live(req, [tok])
+
+    # ------------------------------------------------- live migration
+
+    def _check_migrate(self, req: Request, p: list) -> None:
+        """Continuity and geometry of a migrate payload at submit time (a
+        mismatch is one request's refusal, not a failed admission). Takes
+        a ``SessionSnapshot`` (a local owner swap, or in-process remote)
+        or the agent wire doc. A DELTA doc (suffix pages only and
+        ``delta.prefix_tokens``) is also checked against this engine's
+        own prefix store: the covering entry is acquired and PINNED in
+        ``_migrate_pins`` until admission, so no eviction in between
+        frees the pages the adoption aliases; a store that no longer
+        covers the prefix raises ``StaleDelta``, and the sender re-ships
+        the full payload. The probe is the device store's only (a host
+        tier page-in is device work, and this runs on the caller's
+        thread)."""
+        snap = req.migrate
+        delta = None
+        if isinstance(snap, dict):
+            gen = snap.get("generated") or []
+            n_tok = int(snap.get("n_tokens", -1))
+            prompt = [int(t) for t in snap.get("prompt", ())]
+            pages = snap.get("pages")
+            delta = snap.get("delta")
+            if not (isinstance(pages, dict) and "leaves" in pages):
+                raise ValueError(
+                    "a wire migrate doc carries base64 leaf pages")
+            have = self._handoff_page_count({"pages": pages})
+        else:
+            gen = list(snap.generated)
+            n_tok = int(snap.n_tokens)
+            prompt = [int(t) for t in snap.prompt]
+            if snap.local:
+                if snap.pool is not self.slots.pool:
+                    raise ValueError(
+                        "a local (owner-swap) snapshot holds page ids "
+                        "in a pool this engine does not share — "
+                        "extract with wire=True to cross pools")
+                have = len(snap.pages)
+            else:
+                have = self._handoff_page_count({"pages": snap.pages})
+        if not gen:
+            raise ValueError(
+                "a migrated session carries at least one generated "
+                "token (pre-first-token sessions re-run as ordinary "
+                "requests)")
+        if prompt != [int(t) for t in p]:
+            raise ValueError(
+                "migrate snapshot prompt differs from the request "
+                "prompt — the stream would not be continuous")
+        if n_tok != len(p) + len(gen) - 1:
+            raise ValueError(
+                f"migrate snapshot holds {n_tok} KV positions, "
+                f"prompt + generated - 1 is {len(p) + len(gen) - 1} "
+                "— the final sampled token is never fed, so its K/V "
+                "must not be present")
+        ps = self.slots.pool.page_size
+        need = -(-n_tok // ps)
+        if delta is None:
+            if have < need:
+                raise ValueError(
+                    f"migrate snapshot holds {have} pages, the "
+                    f"session needs {need} at page_size {ps} — "
+                    "mismatched page geometry between source and "
+                    "target")
+            return
+        pt = int(delta.get("prefix_tokens", 0))
+        if pt <= 0 or pt % ps:
+            raise ValueError(
+                f"delta prefix_tokens ({pt}) must be a positive "
+                f"multiple of page_size {ps}")
+        k = pt // ps
+        if k > need - 1:
+            raise ValueError(
+                f"delta prefix covers {k} pages of a {need}-page "
+                "session — at least one page always ships")
+        if have < need - k:
+            raise ValueError(
+                f"delta payload holds {have} pages, the suffix needs "
+                f"{need - k} at page_size {ps}")
+        if self.prefix is None:
+            raise StaleDelta(
+                "delta migrate doc arrived but this engine runs no "
+                "prefix store — nothing can cover the prefix")
+        ctx = prompt + [int(t) for t in gen][:-1]
+        match, entry = self.prefix.acquire(ctx)
+        if entry is None or match < pt or entry.pages is None \
+                or len(entry.pages) < k:
+            if entry is not None:
+                self.prefix.release(entry)
+            raise StaleDelta(
+                f"adopter covers {match} prefix tokens on-device, the "
+                f"delta assumed {pt} — the sender's radix summary was "
+                "stale; re-ship the full payload")
+        # a re-sent submit (the agent's idempotency) must not leak the
+        # first pin
+        self._release_migrate_pin(req.id)
+        self._migrate_pins[req.id] = entry
+
+    def extract_session(self, request_id, *, wire: bool = False):
+        """Freeze a live decode slot into a ``SessionSnapshot`` and evict
+        it: the source half of a migration, safe from any thread (it
+        holds the dispatch lock, so the freeze falls between two
+        dispatches). None when ``request_id`` holds no live decode slot
+        (pending or mid-prefill: the caller re-runs it as an ordinary
+        request).
+
+        ``wire=False`` (local owner swap, a shared pool): the snapshot
+        holds page IDS pinned by one ref that transfers with it; no KV
+        bytes move. ``wire=True``: it holds the gathered page CONTENT,
+        copied to the host before the slot's pages are released and
+        while no later dispatch can queue work ahead of the copies (the
+        encode for the agent wire, ``snapshot_to_doc``, then waits on
+        nothing the engine does meanwhile). The key is the
+        slot's device key (two 32-bit words) for a sampled slot, and
+        ``PRNGKey(seed)`` for a greedy one, which never draws."""
+        with self._dispatch_lock, self._hold():
+            s = self.slots
+            pool = s.pool
+            if not self.paged:
+                raise ValueError("live migration needs the paged KV "
+                                 "cache (a session moves as pages)")
+            if wire is False and not pool.shared:
+                raise ValueError(
+                    "a local owner-swap snapshot needs a shared pool "
+                    "— extract with wire=True")
+            slot = next((i for i, live in enumerate(self._live)
+                         if live is not None
+                         and live.request.id == request_id), None)
+            if slot is None:
+                return None
+            live = self._live[slot]
+            req = live.request
+            t0, occ = time.monotonic(), s.n_active
+            n_tok = int(s.lengths[slot])
+            n = -(-n_tok // pool.page_size)
+            pages = [int(pg) for pg in s.page_table[slot, :n]]
+            sampled = s.temperature[slot] > 0.0
+            key = s.keys[slot] if sampled \
+                else key_tensor(req.seed, "cpu")
+            rng = key.cpu().numpy().astype(np.uint32)
+            if wire:
+                payload = pages_to_host(self._gather(pages), n)  # syncs
+                self.migrations_remote += 1
+                self.migrate_pages_moved += n
+            else:
+                pool.share(pages)  # the snapshot's transfer ref
+                payload = pages
+                self.migrations_local += 1
+                self.migrate_bytes_avoided += n * pool.page_nbytes
+            snap = SessionSnapshot(
+                prompt=list(req.prompt),
+                generated=list(live.generated),
+                max_new_tokens=int(req.max_new_tokens),
+                temperature=float(s.temperature[slot]),
+                top_k=int(s.top_k[slot]),
+                seed=int(req.seed),
+                rng=rng,
+                spec_ema=float(self._spec_ema[slot]),
+                n_tokens=n_tok,
+                pages=payload,
+                local=not wire,
+                t_freeze=time.time(),
+                pool=pool if not wire else None,
+                page_size=pool.page_size)
+            self._live[slot] = None
+            s.evict(slot)
+            self.migrations_out += 1
+            if self.timeline is not None:
+                est = self.cost.host_move(n * pool.page_nbytes) \
+                    if wire else (0.0, 0.0)
+                self._record_dispatch(
+                    "migrate_out", t0, occ, n, 0, request_id=req.id,
+                    tags={"pages": n, "n_tokens": n_tok,
+                          "local": not wire}, work=1, fed=1, est=est)
+            return snap
+
+    def _admit_migrate(self, req: Request, finished: list) -> bool:
+        """Adopt a frozen session: restore its pages (owner swap, or a
+        scatter of the shipped pages after the delta prefix shared from
+        this engine's own store), then arm the slot straight from the
+        snapshot, with no prefill and no first draw: the key resumes at
+        its position in the chain, and the next decode round goes on as
+        if the slot had lived here all along."""
+        snap = req.migrate
+        delta_pt = 0
+        if isinstance(snap, dict):
+            delta_pt = int((snap.get("delta") or {})
+                           .get("prefix_tokens", 0))
+            snap = snapshot_from_doc(snap)
+        s = self.slots
+        pool = s.pool
+        ps = pool.page_size
+        p = np.asarray(req.prompt, np.int64)
+        n_tok = int(snap.n_tokens)
+        n = -(-n_tok // ps)
+        worst = -(-(len(p) + req.max_new_tokens) // ps)
+        t0, occ = time.monotonic(), s.n_active
+        if snap.local:
+            # owner swap: the snapshot's ref moves to the slot by a
+            # direct page-table install; no fork, a migration has one
+            # writer
+            if snap.pool is not pool:
+                raise ValueError(
+                    "local migrate snapshot is from a different pool")
+            need = worst - n
+            if not self._reserve(need):
+                return False  # transient; the snapshot ref pins pages
+            if self.fault_plan is not None:
+                try:
+                    self.fault_plan.on_admit(req.id)
+                except BaseException:
+                    pool.cancel(need)
+                    raise
+            slot = self._free_slots()[0]
+            s.reserve_left[slot] = need
+            s.n_slot_pages[slot] = n
+            s.page_table[slot, :n] = np.asarray(snap.pages, np.int32)
+            s.page_table[slot, n:] = pool.n_pages
+            self.migrate_bytes_avoided += n * pool.page_nbytes
+        else:
+            # delta: pages [0, k) alias this engine's own store pages,
+            # so the reservation shrinks by k
+            k = delta_pt // ps
+            need = worst - k
+            if not self._reserve(need):
+                return False  # transient; the pin keeps the prefix
+            if self.fault_plan is not None:
+                try:
+                    self.fault_plan.on_admit(req.id)
+                except BaseException:
+                    pool.cancel(need)
+                    raise
+            slot = self._free_slots()[0]
+            pages_tree = snap.pages
+            if isinstance(pages_tree, dict) and "leaves" in pages_tree:
+                pages_tree = decode_payload(pages_tree, self._pool_keys)
+            if k:
+                # the entry pinned at _check_migrate time; the seed is
+                # page-aligned, so no fork
+                entry = self._migrate_pins.pop(req.id)
+                s.seed_pages(slot, [int(pg) for pg in entry.pages[:k]],
+                             k * ps, need)
+                self.prefix.release(entry)
+            else:
+                s.seed_pages(slot, [], 0, need)
+            s.ensure_pages(slot, n_tok)
+            n_ship = payload_pages(pages_tree)
+            if n_ship < n - k:
+                s.release_pages(slot)
+                raise ValueError(
+                    f"migrate payload holds {n_ship} pages, the "
+                    f"session needs {n - k} at page_size {ps}")
+            self._scatter(pages_tree, s.page_table[slot, k:n].tolist()
+                          + [pool.n_pages] * (n_ship - (n - k)))
+            self.migrate_pages_moved += n - k
+            self.migrate_bytes_wire += (n - k) * pool.page_nbytes
+            if k:
+                self.migrate_bytes_avoided += k * pool.page_nbytes
+                self.migrate_delta_in += 1
+        gen = [int(t) for t in snap.generated]
+        key = torch.as_tensor(np.asarray(snap.rng, np.int64),
+                              device=self.device)
+        s.admit(slot, n_tok, gen[-1], snap.temperature, snap.top_k, key)
+        self._spec_ema[slot] = float(snap.spec_ema)
+        self._live[slot] = _Live(req, gen)
+        self.migrations_in += 1
+        if snap.local:
+            self.migrations_local += 1
+        else:
+            self.migrations_remote += 1
+        self.migrate_freeze_resume_ms += \
+            max(0.0, (time.time() - snap.t_freeze) * 1e3)
+        if self.timeline is not None:
+            moved = 0 if snap.local else n - (delta_pt // ps)
+            est = (0.0, 0.0) if snap.local \
+                else self.cost.host_move(moved * pool.page_nbytes)
+            self._record_dispatch(
+                "migrate_in", t0, occ, n, 0, request_id=req.id,
+                tags={"pages": n, "n_tokens": n_tok,
+                      "generated": len(gen), "local": snap.local,
+                      "delta_prefix_pages": delta_pt // ps},
+                work=1, fed=1, est=est)
+        return True
+
+    # --------------------------------------------------- host page tier
+
+    def _spill_entry(self, entry) -> None:
+        """``PrefixStore.on_evict``: before a dying entry's pages are
+        unpinned, gather their content (on the device) and queue its
+        copy to the host tier; an entry already in the tier only
+        refreshes its LRU position."""
+        tier = self.host_tier
+        tokens = entry.tokens
+        if tier.has(tokens):
+            tier.touch(tokens)
+            return
+        pool = self.slots.pool
+        n = -(-int(tokens.size) // pool.page_size)
+        t0 = time.monotonic()
+        payload = self._gather(list(entry.pages[:n]))
+        tier.spill_async(tokens, payload, n, entry.logits)
+        if self.timeline is not None:
+            self._record_dispatch(
+                "host_spill", t0, self.slots.n_active,
+                payload_pages(payload), 0,
+                tags={"pages": n, "tokens": int(tokens.size),
+                      "async": True}, work=1, fed=1,
+                est=self.cost.host_move(n * pool.page_nbytes))
+
+    def _maybe_page_in(self, p: np.ndarray, off: int, entry):
+        """When the host tier holds a strictly longer prefix of ``p``
+        than the device store matched, restore that entry into the pool
+        and the device store (a host-to-device scatter) and look ``p``
+        up again, so the admission that follows hits it. Nothing happens
+        when the pool cannot afford the pages after squeezing the device
+        store."""
+        tier = self.host_tier
+        t_off, t_entry = tier.acquire(p)
+        if t_entry is None or t_off <= off:
+            if t_entry is not None:
+                tier.release(t_entry)
+            return off, entry
+        pool = self.slots.pool
+        n = -(-int(t_entry.tokens.size) // pool.page_size)
+        try:
+            while pool.available() < n and self.prefix.evict_one():
+                pass
+            if pool.available() < n:
+                return off, entry
+            t0 = time.monotonic()
+            pages = pool.alloc(n)
+            self._scatter(t_entry.row, pages)
+            logits = t_entry.logits.to(self.device) \
+                if t_entry.logits is not None else None
+            ok = self.prefix.insert(t_entry.tokens, pages=pages,
+                                    logits=logits)
+            # the store holds its own pins now (or, refused, nobody
+            # does and the pages go back to the free list)
+            pool.unref(pages)
+            tier.note_page_in(n * pool.page_nbytes)
+            if self.timeline is not None:
+                self._record_dispatch(
+                    "host_page_in", t0, self.slots.n_active, n, 0,
+                    tags={"pages": n,
+                          "tokens": int(t_entry.tokens.size)},
+                    work=1, fed=1,
+                    est=self.cost.host_move(n * pool.page_nbytes))
+            if not ok:
+                return off, entry
+        finally:
+            tier.release(t_entry)
+        if entry is not None:
+            self.prefix.release(entry)
+        return self.prefix.acquire(p)
+
     # ------------------------------------------------------- dispatches
 
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
@@ -1242,10 +1995,11 @@ class Server:
         """One scheduler iteration: the fault hook, admit, one chunk for
         each parked prefill, one decode round, evict; returns the
         requests that finished."""
-        if self.fault_plan is not None:
-            self.fault_plan.on_dispatch()
-        with self._hold():
-            return self._step()
+        with self._dispatch_lock:
+            if self.fault_plan is not None:
+                self.fault_plan.on_dispatch()
+            with self._hold():
+                return self._step()
 
     def _step(self) -> list[Result]:
         finished: list[Result] = []
@@ -1597,8 +2351,10 @@ class Server:
         """Finish every in-flight request, parked prefills included (no
         new admissions); pending requests stay queued."""
         finished: list[Result] = []
-        with self._hold():
-            while self.slots.n_active or self._prefilling:
+        while self.slots.n_active or self._prefilling:
+            # the locks a round at a time: an extract from another
+            # thread may land between two rounds
+            with self._dispatch_lock, self._hold():
                 self._advance_prefills(finished)
                 if self.slots.n_active:
                     finished.extend(self._decode_round())
@@ -1610,8 +2366,12 @@ class Server:
         state, and the page pool's (paged) or the resident rows' bytes
         (unpaged: always ``batch x max_seq_len``); on the card also
         ``graph_{kind}_{captures|replays|eager}`` for each of
-        ``graph_kinds`` (a capture is the first call at its key) and
-        ``graph_capture_s``. ``spec_window_steps`` is the verify
+        ``graph_kinds`` (a capture is the first call at its key),
+        ``graph_capture_s``, and the whole process's
+        ``flash_decode_launches`` (replays included) and
+        ``cuda_peak_bytes``. Handoff and migration counters,
+        and with the host tier its ``kv_host_*`` block, as the JAX
+        package keeps them. ``spec_window_steps`` is the verify
         windows' share of ``decode_steps``: the rest are single-token
         micro-steps, each one flash-decode launch a layer."""
         out = {
@@ -1631,7 +2391,30 @@ class Server:
             "prefill_tokens_saved": self.prefill_tokens_saved,
             "prefill_chunk_dispatches": self.prefill_chunk_dispatches,
             "prefill_chunked_requests": self.prefill_chunked,
+            "handoffs_out": self.handoffs_out,
+            "handoffs_in": self.handoffs_in,
+            "migrations_out": self.migrations_out,
+            "migrations_in": self.migrations_in,
+            "migrations_local": self.migrations_local,
+            "migrations_remote": self.migrations_remote,
+            "migrate_pages_moved": self.migrate_pages_moved,
+            "migrate_bytes_avoided": self.migrate_bytes_avoided,
+            "migrate_bytes_wire": self.migrate_bytes_wire,
+            "migrate_delta_in": self.migrate_delta_in,
+            "migrate_freeze_resume_ms": round(
+                self.migrate_freeze_resume_ms, 3),
         }
+        if self.host_tier is not None:
+            hs = self.host_tier.stats()
+            out["kv_host_entries"] = hs["entries"]
+            out["kv_host_bytes"] = hs["bytes"]
+            out["kv_host_budget_bytes"] = hs["budget_bytes"]
+            out["kv_host_tokens"] = hs["tokens"]
+            out["kv_host_spills"] = hs["spills"]
+            out["kv_host_page_ins"] = hs["page_ins"]
+            out["kv_host_spill_bytes"] = hs["bytes_spilled"]
+            out["kv_host_page_in_bytes"] = hs["bytes_paged_in"]
+            out["kv_host_evictions"] = hs["evictions"]
         if self.prefix is not None:
             st = self.prefix.stats()
             out["prefix_entries"] = st["entries"]
@@ -1641,6 +2424,12 @@ class Server:
         if self.graphs is not None:
             for name, n in self.graphs.counters(self.graph_kinds).items():
                 out["graph_" + name] = n
+            # the process's flash-decode launches (replays included) and
+            # its peak device memory: an agent reports its own over the
+            # wire
+            out["flash_decode_launches"] = flash_decode.launches
+            out["cuda_peak_bytes"] = torch.cuda.max_memory_allocated(
+                self.device)
         if not self.paged:
             out["kv_bytes_resident"] = sum(
                 leaf.numel() * leaf.element_size()
@@ -1672,11 +2461,15 @@ class Server:
         them) and free every slot (paged: its pages and reservation;
         unpaged: host state only, the next admit overwrites the row).
         The prefix store and the graphs stay."""
-        with self._hold():
+        with self._dispatch_lock, self._hold():
             with self._pending_lock:
                 self.pending.clear()
             self._live = [None] * self.slots.batch_size
             self._prefilling.clear()
+            # dropped migrate requests never reach admission: their
+            # pinned prefix entries must not stay pinned
+            for rid in list(self._migrate_pins):
+                self._release_migrate_pin(rid)
             self.slots.reset()
 
     def run(self, requests: Iterable[Request] = ()) -> Iterator[Result]:

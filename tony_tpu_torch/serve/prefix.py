@@ -26,6 +26,7 @@ reads consistent.
 from __future__ import annotations
 
 import itertools
+import logging
 import threading
 import zlib
 from typing import Any
@@ -33,13 +34,17 @@ from typing import Any
 import numpy as np
 import torch
 
+log = logging.getLogger(__name__)
+
 
 def tree_nbytes(tree: Any) -> int:
-    """Bytes of a tensor, or of the tensors in a (nested) dict/list; a
-    host int (a cache row's shared counter) counts as the int32 scalar
-    the JAX package's row carries."""
+    """Bytes of a tensor or numpy array, or of those in a (nested)
+    dict/list; a host int (a cache row's shared counter) counts as the
+    int32 scalar the JAX package's row carries."""
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
+    if isinstance(tree, np.ndarray):
+        return int(tree.nbytes)
     if isinstance(tree, int):
         return 4
     if isinstance(tree, dict):
@@ -100,6 +105,10 @@ class PrefixStore:
         self.budget_bytes = max(0, int(budget_bytes))
         self.bytes_used = 0
         self.pool = pool
+        # eviction hook (serve/tier.py): called with the dying entry
+        # BEFORE its pages are unpinned, so a host tier can copy the
+        # content out; a raising hook never breaks the eviction
+        self.on_evict = None
         self._page_refs: dict[int, int] = {}  # page -> #entries holding
         self.tokens_stored = 0
         self.root = _Node(np.empty(0, np.int32), None)
@@ -309,6 +318,11 @@ class PrefixStore:
         return node
 
     def _evict(self, entry: _Entry) -> None:
+        if self.on_evict is not None:
+            try:
+                self.on_evict(entry)
+            except Exception:
+                log.exception("prefix on_evict hook failed")
         del self._entries[entry.tokens.tobytes()]
         if entry.pages is not None:
             # only pages no OTHER entry still holds stop being charged

@@ -38,6 +38,17 @@ def _layers(cache: dict):
     return [v for k, v in cache.items() if k.startswith("block_")]
 
 
+def pool_leaf_keys(cache: dict) -> list[tuple[str, str]]:
+    """The page-pool leaves of a cache dict (or of a page payload), as
+    ``(layer key, leaf name)`` in the FIXED order the wire codec sends
+    them: layers by index, each layer's K/V (and int8 scales) in
+    ``_POOL_LEAVES`` order. The shared counters are not pool leaves."""
+    layers = sorted((k for k in cache if k.startswith("block_")),
+                    key=lambda k: int(k.split("_", 1)[1]))
+    return [(k, name) for k in layers for name in _POOL_LEAVES
+            if name in cache[k]]
+
+
 def write_slot_row(cache: dict, row: dict, slot: int) -> None:
     """Copy the batch-1 cache ``row`` into slot ``slot`` of ``cache``, in
     place: every K/V leaf (and int8 scale) of the row lands in the
@@ -146,6 +157,40 @@ def copy_page(cache: dict, src: int, dst: int) -> None:
                 leaf[dst] = leaf[src]
 
 
+def cache_device(cache: dict) -> torch.device:
+    """The device a cache dict (or page payload) lives on."""
+    key, name = pool_leaf_keys(cache)[0]
+    return cache[key][name].device
+
+
+def gather_pages(cache: dict, idx: torch.Tensor) -> dict:
+    """The CONTENT of pool pages ``idx`` ([n] int64) as a standalone
+    payload ``{layer: {leaf: [n, ps, ..]}}`` (the pool leaves only; the
+    counters are host ints and do not travel): the portable form of a
+    page list that the role-split handoff, migration and the host tier
+    move. A fresh copy: later writes to the pool leave
+    it alone."""
+    out: dict = {}
+    for key, name in pool_leaf_keys(cache):
+        leaf = cache[key][name]
+        safe = torch.clamp(idx.to(leaf.device), 0, leaf.shape[0] - 1)
+        out.setdefault(key, {})[name] = leaf.index_select(0, safe)
+    return out
+
+
+def scatter_pages(cache: dict, payload: dict, idx: torch.Tensor) -> None:
+    """Write ``payload``'s page rows onto pool pages ``idx``, in place:
+    the inverse of ``gather_pages``. Sentinel entries (``>= n_pages``)
+    land on the junk page, so a payload longer than the pages it fills
+    writes exactly those (the JAX package's ``mode="drop"``). Pure copies: a gather,
+    a host hop and a scatter give back the same bits."""
+    for key, name in pool_leaf_keys(cache):
+        leaf = cache[key][name]
+        safe = torch.clamp(idx.to(leaf.device), 0, leaf.shape[0] - 1)
+        src = torch.as_tensor(payload[key][name])
+        leaf[safe] = src.to(device=leaf.device, dtype=leaf.dtype)
+
+
 def paged_view(cache: dict, table: torch.Tensor, max_len: int) -> dict:
     """Gather each slot's pages into an unpaged-looking cache: every
     pool leaf ``[n_pages + 1, ps, ..]`` becomes ``[b, span, ..]``
@@ -216,13 +261,28 @@ class PagePool:
     copy-on-write sharing), and a RESERVATION ledger: a slot reserves
     its worst-case page count up front and allocates lazily from it, so
     a mid-stream allocation never fails (``free >= reserved`` always).
-    Allocator mutations are atomic under ``_mu``."""
 
-    def __init__(self, model, n_pages: int, page_size: int):
+    With ``shared=True`` the pool is lent to several co-located
+    ``Server``s at once: every attached ``SlotCache`` works on the same
+    device dict (allocated here once, before any of them captures a
+    graph, and never reallocated: each graph holds its addresses), so
+    moving a session or a prefill's pages between two of them is a page
+    table and refcount swap, no KV bytes copied. The junk page is shared
+    too: it only ever takes writes that are dropped.
+
+    Two locks: allocator mutations (free list, refcounts, reservations)
+    are atomic under the fine ``_mu``; ``lock`` (reentrant) brackets the
+    eager page copies an engine makes on the shared dict (a fork, a
+    scatter), so no two engines interleave them."""
+
+    def __init__(self, model, n_pages: int, page_size: int,
+                 shared: bool = False):
         if n_pages < 1 or page_size < 1:
             raise ValueError("n_pages and page_size must be >= 1")
         self.n_pages = int(n_pages)
         self.page_size = int(page_size)
+        self.shared = bool(shared)
+        self.lock = threading.RLock()
         self._mu = threading.RLock()
         self.cache = paged_cache(model, n_pages, page_size)
         self.page_nbytes = page_nbytes(self.cache)
@@ -336,7 +396,9 @@ class SlotCache:
     dict (ownership taken from the pool); each slot owns a page table
     row ``[max_pages]`` (unallocated tail = the ``pool.n_pages``
     sentinel), a count of allocated pages and the rest of its
-    admission-time reservation. Host arrays are numpy. The sampling
+    admission-time reservation. A shared pool (``PagePool(shared=True)``)
+    keeps its dict: every attached SlotCache works on it. Host arrays
+    are numpy. The sampling
     state lives on the device, where the decode graphs read it:
     ``temps`` [b] float32, ``top_ks`` [b] int64 and ``keys`` [b, 2]
     (``ops.sampling`` keys, advanced in place as rows draw); ``admit``
@@ -352,7 +414,8 @@ class SlotCache:
             self.cache = init_cache(model, batch_size)
         else:
             self.cache = pool.cache
-            pool.cache = None
+            if not pool.shared:
+                pool.cache = None
             self.max_pages = -(-self.max_seq_len // pool.page_size)
             self.page_table = np.full((batch_size, self.max_pages),
                                       pool.n_pages, np.int32)
@@ -362,6 +425,7 @@ class SlotCache:
         self.active = np.zeros(batch_size, bool)
         self.last_token = np.zeros(batch_size, np.int64)
         self.temperature = np.zeros(batch_size, np.float32)
+        self.top_k = np.zeros(batch_size, np.int64)
         dev = model.device
         self.temps = torch.zeros(batch_size, dtype=torch.float32,
                                  device=dev)
@@ -396,6 +460,7 @@ class SlotCache:
         self.lengths[slot] = length
         self.last_token[slot] = last_token
         self.temperature[slot] = temperature
+        self.top_k[slot] = top_k
         if temperature > 0.0:
             # a free slot's device temperature is already 0 (``evict``)
             self.temps[slot].fill_(temperature)
@@ -413,6 +478,7 @@ class SlotCache:
         if self.temperature[slot] > 0.0:
             self.temps[slot].fill_(0.0)
         self.temperature[slot] = 0.0
+        self.top_k[slot] = 0
         if self.pool is not None:
             self.release_pages(slot)
 
@@ -445,7 +511,8 @@ class SlotCache:
         (fresh,) = self.pool.alloc(1, from_reservation=True)
         self.reserve_left[slot] -= 1
         shared = use[-1]
-        copy_page(self.cache, shared, fresh)
+        with self.pool.lock:
+            copy_page(self.cache, shared, fresh)
         self.pool.unref([shared])
         self.page_table[slot, n_alias - 1] = fresh
         with self.pool._mu:
