@@ -233,6 +233,33 @@ exits non-zero.
       processes that launch flash-decode, phase 5's requests over HTTP
       token-exact to one fp32 ``Server``, SIGTERM drains to exit 0 and
       nothing is left of the gateway's process group.
+18. A job on the card, through the port's control plane as a user submits
+   one: ``python -m tony_tpu_torch.cli.local`` (client, coordinator,
+   agent) running ``tony_tpu_torch/examples/lm_pretrain.py`` on one
+   worker with ``tony.worker.chips=1``; this script's cached memory is
+   released first and the card's free memory printed. Each job's process
+   tree is sampled from /proc every 0.25 s: the payload's own pid must
+   hold the card (an open /dev/nvidia* file) and no other job process
+   may, apart from the agent's nvidia-smi readings (nvidia-smi reports
+   every process as pid 1 on this machine, so its compute-process list
+   is counted, not matched by pid); no process may run the JAX package.
+   a. Qwen2.5-1.5B at full size, phase 8's recipe, batch and length, 8
+      steps: SUCCEEDED with a finished history, the payload saw
+      ``CUDA_VISIBLE_DEVICES=0``, each training kernel launched in its
+      process (printed on a line of its own), losses bit-equal to phase
+      8's; its ms a step and MFU beside phase 8's, and the wall from
+      submit to SUCCEEDED split into staging, coordinator start, agent
+      registration, payload start, to the end of step 2, training and
+      teardown;
+   b. the same width at 2 layers with a checkpoint dir,
+      ``tony.coordinator.retry-count=1`` and ``--fail-after-checkpoint
+      4``: attempt 0 exits 1, attempt 1 resumes at step 4, the job
+      SUCCEEDS, and its last loss and every fp32 master are bit-equal to
+      an uninterrupted 8-step run in this process; the checkpoint's
+      bytes, save and restore seconds;
+   c. a payload that only runs ``torch.ones(1, device="cuda")``, with
+      ``tony.worker.memory=64g`` (the launcher's ``RLIMIT_AS``) and
+      without: the one without must succeed, the other is a reading.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches (flash-decode's include 16a's
@@ -247,6 +274,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import glob
 import io
 import json
 import os
@@ -257,6 +285,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -1711,38 +1740,20 @@ def phase_fit(ctx) -> None:
     import torch
 
     import tony_tpu_torch.train.trainer as tr_mod
-    from tony_tpu_torch.data import ArraySource, DataLoader
-    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.examples import lm_pretrain
     from tony_tpu_torch.ops import adamw, attention
-    from tony_tpu_torch.ops.xent import chunked_cross_entropy
-    from tony_tpu_torch.train import FusedAdamW, Trainer, fit
+    from tony_tpu_torch.train import fit
 
+    # the recipe the job of phase 18 runs (tony_tpu_torch/examples/
+    # lm_pretrain.py): 3e-4 after TRAIN_WARMUP steps, ramped linearly
+    # before, a tensor of the device count, as a captured step needs
     cfg = qwen_config(dtype=torch.bfloat16, attention_backend="pallas",
                       remat=True, remat_policy="attn_saved")
-    model = Transformer(cfg, device=DEVICE).init_weights(
-        torch.Generator(device=DEVICE).manual_seed(SEED))
+    model, trainer, loader = lm_pretrain.build(
+        cfg, seed=SEED, micro=TRAIN_MICRO, accum=TRAIN_ACCUM,
+        seq_len=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP, device=DEVICE)
     n_params = sum(p.numel() for p in model.parameters())
-    cdt = torch.bfloat16
-
-    def apply_fn(m, batch):
-        hidden = m(batch["tokens"], return_hidden=True)
-        return chunked_cross_entropy(hidden[:, :-1], m.embedding,
-                                     batch["tokens"][:, 1:],
-                                     chunk_size=2048, compute_dtype=cdt)
-
-    def warmup_lr(count):
-        """3e-4 after TRAIN_WARMUP steps, ramped linearly before: a
-        tensor of the device count, as a captured step needs."""
-        return TRAIN_LR * torch.clamp((count + 1).float() / TRAIN_WARMUP,
-                                      max=1.0)
-
-    trainer = Trainer(model, apply_fn, FusedAdamW(warmup_lr),
-                      compute_dtype=cdt, accum_steps=TRAIN_ACCUM)
-    rng = np.random.default_rng(SEED)
     gb = TRAIN_MICRO * TRAIN_ACCUM
-    data = rng.integers(0, cfg.vocab_size, (gb, TRAIN_SEQ)).astype(np.int64)
-    loader = DataLoader(ArraySource({"tokens": data}), gb, seed=SEED,
-                        device=DEVICE)
     stamps = []
 
     def stamp(step, metrics):
@@ -5019,6 +5030,398 @@ def fabric_cli(ctx, ckpt: str) -> None:
             pass
 
 
+def job_tree(root: int) -> dict:
+    """{pid: command line} of ``root`` and its live descendants, from
+    /proc (the client spawns the coordinator, the coordinator the agents,
+    the agents the payloads, each in a session of its own, so a process
+    group does not hold them)."""
+    parents, cmds = {}, {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(
+                    errors="replace").strip()
+        except (OSError, ValueError, IndexError):
+            continue
+        if state != "Z":
+            parents[int(pid)], cmds[int(pid)] = int(ppid), cmd
+    tree, grew = {root}, True
+    while grew:
+        new = {p for p, pp in parents.items() if pp in tree} - tree
+        tree |= new
+        grew = bool(new)
+    return {p: cmds[p] for p in tree if p in cmds}
+
+
+def holds_card(pid: int) -> bool:
+    """Whether ``pid`` has a GPU device file open: a process with a CUDA
+    context does (nvidia-smi's compute-apps list cannot name it on this
+    machine: it reports every process as pid 1)."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        with contextlib.suppress(OSError):
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                return True
+    return False
+
+
+def job_role(cmd: str) -> str:
+    """The role of a job process by its command line. ``smi`` is the
+    agent's ``nvidia-smi`` query, which opens the card's control device
+    for its reading."""
+    for mark, role in (("tony_tpu_torch.cli.local", "client"),
+                       ("tony_tpu_torch.coordinator", "coordinator"),
+                       ("tony_tpu_torch.agent", "agent")):
+        if mark in cmd:
+            return role
+    if os.path.basename(cmd.split(" ", 1)[0]) == "nvidia-smi":
+        return "smi"
+    return "shell" if cmd.startswith("bash ") else "payload"
+
+
+def compute_apps() -> list:
+    """``nvidia-smi --query-compute-apps=pid,used_memory`` rows."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+class JobWatch:
+    """Samples a job's process tree every 0.25 s while it runs: each
+    process's role and whether it holds the card, and (while the payload
+    holds the card) the card's compute processes."""
+
+    def __init__(self, proc):
+        self.proc = proc
+        self.cmds: dict = {}
+        self.card: dict = {}  # role -> samples that held the card
+        self.card_pids: dict = {}  # pid -> samples that held the card
+        self.apps: list = []
+        self.samples = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(0.25) and self.proc.poll() is None:
+            tree = job_tree(self.proc.pid)
+            self.cmds.update(tree)
+            self.samples += 1
+            pids = [p for p in tree if holds_card(p)]
+            held = {job_role(tree[p]) for p in pids}
+            for role in held:
+                self.card[role] = self.card.get(role, 0) + 1
+            for p in pids:
+                self.card_pids[p] = self.card_pids.get(p, 0) + 1
+            if "payload" in held and len(self.apps) < 4:
+                self.apps.append(compute_apps())
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+def run_job(ctx, tag: str, root: str, task: list, *confs,
+            command: str | None = None) -> dict:
+    """``python -m tony_tpu_torch.cli.local --root root`` running
+    ``lm_pretrain.py`` over ``QWEN25_15B`` with ``task`` (or the worker
+    ``command``) on one worker holding one GPU, watched by ``JobWatch``:
+    its exit code, wall, job dir, history, watch and output."""
+    from tony_tpu_torch.events import history
+
+    argv = [sys.executable, "-m", "tony_tpu_torch.cli.local", "--root",
+            root, "--device", DEVICE, "--conf", "tony.worker.instances=1",
+            "--conf", "tony.worker.chips=1"]
+    if command is None:
+        hf = os.path.join(root, "config.json")
+        with open(hf, "w") as f:
+            json.dump(QWEN25_15B, f)
+        argv += ["--executes", os.path.join(
+            ROOT, "tony_tpu_torch", "examples", "lm_pretrain.py"),
+            "--task_params", " ".join(
+                ["--config-json", hf, "--device", DEVICE, *task])]
+    else:
+        argv += ["--conf", f"tony.worker.command={command}"]
+    for c in confs:
+        argv += ["--conf", c]
+    t0 = time.time()
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "PYTHONPATH": ROOT},
+                            start_new_session=True)
+    watch = JobWatch(proc)
+    try:
+        out, _ = proc.communicate(timeout=900)
+    finally:
+        watch.stop()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.time() - t0
+    jobs = glob.glob(os.path.join(root, "staging", "application_*"))
+    check(len(jobs) == 1, f"{tag}: {len(jobs)} job dirs under {root}")
+    found = history.list_jobs(os.path.join(root, "history"))
+    return {"rc": proc.returncode, "t0": t0, "wall": wall, "out": out,
+            "job_dir": jobs[0], "history": found, "watch": watch}
+
+
+def job_events(job: dict, tag: str) -> list:
+    """The finished history of ``job``: one finalized ``.jhist.jsonl``
+    (no ``.inprogress``), its event types in order."""
+    from tony_tpu_torch.events import history
+
+    check(len(job["history"]) == 1
+          and job["history"][0]["jhist"].endswith(".jhist.jsonl"),
+          f"{tag}: history {job['history']}")
+    return [e.type.value for e in history.parse_events(
+        job["history"][0]["jhist"])]
+
+
+def log_time(path: str, marker: str) -> float:
+    """The wall time of the first line of ``path`` holding ``marker``
+    (``logging``'s ``%(asctime)s`` stamp, this host's local time)."""
+    import datetime
+
+    with open(path) as f:
+        for line in f:
+            if marker in line:
+                return datetime.datetime.strptime(
+                    line[:23], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+    raise PhaseError(f"no {marker!r} in {path}")
+
+
+def job_walls(job: dict, res: dict) -> dict:
+    """Submit to SUCCEEDED, split where the job leaves a stamp: the
+    staged conf, the coordinator's endpoint file, the coordinator's log
+    line of the worker's registration, and the payload's own clock."""
+    jd = job["job_dir"]
+    marks = [("staging", os.path.getmtime(os.path.join(jd,
+                                                       "tony-final.json"))),
+             ("coordinator start", os.path.getmtime(os.path.join(
+                 jd, "coordinator.json"))),
+             ("agent registration", log_time(os.path.join(
+                 jd, "logs", "coordinator.log"), "registered worker:0")),
+             ("payload start", res["t_start"]),
+             ("payload start to the end of step 2", res["t_first_step"]),
+             ("training (steps 3 on)", res["t_end"]),
+             ("teardown to SUCCEEDED", job["t0"] + job["wall"])]
+    out, last = {}, job["t0"]
+    for name, t in marks:
+        out[name] = t - last
+        last = t
+    return out
+
+
+def watch_gate(job: dict, tag: str, pid: int) -> str:
+    """Mid-run, only the payload (process ``pid``; and this script) held
+    the card, beside the agent's ``nvidia-smi`` readings; every process
+    of the job ran the port."""
+    w = job["watch"]
+    cmds = "; ".join(sorted(set(w.cmds.values())))
+    held = w.card_pids.get(pid, 0)
+    check(held > 0, f"{tag}: no sample saw the payload (pid {pid}) hold "
+          f"the card ({w.samples} samples; holders {w.card_pids})")
+    check(not ({"coordinator", "agent", "client", "shell"} & set(w.card)),
+          f"{tag}: a job process besides the payload held the card: "
+          f"{w.card}")
+    roles = sorted({job_role(c) for c in w.cmds.values()})
+    check({"client", "coordinator", "agent", "payload"} <= set(roles),
+          f"{tag}: the job's processes were {roles}: {cmds}")
+    check(not re.search(r"-m tony_tpu\.", cmds)
+          and "tony_tpu_torch.agent" in cmds,
+          f"{tag}: a job process ran the JAX package: {cmds}")
+    check(all(len(a) <= 2 for a in w.apps),
+          f"{tag}: the card's compute processes mid-run {w.apps}: more "
+          "than the payload and this script")
+    return (f"{w.samples} samples, the card held by the payload in "
+            f"{held}, by the agent's nvidia-smi in {w.card.get('smi', 0)}; "
+            "compute processes mid-run "
+            f"{[len(a) for a in w.apps]} (this script and the payload)")
+
+
+def phase_job(ctx) -> None:
+    """18: a training job through the port's control plane, on the card
+    (``cli.local`` -> client -> coordinator -> agent -> payload)."""
+    import torch
+
+    from tony_tpu_torch.examples import lm_pretrain
+
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 18: the card's free memory {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB (this script's cache released) "
+          f"[{ctx['card']}]")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_jobs_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        job_train(ctx, os.path.join(root, "a"), lm_pretrain)
+        job_resume(ctx, os.path.join(root, "b"), lm_pretrain)
+        job_memory_limit(ctx, os.path.join(root, "c"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def job_train(ctx, root: str, lm_pretrain) -> None:
+    """18a: one worker, one GPU, Qwen2.5-1.5B at full size, phase 8's
+    recipe, batch and length, 8 steps."""
+    os.makedirs(root)
+    result = os.path.join(root, "result.json")
+    task = ["--steps", str(TRAIN_STEPS), "--micro", str(TRAIN_MICRO),
+            "--accum", str(TRAIN_ACCUM), "--seq-len", str(TRAIN_SEQ),
+            "--max-seq-len", str(SERVE_MAX_LEN), "--lr", str(TRAIN_LR),
+            "--warmup", str(TRAIN_WARMUP), "--seed", str(SEED),
+            "--result", result]
+    job = run_job(ctx, "18a", root, task)
+    check(job["rc"] == 0, f"18a: cli.local exited {job['rc']}: "
+          f"{job['out'][-2000:]}")
+    types = job_events(job, "18a")
+    check(job["history"][0]["status"] == "SUCCEEDED"
+          and types[-1] == "APPLICATION_FINISHED",
+          f"18a: history {job['history'][0]['status']}, events {types}")
+    with open(result) as f:
+        res = json.load(f)
+    check(res["cuda_visible_devices"] == "0",
+          f"18a: the payload saw CUDA_VISIBLE_DEVICES="
+          f"{res['cuda_visible_devices']!r}")
+    n = res["launches"]
+    check(all(v > 0 for v in n.values()), f"18a: launches {n}")
+    watched = watch_gate(job, "18a", res["pid"])
+    losses, want = res["losses"], ctx["fit"]["losses"]
+    check(len(losses) == TRAIN_STEPS and losses[-1] < losses[0],
+          f"18a: losses {losses}")
+    diff = max(abs(a - b) for a, b in zip(losses, want))
+    check(losses == want, f"18a: losses {losses} against phase 8's {want} "
+          f"(max |diff| {diff:.3g}; held bit-equal, as phase 8 holds its "
+          "replays to its eager steps)")
+    cfg = lm_pretrain.train_config(QWEN25_15B, SERVE_MAX_LEN)
+    flops = train_flops_per_token(cfg, res["n_params"]) \
+        * res["tokens_per_step"]
+    mfu = flops / (res["step_ms"] / 1e3) / PEAK_BF16
+    fit8 = ctx["fit"]
+    walls = job_walls(job, res)
+    ctx["job_launches"] = n
+    print(f"phase 18a a job on the card: cli.local -> client -> "
+          f"coordinator -> agent -> lm_pretrain.py, one worker with "
+          f"tony.worker.chips=1, Qwen2.5-1.5B {res['n_layers']} layers, "
+          f"{TRAIN_MICRO} x {TRAIN_ACCUM} x {TRAIN_SEQ} tokens a step, "
+          f"{TRAIN_STEPS} steps: SUCCEEDED, history {types}; the payload "
+          f"saw CUDA_VISIBLE_DEVICES={res['cuda_visible_devices']} on "
+          f"{res['device']}; losses "
+          f"{[round(x, 4) for x in losses]} bit-equal to phase 8's; "
+          f"{res['step_ms']:.1f} ms/step, MFU {mfu:.4f} (phase 8 in "
+          f"process {fit8['step_ms']:.1f} ms/step, MFU {fit8['mfu']:.4f}); "
+          f"{watched} [{ctx['card']}]")
+    print(f"phase 18a job launches (the payload's process, replays "
+          f"included): {json.dumps(n)}")
+    print(f"phase 18a submit to SUCCEEDED {job['wall']:.2f} s: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
+
+
+def job_resume(ctx, root: str, lm_pretrain) -> None:
+    """18b: the same width at 2 layers; attempt 0 fails after the
+    checkpoint at step 4, the retry resumes there; against an
+    uninterrupted 8-step run in this process."""
+    import torch
+
+    from tony_tpu_torch.train import fit
+
+    os.makedirs(root)
+    layers, stop = 2, 4
+    task = ["--layers", str(layers), "--steps", str(TRAIN_STEPS),
+            "--micro", str(TRAIN_MICRO), "--accum", str(TRAIN_ACCUM),
+            "--seq-len", str(TRAIN_SEQ), "--max-seq-len",
+            str(SERVE_MAX_LEN), "--seed", str(SEED),
+            "--fail-after-checkpoint", str(stop), "--result",
+            os.path.join(root, "r{attempt}.json"), "--save-params",
+            os.path.join(root, "params.pt")]
+    job = run_job(ctx, "18b", root, task, "tony.coordinator.retry-count=1",
+                  "tony.application.checkpoint-dir=ckpt")
+    check(job["rc"] == 0, f"18b: cli.local exited {job['rc']}: "
+          f"{job['out'][-2000:]}")
+    types = job_events(job, "18b")
+    check(job["history"][0]["status"] == "SUCCEEDED",
+          f"18b: history {job['history'][0]['status']}")
+    with open(os.path.join(job["job_dir"], "logs",
+                           "coordinator.log")) as f:
+        coord = f.read()
+    check("task worker:0 registered exit code 1" in coord
+          and "attempt 0 failed" in coord,
+          "18b: attempt 0 did not exit 1 (coordinator log)")
+    res = []
+    for a in (0, 1):
+        with open(os.path.join(root, f"r{a}.json")) as f:
+            res.append(json.load(f))
+    check(res[0]["steps_run"] == stop and res[1]["resumed_from"] == stop
+          and res[1]["steps"] == list(range(stop + 1, TRAIN_STEPS + 1)),
+          f"18b: attempt 0 ran {res[0]['steps_run']} steps, attempt 1 "
+          f"resumed from {res[1]['resumed_from']} and ran "
+          f"{res[1]['steps']}")
+    got = torch.load(os.path.join(root, "params.pt"), weights_only=True)
+    hf = {**QWEN25_15B, "num_hidden_layers": layers}
+    cfg = lm_pretrain.train_config(hf, SERVE_MAX_LEN, dtype=torch.bfloat16)
+    _, trainer, loader = lm_pretrain.build(
+        cfg, seed=SEED, micro=TRAIN_MICRO, accum=TRAIN_ACCUM,
+        seq_len=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP, device=DEVICE)
+    ref = fit(trainer, None, loader, total_steps=TRAIN_STEPS, log_every=1)
+    want = [h["loss"] for h in ref.history if "loss" in h]
+    worst = max((got[n].to(DEVICE) - t).abs().max().item()
+                for n, t in ref.state.params.items())
+    check(res[1]["losses"][-1] == want[-1] and worst == 0.0,
+          f"18b: the resumed run's last loss {res[1]['losses'][-1]} "
+          f"against the uninterrupted {want[-1]}, params max |diff| "
+          f"{worst:.3g} (held bit-equal)")
+    del ref, trainer, loader, got
+    torch.cuda.empty_cache()
+    save = res[0]["checkpoint"]["saves"][-1]
+    restore = res[1]["checkpoint"]["restores"][0]
+    print(f"phase 18b retry and resume: Qwen2.5-1.5B width, {layers} "
+          f"layers, checkpoint dir set, tony.coordinator.retry-count=1, "
+          f"--fail-after-checkpoint {stop}: attempt 0 exited 1 after "
+          f"step {stop}, attempt 1 resumed at step "
+          f"{res[1]['resumed_from']} and ran steps {res[1]['steps']}; "
+          f"SUCCEEDED, history {types}; the last loss "
+          f"{res[1]['losses'][-1]:.6f} and every fp32 master bit-equal to "
+          f"an uninterrupted {TRAIN_STEPS}-step run in this process; the "
+          f"checkpoint {save['bytes']} B, saved in {save['s']:.3f} s, "
+          f"restored (read to the host) in {restore['s']:.3f} s; wall "
+          f"{job['wall']:.2f} s [{ctx['card']}]")
+
+
+def job_memory_limit(ctx, root: str) -> None:
+    """18c: a payload that only starts the card, under
+    ``tony.worker.memory=64g`` (the launcher's ``RLIMIT_AS``) and without
+    it. The unlimited job must succeed; the limited one is a reading."""
+    cmd = f"{sys.executable} -c \"import torch; " \
+        f"print(torch.ones(1, device='{DEVICE}').item())\""
+    outs = {}
+    for tag, confs in (("unset", ()), ("64g", ("tony.worker.memory=64g",))):
+        job = run_job(ctx, f"18c {tag}", os.path.join(root, tag), [],
+                      *confs, command=cmd)
+        with open(os.path.join(job["job_dir"], "logs",
+                               "worker-0-user.log")) as f:
+            user = f.read().strip()
+        outs[tag] = (job["rc"], job["history"][0]["status"]
+                     if job["history"] else "no history", user[-300:])
+    check(outs["unset"][0] == 0 and outs["unset"][1] == "SUCCEEDED",
+          f"18c: the job without a memory limit: {outs['unset']}")
+    print(f"phase 18c memory limit, a payload that only runs "
+          f"torch.ones(1, device='{DEVICE}'): without tony.worker.memory "
+          f"{outs['unset'][1]} (exit {outs['unset'][0]}); with "
+          f"tony.worker.memory=64g (RLIMIT_AS) {outs['64g'][1]} (exit "
+          f"{outs['64g'][0]}), the payload printed {outs['64g'][2]!r} "
+          f"[{ctx['card']}]")
+
+
 def mistral_kernel_line(ctx) -> dict:
     m = ctx["mistral_call"]
     return {"name": "flash_decode (Mistral-7B-v0.1, window 4096)",
@@ -5066,7 +5469,7 @@ def main() -> int:
                         ("gateway", phase_gateway),
                         ("gateway-cli", phase_gateway_cli),
                         ("sampled", phase_sampled),
-                        ("fabric", phase_fabric)):
+                        ("fabric", phase_fabric), ("job", phase_job)):
         t0 = time.perf_counter()
         try:
             phase(ctx)

@@ -299,7 +299,8 @@ def _skewed_run(models, jax: bool):
         servers = [Server(tm, device="cpu", page_pool=pool, chunk_steps=1,
                           **KW) for _ in range(2)]
         gw_cls, req, rb_cls = Gateway, GenRequest, Rebalancer
-    gates = [Gate(s, 3) for s in servers]
+    # both streams start on replica 0: hold it once each has 3 tokens
+    gates = [Gate(s, 3, rows=2) for s in servers]
     gw = gw_cls(servers, stall_timeout_s=300.0).start()
     try:
         gw.replicas[1].outstanding = 500

@@ -5,8 +5,10 @@ that imports them all and inspects ``sys.modules``); every import of a
 functions included; it passes the repository's lint (``tools/lint.py``)
 with ``chip_smoke.py``; its entry points raise without a CUDA device
 unless asked for the CPU; the gateway CLI refuses only what is not
-ported (``--mesh``); and work on CPU tensors never launches the CUDA
-kernel."""
+ported (``--mesh``); work on CPU tensors never launches the CUDA
+kernel; and the job control plane (client, coordinator, agent, RPC,
+session, config, runtimes, mini cluster) imports no ``torch`` at module
+level, so that a coordinator or an agent process never loads it."""
 
 import ast
 import importlib.util
@@ -101,6 +103,51 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+CONTROL_PLANE = ("client", "coordinator", "agent", "rpc", "session",
+                 "config", "runtime", "mini")
+
+
+def _module_level_imports(tree):
+    """Imports outside any function or class body."""
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            yield node
+        elif not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                   ast.ClassDef)):
+            stack.extend(ast.iter_child_nodes(node))
+
+
+def test_control_plane_imports_no_torch_at_module_level():
+    bad, seen = [], []
+    for path, mod in _modules():
+        if mod.split(".")[1:2] and mod.split(".")[1] in CONTROL_PLANE:
+            seen.append(mod)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            bad += [(mod, n.lineno) for n in _module_level_imports(tree)
+                    if "torch" in _roots(n)]
+    assert not bad
+    assert {m.split(".")[1] for m in seen} == set(CONTROL_PLANE)
+
+
+def test_control_plane_processes_load_no_torch():
+    """What ``python -m tony_tpu_torch.coordinator`` and ``.agent`` and the
+    client import, transitively, leaves ``torch`` unloaded."""
+    mods = ["tony_tpu_torch.coordinator.coordinator",
+            "tony_tpu_torch.agent.executor", "tony_tpu_torch.client",
+            "tony_tpu_torch.mini", "tony_tpu_torch.cli.local",
+            "tony_tpu_torch.distributed"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print('torch' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip().splitlines()[-1] == "False"
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):

@@ -83,14 +83,18 @@ def wait_for(cond, timeout: float = 120.0, what: str = "condition"):
 
 
 class Gate:
-    """Holds a server's stepping at a step boundary once one of its live
-    requests has ``after`` tokens, until ``open()``: the mid-stream
-    window a migration test needs, made by an event and not by a sleep.
-    The hold sits outside the engine's locks (it wraps ``step``), so an
+    """Holds a server's stepping at a step boundary once ``rows`` of its
+    live requests each have ``after`` tokens, until ``open()``: the
+    mid-stream window a migration test needs, made by an event and not
+    by a sleep. A test that then waits on several streams of one server
+    passes their number as ``rows``: with the default of one, the gate
+    could freeze a stream admitted a step after the first below
+    ``after`` tokens, and that wait could only time out. The hold sits
+    outside the engine's locks (it wraps ``step``), so an
     ``extract_session`` from another thread goes through while it
     holds. Works on a JAX and a port ``Server`` alike."""
 
-    def __init__(self, server, after: int):
+    def __init__(self, server, after: int, rows: int = 1):
         import threading
 
         self.held = threading.Event()
@@ -98,9 +102,9 @@ class Gate:
         real = server.step
 
         def step():
-            if not self._go.is_set() and any(
+            if not self._go.is_set() and sum(
                     len(t) >= after
-                    for t in server.live_progress().values()):
+                    for t in server.live_progress().values()) >= rows:
                 self.held.set()
                 self._go.wait(300)
             return real()

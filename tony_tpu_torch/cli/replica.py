@@ -171,6 +171,12 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, _on_signal)
     signal.signal(signal.SIGINT, _on_signal)
     agent.drained.wait()
+    # drained: a polite SIGTERM still on its way (the stub that sent
+    # /v1/drain terminates its agent next) must not kill the exit.
+    # Finalization resets a Python handler to the default action, which
+    # would end the process with -15; an ignored signal stays ignored
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
     http.stop()
     print("agent drained clean", file=sys.stderr)
     return 0

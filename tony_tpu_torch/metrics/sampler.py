@@ -5,7 +5,10 @@ ResourceCalculatorProcessTree) and GPU util/memory (via nvidia-smi XML,
 util/gpu/GpuDiscoverer.java), keeping max + running-average aggregates,
 pushed to the coordinator's metrics RPC. The port samples the user
 process tree's RSS from /proc and the memory in use on the card, by
-every process (absent without CUDA).
+every process (absent without CUDA): through ``torch`` by default (a
+process that already holds a CUDA context, as the in-process gateway
+does), or through a ``device_fn`` the caller gives, as the task agent
+gives ``utils.gpu_info``'s ``nvidia-smi`` query, which opens no context.
 """
 
 from __future__ import annotations
@@ -81,9 +84,12 @@ class TaskMetricsMonitor:
     """Sampler thread with max/avg aggregation (ref: setAvgMetrics/
     setMaxMetrics TaskMonitor.java:172-186)."""
 
-    def __init__(self, pid_fn, push_fn, interval_ms: int = 5000):
+    def __init__(self, pid_fn, push_fn, interval_ms: int = 5000,
+                 device_fn=None):
         self.pid_fn = pid_fn  # () -> pid | None of the user process
         self.push_fn = push_fn  # (metrics: dict) -> None
+        # () -> {"memory": bytes} | {}
+        self.device_fn = device_fn or device_metrics
         self.interval_s = max(interval_ms, 100) / 1000
         self._samples = 0
         self.metrics: dict[str, float] = {}
@@ -97,7 +103,7 @@ class TaskMetricsMonitor:
         rss = float(process_tree_rss_bytes(pid))
         self._samples += 1
         self._fold(MAX_MEMORY_RSS, AVG_MEMORY_RSS, rss)
-        dev = device_metrics()
+        dev = self.device_fn()
         if "memory" in dev:
             self._fold(MAX_GPU_MEMORY, AVG_GPU_MEMORY, dev["memory"])
         return self.metrics

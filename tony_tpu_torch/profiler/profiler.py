@@ -15,10 +15,10 @@ serving loops, the counterpart of ``tony_tpu/profiler/profiler.py``
 
 A trace records the host's operators, and on the card its kernels and
 copies too. The JAX package's profiler server for remote TensorBoard
-captures (``maybe_start_server``) has no ``torch.profiler``
-counterpart and is not ported. Starting and stopping a capture on the
-card holds ``models.graphs.DEVICE`` exclusively: it must not meet a
-CUDA-graph capture on another replica's thread.
+captures has no ``torch.profiler`` counterpart: ``maybe_start_server``
+only logs that. Starting and stopping a capture on the card holds
+``models.graphs.DEVICE`` exclusively: it must not meet a CUDA-graph
+capture on another replica's thread.
 """
 
 from __future__ import annotations
@@ -55,6 +55,26 @@ def write_trigger(workdir: str, num_steps: int = 5,
     return write_control_file(
         trigger_path(workdir, task_id),
         {"num_steps": int(num_steps), "logdir": logdir})
+
+
+_no_server_logged = False
+
+
+def maybe_start_server() -> int:
+    """Where the JAX package starts ``jax.profiler``'s server for remote
+    TensorBoard captures when ``TONY_PROFILER_PORT`` is set (called from
+    ``tony_tpu_torch.distributed.initialize``): ``torch.profiler`` has no
+    such server, so this logs that once and returns 0. Captures reach a
+    task through the coordinator's ``profile`` command, which the agent
+    turns into ``write_trigger``."""
+    global _no_server_logged
+    port = int(os.environ.get(PROFILER_PORT_ENV, "0") or "0")
+    if port > 0 and not _no_server_logged:
+        _no_server_logged = True
+        log.info("%s=%d: torch.profiler has no remote-capture server; "
+                 "request traces through the coordinator's profile "
+                 "command", PROFILER_PORT_ENV, port)
+    return 0
 
 
 def start_trace(logdir: str):

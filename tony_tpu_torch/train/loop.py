@@ -36,6 +36,9 @@ class FitResult:
     # exponential moving average of the master params (None unless
     # fit(ema_decay=...))
     ema_params: Any = None
+    # the run's checkpoint manager, with its save and restore timings
+    # (None without a checkpoint dir); the JAX FitResult has no such field
+    manager: CheckpointManager | None = None
 
 
 class JsonlMetricsLogger:
@@ -177,7 +180,7 @@ def fit(trainer: Trainer, params: Any, train_data: Iterable, *,
             manager.save(final, placed, force=True)
     return FitResult(state=placed, steps_run=steps_run,
                      resumed_from=resumed_from, history=history,
-                     ema_params=ema_params)
+                     ema_params=ema_params, manager=manager)
 
 
 def _run_eval(eval_fn, model, eval_data) -> dict:
