@@ -40,8 +40,9 @@ exits non-zero.
 6. Training kernels against their plain versions at Qwen2.5-1.5B shapes:
    flash attention forward, dQ and dK/dV at B=4, L=2048, H=12, KVH=2,
    D=128 in bf16 (the training path's call), and fp32 at L=1024, a
-   512-key window, three packed segments, L=2047 and an MHA shape with
-   D=64, each output held per element to ``ops.attention.error_bound``;
+   512-key window, three packed segments, L=2047, an MHA shape with
+   D=64 and phase 19b's B=8, L=8, each output held per element to
+   ``ops.attention.error_bound``;
    fused AdamW over the model's whole 1.54 B-parameter leaf set (the
    grads' dtype phase 8 gives it, fp32 master and moments, bf16 copy),
    bit-equal to its plain version, with the wrapper's host time a call
@@ -260,11 +261,53 @@ exits non-zero.
    c. a payload that only runs ``torch.ones(1, device="cuda")``, with
       ``tony.worker.memory=64g`` (the launcher's ``RLIMIT_AS``) and
       without: the one without must succeed, the other is a reading.
+19. Fine-tuning and image training:
+   a. LoRA SFT of Qwen2.5-1.5B at full width and depth (a bf16 base,
+      random from the seed, frozen; rank 8, alpha 16 on q, v, o, wi,
+      wo): 32 seeded prompt/completion pairs through the byte tokenizer,
+      ``InstructionSource`` at 2048 tokens, ``DataLoader`` and
+      ``device_prefetch``, phase 8's 4 x 2 batch, ``FusedAdamW`` with
+      weight decay 0, 10 steps captured: the adapter count equal to the
+      JAX rule's, launches 56 a step of each attention kernel and one
+      AdamW, the last two losses below the first two; ms a step,
+      positions/s (prompt, completion and padding), prompt and
+      completion tokens/s and completion tokens/s, peak memory beside
+      phase 8's, the optimizer state's bytes; 3 replayed and 3 eager
+      steps bit-equal from one saved state; every base tensor bit-equal
+      before and after; the materialized model's logits within 2^-7
+      max|logit| of the LoRA forward's; a greedy ``generate`` of 16
+      tokens from it replayed, launching flash-decode n_layers times a
+      step, and the eager step's flash-decode call (B=1) held to its
+      plain version as phase 2's are; fused AdamW held bit-equal to its
+      plain version over the adapters' leaf set, its three rounds
+      printed;
+   b. ``tony_tpu_torch/examples/sft_lora.py`` as a job through
+      ``cli.local`` (one worker, one GPU, the Qwen2.5-1.5B width at 2
+      layers, the toy pairs): SUCCEEDED, the payload's self-check (at
+      least 3 of 4 learned), the training kernels launched in its
+      process, only it holding the card; submit to SUCCEEDED;
+   c. ResNet-50 (25 557 032 parameters, the JAX model's count) on
+      ``SyntheticImageSource`` 224x224x3 through ``DataLoader`` and
+      ``device_prefetch``, batch 128, bf16 compute over fp32
+      parameters, ``FusedAdamW``, ``train=False``, 10 steps captured,
+      cuDNN held to deterministic algorithms: finite losses, one AdamW
+      launch a step, replayed against eager bit-equal from one saved
+      state; images/s through the loader and on device-resident
+      batches, the host's ms a batch, peak memory; on one batch of 128
+      at 224x224, with every norm's scale, bias and statistics drawn
+      from the seed, the model against a plain fp32 NCHW forward
+      written here from its parameters: in fp32 the logits within
+      2^-13 max|logit| and the gradient within 2^-6 of the plain one's
+      in L2 norm, in bf16 (as 19c trains it) within 2^-5 and 2^-3;
+      fused AdamW held bit-equal to its plain version over ResNet-50's
+      leaf set, its three rounds printed.
+   Each training kernel's line carries its launches by phase (8, 19a,
+   19c); the flash-decode line carries 19a's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches (flash-decode's include 16a's
-replays, the training kernels' phase 8's, and phase 17's agents'),
-error and times.
+replays, the training kernels' phase 8's, and phase 17's agents'; the
+two phase 19 AdamW lines 19a's and 19c's), error and times.
 
     python3 chip_smoke.py
 """
@@ -334,19 +377,24 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
-def cuda_time_ms(fn, reps: int, flush) -> float:
+HOLD = 2_000_000  # cycles: about 1 ms of the card held busy
+
+
+def cuda_time_ms(fn, reps: int, flush, hold: int = HOLD) -> float:
     """Median device time of ``fn`` over ``reps`` calls, by CUDA events.
     Before each call the 50 MB L2 cache is flushed (the decode path finds
     it cold: the other layers' weights and caches pass through it between
-    calls) and the device is held busy for about 1 ms, so the host has
-    enqueued all of ``fn`` before the start event fires and the interval
-    is device time, not Python launch overhead."""
+    calls) and the device is held busy for ``hold`` cycles (about 1 ms by
+    default), so the host has enqueued all of ``fn`` before the start
+    event fires and the interval is device time, not Python launch
+    overhead; a caller whose host time a call exceeds that passes a
+    longer ``hold``."""
     import torch
 
     times = []
     for _ in range(reps + 2):
         flush.zero_()
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(hold)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1242,10 +1290,14 @@ def kernel_line(ctx) -> dict:
           "point): " + ", ".join(f"{n}: {t * 1e3:.1f} us"
                                  for n, t in by.items())
           + f" (the wrapper takes {m['nsplit']}) [{ctx['card']}]")
+    phases = {"4, 13-17": ctx["launches"]}
+    if "decode_launches" in ctx.get("finetune", {}):
+        phases["19a"] = ctx["finetune"]["decode_launches"]
     return {"name": "flash_decode", "route": "cuda",
             "source": "tony_tpu_torch/csrc/flash_decode.cu",
             "replaces": "tony_tpu/ops/decode.py:70",
-            "launches": ctx["launches"], "max_abs_err": m["max_abs_err"],
+            "launches": ctx["launches"], "launches_by_phase": phases,
+            "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"]}
@@ -1469,24 +1521,50 @@ def train_grad_dtype():
     return torch.float32 if TRAIN_ACCUM > 1 else torch.bfloat16
 
 
-def measure_adamw(flush) -> dict:
-    """Fused AdamW over every leaf of Qwen2.5-1.5B (grads of phase 8's
-    dtype, fp32 master and moments, bf16 copy: the group the training
-    path launches): one step against the plain version, held to one fp32
-    step (one bf16 step for the copy), inputs unchanged; then the times."""
+# cycles: about 10 ms, longer than the AdamW wrapper's host time a call
+# (3-5 ms over Qwen2.5-1.5B's 339 leaves, PERF.md)
+ADAMW_HOLD = 20_000_000
+
+
+def hold_ms(hold: int) -> float:
+    """The card's time for ``torch.cuda._sleep(hold)``, by CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(hold)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def measure_adamw(flush, shapes=None, grad_dtype=None,
+                  with_copy: bool = True,
+                  weight_decay: float = 1e-4) -> dict:
+    """Fused AdamW over a leaf set (default every leaf of Qwen2.5-1.5B,
+    grads of phase 8's dtype, fp32 master and moments, bf16 copy: the
+    group the training path launches; phase 19 gives its adapters' and
+    ResNet-50's sets, fp32 grads, no copy): one step against the plain
+    version, held to one fp32 step (one bf16 step for the copy), inputs
+    unchanged; then the wrapper's host time and the device times. The
+    device times are taken behind ``ADAMW_HOLD``, which must outlast the
+    host time; one reading behind the usual ``HOLD`` is kept beside them,
+    since below the host time it counts host time as well."""
     import torch
 
     from tony_tpu_torch.ops import adamw as adw
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
-    shapes = qwen_param_shapes()
-    opt = adw.FusedAdamW(3e-4)
-    gdt = train_grad_dtype()
+    shapes = shapes or qwen_param_shapes()
+    opt = adw.FusedAdamW(3e-4, weight_decay=weight_decay)
+    gdt = grad_dtype or train_grad_dtype()
     params = {n: 0.02 * torch.randn(*s, device=DEVICE, generator=gen)
               for n, s in shapes.items()}
     grads = {n: (1e-3 * torch.randn(*s, device=DEVICE, generator=gen))
              .to(gdt) for n, s in shapes.items()}
-    state = opt.init(params, compute_dtype=torch.bfloat16)
+    state = opt.init(params,
+                     compute_dtype=torch.bfloat16 if with_copy else None)
     # one step first, so the moments are not zero (the count advances
     # in place)
     adw.fused_adamw_update(opt, grads, state, params)
@@ -1496,7 +1574,8 @@ def measure_adamw(flush) -> dict:
         mu={n: t.clone() for n, t in state.mu.items()},
         nu={n: t.clone() for n, t in state.nu.items()},
         compute_params={n: t.clone()
-                        for n, t in state.compute_params.items()})
+                        for n, t in state.compute_params.items()}
+        if with_copy else None)
     g_before = {n: t.clone() for n, t in grads.items()}
     params, state = adw.fused_adamw_update(opt, grads, state, params)
     lr, c1, c2 = adw._hyper(opt, ref_s.count)
@@ -1504,19 +1583,20 @@ def measure_adamw(flush) -> dict:
         adw.leaf_update_reference(
             grads[n], ref_p[n], ref_s.mu[n], ref_s.nu[n], lr, c1, c2,
             b1=opt.b1, b2=opt.b2, eps=opt.eps, wd=opt.weight_decay,
-            copy=ref_s.compute_params[n])
+            copy=ref_s.compute_params[n] if with_copy else None)
     sync()
     check(all(torch.equal(grads[n], g_before[n]) for n in shapes),
           "fused AdamW wrote into its grads")
     del g_before
     err, bit_equal = 0.0, True
     for n in shapes:
-        for got, want, step in (
-                (params[n], ref_p[n], 2.0 ** -23),
-                (state.mu[n], ref_s.mu[n], 2.0 ** -23),
-                (state.nu[n], ref_s.nu[n], 2.0 ** -23),
-                (state.compute_params[n], ref_s.compute_params[n],
-                 2.0 ** -8)):
+        pairs = [(params[n], ref_p[n], 2.0 ** -23),
+                 (state.mu[n], ref_s.mu[n], 2.0 ** -23),
+                 (state.nu[n], ref_s.nu[n], 2.0 ** -23)]
+        if with_copy:
+            pairs.append((state.compute_params[n], ref_s.compute_params[n],
+                          2.0 ** -8))
+        for got, want, step in pairs:
             diff = (got.float() - want.float()).abs()
             excess = (diff - step * want.float().abs()).max().item()
             check(excess <= 0, f"fused AdamW {n}: exceeds one step by "
@@ -1526,7 +1606,7 @@ def measure_adamw(flush) -> dict:
     check(bit_equal, "fused AdamW is not bit-equal to its plain version")
     n_el = sum(t.numel() for t in params.values())
     # read g, p, mu, nu; write p, mu, nu and the bf16 copy
-    nbytes = n_el * (gdt.itemsize + 3 * 4 + 3 * 4 + 2)
+    nbytes = n_el * (gdt.itemsize + 3 * 4 + 3 * 4 + (2 if with_copy else 0))
     ops = n_el * 15
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS["float32"] * 1e3
@@ -1539,7 +1619,7 @@ def measure_adamw(flush) -> dict:
             adw.leaf_update_reference(
                 grads[n], ref_p[n], ref_s.mu[n], ref_s.nu[n], lr, c1, c2,
                 b1=opt.b1, b2=opt.b2, eps=opt.eps, wd=opt.weight_decay,
-                copy=ref_s.compute_params[n])
+                copy=ref_s.compute_params[n] if with_copy else None)
 
     def host_ms(reps: int, rebuild: bool) -> float:
         """The wrapper's host time a call, a sync on each side; with
@@ -1557,6 +1637,10 @@ def measure_adamw(flush) -> dict:
         return statistics.median(host) * 1e3
 
     host = {"cached": host_ms(10, False), "built": host_ms(5, True)}
+    held = hold_ms(ADAMW_HOLD)
+    check(host["cached"] < held, f"fused AdamW: the wrapper's host time "
+          f"{host['cached']:.3f} ms a call outlasts the timing hold "
+          f"({held:.3f} ms)")
     plain_ms = cuda_time_ms(plain, 3, flush)
     del plain, ref_s
     # the yardstick: PyTorch's fused AdamW on the same params and grads
@@ -1564,19 +1648,22 @@ def measure_adamw(flush) -> dict:
     lib_params = list(ref_p.values())
     for n, t in zip(ref_p, lib_params):
         t.grad = grads[n].float()
-    lib = torch.optim.AdamW(lib_params, lr=3e-4, weight_decay=1e-4,
-                            fused=True)
+    lib = torch.optim.AdamW(lib_params, lr=3e-4,
+                            weight_decay=weight_decay, fused=True)
     lib.step()
     # kernel and library in turn, three rounds: the spread between
     # rounds of one call says how far apart two readings may fall
-    rounds = [(cuda_time_ms(kernel, 5, flush),
-               cuda_time_ms(lib.step, 5, flush)) for _ in range(3)]
+    rounds = [(cuda_time_ms(kernel, 5, flush, ADAMW_HOLD),
+               cuda_time_ms(lib.step, 5, flush, ADAMW_HOLD))
+              for _ in range(3)]
+    short = cuda_time_ms(kernel, 5, flush)
     del kernel, lib, lib_params, ref_p, params, state, grads
     return {"max_abs_err": err, "bit_equal": bit_equal,
             "ms": statistics.median(r[0] for r in rounds),
             "library_ms": statistics.median(r[1] for r in rounds),
             "rounds": rounds, "host_ms": host["cached"],
-            "host_built_ms": host["built"], "plain_ms": plain_ms, "n": n_el,
+            "host_built_ms": host["built"], "hold_ms": held,
+            "short_hold_ms": short, "plain_ms": plain_ms, "n": n_el,
             "nbytes": nbytes,
             "bound": (t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations")}
@@ -1598,6 +1685,9 @@ def phase_train_kernels(ctx) -> None:
         (f"L{l - 1}", b, l - 1, h, kvh, d, torch.bfloat16, 0, False,
          False),
         ("mha-d64", b, l, 16, 16, 64, torch.bfloat16, 0, False, False),
+        # phase 19b's payload: global batch 8 at seq_len 8, one partial
+        # tile a row
+        ("L8-B8", 8, 8, h, kvh, d, torch.bfloat16, 0, False, False),
     ]
     for name, *shape, timed in cases:
         m = measure_attention(*shape, flush, timed)
@@ -1656,9 +1746,17 @@ def phase_train_kernels(ctx) -> None:
           f"wrapper's host time {a['host_ms']:.3f} ms a call, "
           f"{a['host_built_ms']:.3f} ms when it builds its table "
           f"[{ctx['card']}]")
-    print("  kernel / AdamW(fused) by round (medians of 5 calls): "
-          + ", ".join(f"{k:.3f} / {lib:.3f} ms" for k, lib in a["rounds"]))
+    print_rounds(a)
     torch.cuda.empty_cache()
+
+
+def print_rounds(w: dict) -> None:
+    print("  kernel / AdamW(fused) by round (medians of 5 calls, each "
+          f"behind a {w['hold_ms']:.2f} ms hold): "
+          + ", ".join(f"{k:.3f} / {lib:.3f} ms" for k, lib in w["rounds"])
+          + f"; the kernel behind the usual hold of about 1 ms (the "
+          f"wrapper's host time {w['host_ms']:.3f} ms a call): "
+          f"{w['short_hold_ms']:.3f} ms")
 
 
 def phase_grad_check(ctx) -> None:
@@ -1840,8 +1938,12 @@ def phase_fit(ctx) -> None:
     print(f"phase 8 capture: {capture_text(g)}; graph pool "
           + ("not measured" if pool is None else f"{pool / 2**30:.2f} GiB")
           + f" [{ctx['card']}]")
-    state, gate = train_replay_gate(ctx, trainer, result.state, loader,
-                                    counters, cfg)
+    it = loader.from_step(0)
+    batches = [next(it) for _ in range(3)]
+    it.close()
+    state, gate = train_replay_gate(
+        ctx, trainer, result.state, batches, counters,
+        [cfg.n_layers * TRAIN_ACCUM] * 3 + [1])
     per = {}
     for how, step_s in gate["step_s"].items():
         per[how] = {"ms": step_s * 1e3, "tok_s": tokens / step_s,
@@ -1897,25 +1999,22 @@ def train_state_tensors(state) -> list:
             *opt.nu.values(), *(opt.compute_params or {}).values()]
 
 
-def train_replay_gate(ctx, trainer, state, loader, counters, cfg):
-    """Phase 8's gate: on one saved state (kept on the host), 3 steps
-    replayed, then the state put back and the same 3 steps eager:
-    losses and masters bit-equal, and every step raising the flash
-    attention and AdamW launch counts by one step's launches. Each way
-    also runs an untimed probe (one unprofiled step for its wall, one
-    under torch.profiler for the device's busy time). The captured
-    step's graph and its pool (about 23 GiB) are let go before the
+def train_replay_gate(ctx, trainer, state, batches, counters, per_step,
+                      tag: str = "phase 8"):
+    """Phase 8's gate (and phase 19's): on one saved state (kept on the
+    host), 3 steps replayed, then the state put back and the same 3
+    steps eager: losses and masters bit-equal, and every step raising the
+    ``counters``' launch counts by ``per_step``. Each way also runs an
+    untimed probe (one unprofiled step for its wall, one under
+    torch.profiler for the device's busy time). The captured step's
+    graph and its pool (about 23 GiB in phase 8) are let go before the
     eager steps, which need that much room of their own. Returns the
     state and each way's seconds a step, peak memory and probe."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    it = loader.from_step(0)
-    batches = [next(it) for _ in range(3)]
-    it.close()
     live = train_state_tensors(state)
     saved = [t.to("cpu", copy=True) for t in live]
-    per_step = [cfg.n_layers * TRAIN_ACCUM] * 3 + [1]
     out = {"loss": {}, "masters": {}, "step_s": {}, "peak": {},
            "probe": {}}
     graphs = trainer.graphs
@@ -1937,15 +2036,14 @@ def train_replay_gate(ctx, trainer, state, loader, counters, cfg):
                 state, m = trainer.step(state, b)
                 losses.append(m["loss"])
                 rise = [c.launches - n for c, n in zip(counters, before)]
-                check(rise == per_step, f"phase 8 {how} step: launches "
-                      f"fwd/dq/dkv/adamw rose by {rise}, one step is "
-                      f"{per_step}")
+                check(rise == per_step, f"{tag} {how} step: launches "
+                      f"rose by {rise}, one step is {per_step}")
             sync()
             out["step_s"][how] = (time.perf_counter() - t0) / len(batches)
             out["peak"][how] = torch.cuda.max_memory_allocated() / 2 ** 30
             if how == "replayed":
                 check(graphs.calls["train_step", "replays"] == replays + 3,
-                      "phase 8: the gate's replayed steps were not replays")
+                      f"{tag}: the gate's replayed steps were not replays")
             out["loss"][how] = torch.stack(losses).cpu()
             out["masters"][how] = [t.to("cpu", copy=True)
                                    for t in state.params.values()]
@@ -1967,23 +2065,28 @@ def train_replay_gate(ctx, trainer, state, loader, counters, cfg):
             "busy_ms": dev_us * 1e-3, "wall_ms": wall * 1e3}
         out["prof"] = prof
     check(torch.equal(out["loss"]["replayed"], out["loss"]["eager"]),
-          f"phase 8: replayed losses {out['loss']['replayed'].tolist()} "
+          f"{tag}: replayed losses {out['loss']['replayed'].tolist()} "
           f"against eager {out['loss']['eager'].tolist()}")
     differ = [n for n, a, b in zip(state.params, out["masters"]["replayed"],
                                    out["masters"]["eager"])
               if not torch.equal(a, b)]
-    check(not differ, f"phase 8: masters differ replayed against eager: "
+    check(not differ, f"{tag}: masters differ replayed against eager: "
           f"{differ[:4]} ({len(differ)} leaves)")
-    print(f"phase 8 gate: 3 steps replayed and 3 eager from one saved "
+    print(f"{tag} gate: 3 steps replayed and 3 eager from one saved "
           f"state: losses {out['loss']['eager'].tolist()} and all "
-          f"{len(state.params)} masters bit-equal; each step raised "
-          f"fwd/dq/dkv/adamw launches by {per_step} [{ctx['card']}]")
+          f"{len(state.params)} masters bit-equal; each step raised the "
+          f"launches by {per_step} [{ctx['card']}]")
     return state, out
 
 
 def train_kernel_lines(ctx) -> list[dict]:
+    """The training kernels at phase 6's calls; ``launches`` is phase
+    8's, ``launches_by_phase`` adds phase 19's LoRA step (19a) and job
+    (19b), which run the attention kernels at other shapes (19b's held
+    in phase 6 as L8-B8)."""
     a, w = ctx["attention"], ctx["adamw"]
     launches = ctx["train_launches"]
+    f = ctx.get("finetune", {})
     src = "tony_tpu_torch/csrc/flash_attention.cu"
     lines = []
     for i, (name, kern, plain, lib, bound, errs, site) in enumerate((
@@ -1993,9 +2096,13 @@ def train_kernel_lines(ctx) -> list[dict]:
              "bound_dq", ("dq",), "tony_tpu/ops/attention.py:204"),
             ("flash_attention_bwd_dkv", "dkv", "plain_bwd", "lib_bwd",
              "bound_dkv", ("dk", "dv"), "tony_tpu/ops/attention.py:262"))):
+        by = {"8": launches[i]}
+        if "lora_launches" in f:
+            by.update({"19a": f["lora_launches"][i],
+                       "19b": f["job_launches"][name]})
         lines.append({
             "name": name, "route": "cuda", "source": src, "replaces": site,
-            "launches": launches[i],
+            "launches": launches[i], "launches_by_phase": by,
             "max_abs_err": max(a["err"][e][0] for e in errs),
             "ms": a[kern], "plain_ms": a[plain], "bound_ms": a[bound][0],
             "bound_by": a[bound][1], "library_ms": a[lib]})
@@ -2003,6 +2110,7 @@ def train_kernel_lines(ctx) -> list[dict]:
         "name": "fused_adamw", "route": "cuda",
         "source": "tony_tpu_torch/csrc/adamw.cu",
         "replaces": "tony_tpu/ops/adamw.py:74", "launches": launches[3],
+        "launches_by_phase": {"8": launches[3]},
         "max_abs_err": w["max_abs_err"], "ms": w["ms"],
         "plain_ms": w["plain_ms"], "bound_ms": w["bound"][0],
         "bound_by": w["bound"][1], "library_ms": w["library_ms"]})
@@ -5034,7 +5142,10 @@ def job_tree(root: int) -> dict:
     """{pid: command line} of ``root`` and its live descendants, from
     /proc (the client spawns the coordinator, the coordinator the agents,
     the agents the payloads, each in a session of its own, so a process
-    group does not hold them)."""
+    group does not hold them). A process that is exiting reads an empty
+    command line once its memory is released, before it turns zombie: it
+    stays in the tree, so its children are found, but is left out of the
+    result, so a sampler never overwrites what it read of it before."""
     parents, cmds = {}, {}
     for pid in os.listdir("/proc"):
         if not pid.isdigit():
@@ -5048,7 +5159,9 @@ def job_tree(root: int) -> dict:
         except (OSError, ValueError, IndexError):
             continue
         if state != "Z":
-            parents[int(pid)], cmds[int(pid)] = int(ppid), cmd
+            parents[int(pid)] = int(ppid)
+            if cmd:
+                cmds[int(pid)] = cmd
     tree, grew = {root}, True
     while grew:
         new = {p for p, pp in parents.items() if pp in tree} - tree
@@ -5131,9 +5244,10 @@ class JobWatch:
 
 
 def run_job(ctx, tag: str, root: str, task: list, *confs,
-            command: str | None = None) -> dict:
-    """``python -m tony_tpu_torch.cli.local --root root`` running
-    ``lm_pretrain.py`` over ``QWEN25_15B`` with ``task`` (or the worker
+            command: str | None = None,
+            payload: str = "lm_pretrain.py") -> dict:
+    """``python -m tony_tpu_torch.cli.local --root root`` running the
+    example ``payload`` over ``QWEN25_15B`` with ``task`` (or the worker
     ``command``) on one worker holding one GPU, watched by ``JobWatch``:
     its exit code, wall, job dir, history, watch and output."""
     from tony_tpu_torch.events import history
@@ -5146,7 +5260,7 @@ def run_job(ctx, tag: str, root: str, task: list, *confs,
         with open(hf, "w") as f:
             json.dump(QWEN25_15B, f)
         argv += ["--executes", os.path.join(
-            ROOT, "tony_tpu_torch", "examples", "lm_pretrain.py"),
+            ROOT, "tony_tpu_torch", "examples", payload),
             "--task_params", " ".join(
                 ["--config-json", hf, "--device", DEVICE, *task])]
     else:
@@ -5422,6 +5536,619 @@ def job_memory_limit(ctx, root: str) -> None:
           f"[{ctx['card']}]")
 
 
+# ------------------------------------------------------- fine-tuning
+
+LORA_RANK, LORA_ALPHA, LORA_LR = 8, 16.0, 1e-3
+LORA_TARGETS = ("q", "v", "o", "wi", "wo")
+LORA_PAIRS, LORA_STEPS = 32, 10
+SFT_JOB_LAYERS, SFT_JOB_STEPS = 2, 100
+RESNET_BATCH, RESNET_SIZE, RESNET_STEPS = 128, 224, 10
+RESNET50_STAGES = (3, 4, 6, 3)  # tony_tpu/models/resnet.py:109
+# 19c's model against the plain fp32 forward, the logits' error over
+# max|logit| and the gradient's in L2 norm over its norm. In bf16 about
+# 70 roundings of at most 2^-9 lie between input and logits, a random
+# walk of about 2^-6; in fp32 the two differ only in the order of their
+# sums. The gradient's limits are wider: the stem's weight gradient is a
+# small sum of large terms, which magnifies every rounding under it (on
+# the CPU at batch 2, 2.4e-4 in fp32 and 2.0e-2 in bf16 over the whole
+# gradient)
+RESNET_LOGIT_TOL, RESNET_GRAD_TOL = 2.0 ** -5, 2.0 ** -3
+RESNET32_LOGIT_TOL, RESNET32_GRAD_TOL = 2.0 ** -13, 2.0 ** -6
+# the JAX package's ResNet-50 (num_classes 1000) parameter count; the CPU
+# tests hold the port's count equal to it (tests/test_torch_resnet.py)
+RESNET50_PARAMS = 25_557_032
+
+
+def sft_pairs(n: int, seed: int) -> list:
+    """``n`` prompt/completion pairs from ``seed``: printable prompts of
+    200-1500 bytes, each completion a fixed function of its prompt (the
+    prompt reversed with its letters' case swapped, cut to 64 + len %
+    449 bytes: 64-512 bytes where the prompt is that long)."""
+    import numpy as np
+
+    chars = np.frombuffer(b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTU"
+                          b"VWXYZ0123456789 .,", np.uint8)
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        p = rng.choice(chars, int(rng.integers(200, 1501))).tobytes()
+        p = p.decode()
+        rows.append({"prompt": p,
+                     "completion": p[::-1].swapcase()[:64 + len(p) % 449]})
+    return rows
+
+
+def jax_lora_count(cfg, rank: int, targets) -> int:
+    """The adapter count by the JAX package's rule
+    (``tony_tpu/train/lora.py:48-52``): A ``[shape[0], r]`` and B
+    ``[r, *shape[1:]]`` of each targeted kernel, in the JAX layout."""
+    d, h, kvh, dh, f = (cfg.d_model, cfg.n_heads, cfg.kv_heads,
+                        cfg.head_dim, cfg.d_ff)
+    shapes = {"q": (d, h, dh), "k": (d, kvh, dh), "v": (d, kvh, dh),
+              "o": (h, dh, d), "wg": (d, f), "wi": (d, f), "wo": (f, d)}
+    per = 0
+    for name in targets:
+        s = shapes[name]
+        rest = 1
+        for x in s[1:]:
+            rest *= x
+        per += s[0] * rank + rank * rest
+    return per * cfg.n_layers
+
+
+def fit_run(trainer, data, steps: int, counters) -> dict:
+    """``fit`` for ``steps`` steps with the launch counts set to 0 just
+    before and read just after: losses, launches, the step's graph
+    calls, ms a step (the end of step 2 to the end of the last, as phase
+    8 times it), wall and peak memory."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.train import fit
+
+    stamps = []
+
+    def stamp(step, metrics):
+        if not stamps:
+            sync()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    result = fit(trainer, None, data, num_steps=steps, log_every=1,
+                 metric_sinks=[stamp])
+    sync()
+    t_end = time.perf_counter()
+    losses = [h["loss"] for h in result.history if "loss" in h]
+    check(result.steps_run == steps and len(stamps) == steps,
+          f"fit ran {result.steps_run} steps, {len(stamps)} stamps")
+    check(all(np.isfinite(losses)), f"losses not finite: {losses}")
+    g = trainer.graphs
+    return {"result": result, "losses": losses,
+            "launches": [c.launches for c in counters],
+            "calls": [g.calls["train_step", w]
+                      for w in ("captures", "replays", "eager")],
+            "step_ms": (t_end - stamps[0]) / (steps - 2) * 1e3,
+            "wall": t_end - t0,
+            "peak": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_finetune(ctx) -> None:
+    """19: LoRA SFT of Qwen2.5-1.5B (19a), the ``sft_lora`` payload as a
+    job (19b), ResNet-50 on synthetic images (19c)."""
+    import torch
+
+    from tony_tpu_torch.ops import adamw, attention
+
+    counters = (attention.flash_attention_fwd,
+                attention.flash_attention_bwd_dq,
+                attention.flash_attention_bwd_dkv, adamw.fused_adamw_update)
+    ctx["finetune"] = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_sft_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        lora_sft(ctx, counters, root)
+        torch.cuda.empty_cache()
+        sft_job(ctx, os.path.join(root, "job"))
+        resnet_train(ctx, counters)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def lora_sft(ctx, counters, root: str) -> None:
+    """19a: rank-8 adapters on q, v, o, wi, wo of Qwen2.5-1.5B at full
+    width and depth (a bf16 base, random from the seed) trained on
+    instruction pairs, the step captured as phase 8's."""
+    import torch
+
+    import tony_tpu_torch.models.transformer as tmod
+    from tony_tpu_torch.data import (ByteTokenizer, DataLoader,
+                                     InstructionSource, JsonlSource,
+                                     device_prefetch)
+    from tony_tpu_torch.examples import lm_pretrain
+    from tony_tpu_torch.models import Transformer, generate
+    from tony_tpu_torch.ops import decode
+    from tony_tpu_torch.ops.xent import chunked_cross_entropy
+    from tony_tpu_torch.train import (FusedAdamW, Trainer, lora_init,
+                                      lora_param_count, materialize_lora,
+                                      wrap_apply_fn)
+
+    cdt = torch.bfloat16
+    cfg = lm_pretrain.train_config(QWEN25_15B, SERVE_MAX_LEN, dtype=cdt)
+    base = Transformer(cfg, device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    # the base as it was, on the host (a copy on the card would count in
+    # the peak memory the phase reports)
+    kept = {n: t.to("cpu", copy=True) for n, t in base.state_dict().items()}
+    rows = sft_pairs(LORA_PAIRS, SEED)
+    path = os.path.join(root, "pairs.jsonl")
+    with open(path, "w") as f:
+        f.write("\n".join(json.dumps(r) for r in rows) + "\n")
+    tok = ByteTokenizer()
+    src = InstructionSource(JsonlSource(path), tok, seq_len=TRAIN_SEQ,
+                            eos_id=tok.eos_id)
+    gb = TRAIN_MICRO * TRAIN_ACCUM
+    host = DataLoader(src, gb, seed=SEED, device="cpu")
+
+    def base_apply(m, batch):
+        hidden = m(batch["tokens"], return_hidden=True)
+        return chunked_cross_entropy(
+            hidden[:, :-1], m.embedding, batch["tokens"][:, 1:],
+            chunk_size=lm_pretrain.XENT_CHUNK,
+            mask=batch["loss_mask"][:, 1:], compute_dtype=cdt)
+
+    lora = lora_init(torch.Generator(device=DEVICE).manual_seed(SEED + 1),
+                     base, rank=LORA_RANK, targets=LORA_TARGETS)
+    n_lora = lora_param_count(lora)
+    want = jax_lora_count(cfg, LORA_RANK, LORA_TARGETS)
+    check(n_lora == want, f"19a: {n_lora} adapter params, the JAX rule "
+          f"gives {want}")
+    apply_fn = wrap_apply_fn(base_apply, base, alpha=LORA_ALPHA,
+                             compute_dtype=cdt)
+    trainer = Trainer(lora, apply_fn, FusedAdamW(LORA_LR, weight_decay=0.0),
+                      accum_steps=TRAIN_ACCUM)
+    run = fit_run(trainer, device_prefetch(host, DEVICE), LORA_STEPS,
+                  counters)
+    losses = run["losses"]
+    check(sum(losses[-2:]) < sum(losses[:2]),
+          f"19a: the last two steps' loss is not below the first two's: "
+          f"{losses}")
+    per_step = [cfg.n_layers * TRAIN_ACCUM] * 3 + [1]
+    check(run["launches"] == [n * LORA_STEPS for n in per_step],
+          f"19a: launches fwd/dq/dkv/adamw {run['launches']}, expected "
+          f"{per_step} a step over {LORA_STEPS} steps")
+    check(run["calls"] == [1, LORA_STEPS - 1, 0],
+          f"19a: train_step captures/replays/eager {run['calls']}")
+    opt = run["result"].state.opt_state
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for t in [*opt.mu.values(), *opt.nu.values()])
+    masked = sum(int(src[i]["loss_mask"].sum()) for i in range(len(src)))
+    # the fit's own batches (the loader's order from step 0): the prompt
+    # and completion tokens a step, the rest of the 2048 positions pad
+    it = host.from_step(0)
+    real, completion = 0, 0
+    for _ in range(LORA_STEPS):
+        m = next(it)["loss_mask"]
+        # a row's tokens end at its last completion position
+        last = m.shape[1] - m.flip(1).argmax(1)
+        real += int(last.sum())
+        completion += int(m.sum())
+    it.close()
+    real, completion = real / LORA_STEPS, completion / LORA_STEPS
+    positions = gb * TRAIN_SEQ
+    fit8 = ctx["fit"]
+    n_base = sum(t.numel() for t in base.parameters())
+    print(f"phase 19a LoRA SFT of Qwen2.5-1.5B ({cfg.n_layers} layers, bf16 "
+          f"base of {n_base} params frozen, random from seed {SEED}): rank "
+          f"{LORA_RANK}, alpha {LORA_ALPHA}, targets {','.join(LORA_TARGETS)}"
+          f": {n_lora} adapter params (the JAX rule's count {want}); "
+          f"InstructionSource over {LORA_PAIRS} pairs at seq_len "
+          f"{TRAIN_SEQ} ({masked} completion tokens in {len(src)} "
+          f"examples), DataLoader -> device_prefetch, {TRAIN_MICRO} x "
+          f"{TRAIN_ACCUM} a step, FusedAdamW({LORA_LR}, weight_decay=0), "
+          f"{LORA_STEPS} steps captured: losses "
+          f"{[round(x, 4) for x in losses]}; {run['step_ms']:.1f} ms/step, "
+          f"{positions / run['step_ms'] * 1e3:.0f} positions/s, of them "
+          f"{real / run['step_ms'] * 1e3:.0f} prompt and completion "
+          f"tokens/s ({real:.0f} of {positions} positions a step, the rest "
+          f"padding) and {completion / run['step_ms'] * 1e3:.0f} completion "
+          f"tokens/s ({completion:.0f} a step), peak memory "
+          f"{run['peak']:.2f} GiB (phase 8 full training on packed "
+          f"sequences: {fit8['step_ms']:.1f} ms/step, {fit8['tok_s']:.0f} "
+          f"positions/s, every one a token, "
+          f"{fit8['peak_gib']:.2f} GiB); optimizer state (mu, nu) "
+          f"{opt_bytes} B; launches fwd/dq/dkv/adamw {run['launches']} "
+          f"({per_step} a step), train_step captures/replays/eager "
+          f"{run['calls']} [{ctx['card']}]")
+    it = host.from_step(0)
+    batches = [{k: v.to(DEVICE) for k, v in next(it).items()}
+               for _ in range(3)]
+    it.close()
+    state, gate = train_replay_gate(ctx, trainer, run["result"].state,
+                                    batches, counters, per_step,
+                                    tag="phase 19a")
+    for how, step_s in gate["step_s"].items():
+        print(f"phase 19a {how} step on one saved state: "
+              f"{step_s * 1e3:.1f} ms/step, host share "
+              f"{gate['probe'][how]['host']} (device busy "
+              f"{gate['probe'][how]['busy_ms']:.1f} ms a step), peak "
+              f"memory {gate['peak'][how]:.2f} GiB [{ctx['card']}]")
+    differ = [n for n, t in base.state_dict().items()
+              if not torch.equal(t.cpu(), kept[n])]
+    check(not differ, f"19a: base tensors changed by training: {differ[:4]}")
+    n_kept = len(kept)
+    del kept
+    served = Transformer(cfg, device=DEVICE)
+    served.load_state_dict(materialize_lora(base, state.params,
+                                            alpha=LORA_ALPHA))
+    x = batches[0]["tokens"][:1]
+    with torch.no_grad():
+        want_logits = apply_fn.view(x)
+        got = served(x)
+    err = (got - want_logits).abs().max().item()
+    lim = 2.0 ** -7 * want_logits.abs().max().item()
+    check(err <= lim, f"19a: the materialized model's logits differ from "
+          f"the LoRA forward's by {err:.4g} > {lim:.4g}")
+    del want_logits, got
+    prompt = torch.tensor([tok.encode(rows[0]["prompt"])], device=DEVICE)
+    # the first decode step runs eagerly before its capture: keep its
+    # first flash-decode call's inputs (B=1) for the kernel's check
+    call = {}
+    real_fd = tmod.flash_decode
+
+    def keep(q, k, v, length, **kw):
+        if not call and not torch.cuda.is_current_stream_capturing():
+            call.update(args=(q.clone(), k.clone(), v.clone(),
+                              torch.as_tensor(length).clone()), kw=dict(kw))
+        return real_fd(q, k, v, length, **kw)
+
+    decode.flash_decode.launches = 0
+    tmod.flash_decode = keep
+    try:
+        out = generate(served, prompt, max_new_tokens=16)
+    finally:
+        tmod.flash_decode = real_fd
+    c = served.graphs.counters(("generate",))
+    n_fd = decode.flash_decode.launches
+    check(out.shape == (1, 16) and c["generate_captures"] == 1
+          and c["generate_replays"] == 14 and n_fd == cfg.n_layers * 15,
+          f"19a: generate gave {tuple(out.shape)}, {c}, flash-decode "
+          f"launches {n_fd} (expected 1 capture, 14 replays, "
+          f"{cfg.n_layers} x 15)")
+    check(bool(call), "19a: generate's eager decode step made no "
+          "flash-decode call")
+    q, k, v, length = call["args"]
+    m = measure_decode(q, k, v, length.to(DEVICE),
+                       call["kw"].get("window", 0), None, None, ctx["flush"])
+    print(f"phase 19a flash_decode at generate's call (B={q.shape[0]} "
+          f"H={q.shape[1]} KVH={k.shape[2]} D={q.shape[2]} S={k.shape[1]} "
+          f"length {length.tolist()}, {k.dtype}; {m['route']}, "
+          f"{m['nsplit']} split(s)): max abs err {m['max_abs_err']:.3g} "
+          f"(worst excess {m['excess']:.3g} over {m['rtol']:.3g}*|want|, "
+          f"limit {m['atol']:.3g}); kernel {m['ms'] * 1e3:.1f} us, plain "
+          f"{m['plain_ms'] * 1e3:.1f} us, sdpa {m['library_ms'] * 1e3:.1f} "
+          f"us, bound {m['bound_ms'] * 1e3:.2f} us [{ctx['card']}]")
+    del call, q, k, v, length
+    print(f"phase 19a gates: the last two losses below the first two; the "
+          f"{n_kept} base tensors bit-equal before and "
+          f"after; the materialized model's logits within {err:.4g} of the "
+          f"LoRA forward's (limit 2^-7 max|logit| = {lim:.4g}); greedy "
+          f"generate of 16 tokens from it: 1 capture, 14 replays, "
+          f"flash-decode {n_fd} launches, tokens "
+          f"{out[0].tolist()} [{ctx['card']}]")
+    shapes = {n: tuple(p.shape) for n, p in lora.named_parameters()}
+    ctx["finetune"].update(lora_launches=run["launches"], lora=run,
+                           lora_gate=gate["step_s"], decode_launches=n_fd)
+    del served, trainer, lora, state, gate, run, base, apply_fn, batches
+    torch.cuda.empty_cache()
+    w = measure_adamw(ctx["flush"], shapes, torch.float32, with_copy=False,
+                      weight_decay=0.0)
+    ctx["finetune"]["lora_adamw"] = w
+    print_adamw(ctx, "phase 19a fused AdamW over the adapters' leaf set", w)
+
+
+def print_adamw(ctx, what: str, w: dict) -> None:
+    print(f"{what} ({w['n']} params, fp32 grads, master and moments, no "
+          f"copy): max abs err {w['max_abs_err']:.3g}, bit-equal to the "
+          f"plain version {w['bit_equal']}; kernel {w['ms']:.3f} ms, plain "
+          f"{w['plain_ms']:.3f} ms, torch AdamW(fused) "
+          f"{w['library_ms']:.3f} ms, bound {w['bound'][0]:.3f} ms "
+          f"({w['bound'][1]}) [{ctx['card']}]")
+    print_rounds(w)
+
+
+def sft_job(ctx, root: str) -> None:
+    """19b: ``examples/sft_lora.py`` as a job: one worker, one GPU, the
+    Qwen2.5-1.5B width at 2 layers, the reference example's toy pairs."""
+    os.makedirs(root)
+    result = os.path.join(root, "result.json")
+    task = ["--layers", str(SFT_JOB_LAYERS), "--steps", str(SFT_JOB_STEPS),
+            "--seed", str(SEED), "--result", result]
+    job = run_job(ctx, "19b", root, task, payload="sft_lora.py")
+    check(job["rc"] == 0, f"19b: cli.local exited {job['rc']}: "
+          f"{job['out'][-3000:]}")
+    types = job_events(job, "19b")
+    check(job["history"][0]["status"] == "SUCCEEDED",
+          f"19b: history {job['history'][0]['status']}, events {types}")
+    with open(result) as f:
+        res = json.load(f)
+    check(res["hits"] is not None and res["hits"] >= 3,
+          f"19b: the payload's self-check learned {res['hits']} of 4")
+    n = res["launches"]
+    check(all(v > 0 for v in n.values()), f"19b: launches {n}")
+    ctx["finetune"]["job_launches"] = n
+    watched = watch_gate(job, "19b", res["pid"])
+    from tony_tpu_torch.examples import lm_pretrain
+
+    cfg = lm_pretrain.train_config(
+        {**QWEN25_15B, "num_hidden_layers": SFT_JOB_LAYERS}, 8)
+    want = jax_lora_count(cfg, LORA_RANK, LORA_TARGETS)
+    check(res["adapter_params"] == want,
+          f"19b: {res['adapter_params']} adapter params, the JAX rule "
+          f"gives {want}")
+    print(f"phase 19b the sft_lora payload as a job: cli.local, one "
+          f"worker, tony.worker.chips=1, Qwen2.5-1.5B width at "
+          f"{res['n_layers']} layers, the toy pairs, {res['steps_run']} "
+          f"steps: SUCCEEDED, history {types}; learned {res['hits']}/4; "
+          f"{res['adapter_params']} adapter params; losses "
+          f"{[round(x, 4) for x in res['losses']]}; the payload's "
+          f"launches {json.dumps(n)}; submit to SUCCEEDED "
+          f"{job['wall']:.2f} s (payload start to fit "
+          f"{res['t_fit'] - res['t_start']:.2f} s, fit "
+          f"{res['t_end'] - res['t_fit']:.2f} s); {watched} "
+          f"[{ctx['card']}]")
+
+
+def resnet_train(ctx, counters) -> None:
+    """19c: ResNet-50 on synthetic ImageNet-shaped data through the
+    ``Trainer`` (bf16 compute over fp32 parameters, ``FusedAdamW``,
+    ``train=False`` with the statistics frozen, as the JAX ``Trainer``
+    trains it), the step captured, cuDNN held to deterministic
+    algorithms so that a replay can be held bit-equal to an eager step."""
+    import torch
+    import torch.nn.functional as F
+
+    from tony_tpu_torch.data import (DataLoader, SyntheticImageSource,
+                                     device_prefetch)
+    from tony_tpu_torch.models import ResNet50
+    from tony_tpu_torch.train import FusedAdamW, Trainer
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = ResNet50(num_classes=1000, num_filters=64,
+                         dtype=torch.bfloat16, device=DEVICE).init_weights(
+            torch.Generator(device=DEVICE).manual_seed(SEED))
+        n_params = sum(p.numel() for p in model.parameters())
+        check(n_params == RESNET50_PARAMS, f"19c: {n_params} params, the "
+              f"JAX ResNet-50 has {RESNET50_PARAMS}")
+        src = SyntheticImageSource(4 * RESNET_BATCH, RESNET_SIZE,
+                                   RESNET_SIZE, 3, num_classes=1000,
+                                   seed=SEED)
+        host = DataLoader(src, RESNET_BATCH, seed=SEED, device="cpu")
+        # the host's cost of a batch alone, one thread, no device work
+        draw = host._host_batches()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            next(draw)
+        host_ms = (time.perf_counter() - t0) / 2 * 1e3
+        draw.close()
+
+        def apply_fn(m, batch):
+            logits = m(batch["image"], train=False)
+            return F.cross_entropy(logits, batch["label"].long())
+
+        trainer = Trainer(model, apply_fn, FusedAdamW(1e-3))
+        run = fit_run(trainer, device_prefetch(host, DEVICE),
+                      RESNET_STEPS, counters)
+        check(run["launches"] == [0, 0, 0, RESNET_STEPS],
+              f"19c: launches fwd/dq/dkv/adamw {run['launches']}, expected "
+              f"AdamW once a step")
+        check(run["calls"] == [1, RESNET_STEPS - 1, 0],
+              f"19c: train_step captures/replays/eager {run['calls']}")
+        it = host.from_step(0)
+        batches = [{k: v.to(DEVICE) for k, v in next(it).items()}
+                   for _ in range(3)]
+        it.close()
+        _, gate = train_replay_gate(ctx, trainer, run["result"].state,
+                                    batches, counters, [0, 0, 0, 1],
+                                    tag="phase 19c")
+        replay_ms = gate["step_s"]["replayed"] * 1e3
+        bound = "the host's data" if host_ms > replay_ms else "the card"
+        print(f"phase 19c ResNet-50 ({n_params} params, the JAX model's "
+              f"count), SyntheticImageSource {RESNET_SIZE}x{RESNET_SIZE}x3, "
+              f"batch {RESNET_BATCH}, DataLoader -> device_prefetch, bf16 "
+              f"compute over fp32 params, FusedAdamW, train=False, "
+              f"{RESNET_STEPS} steps captured: losses "
+              f"{[round(x, 4) for x in run['losses']]}; "
+              f"{run['step_ms']:.1f} ms/step through the loader, "
+              f"{RESNET_BATCH / run['step_ms'] * 1e3:.0f} images/s; the "
+              f"host draws a batch ({RESNET_BATCH * 3 * RESNET_SIZE ** 2} "
+              f"normals) in {host_ms:.1f} ms on one thread; a replayed "
+              f"step on device-resident batches {replay_ms:.1f} ms "
+              f"({RESNET_BATCH / replay_ms * 1e3:.0f} images/s), host share "
+              f"{gate['probe']['replayed']['host']}, eager "
+              f"{gate['step_s']['eager'] * 1e3:.1f} ms: {bound} bounds the "
+              f"step (the card idle "
+              f"{max(0.0, 1 - replay_ms / run['step_ms']):.3f} of the fit's "
+              f"steps through the loader); peak memory {run['peak']:.2f} GiB; AdamW launches "
+              f"{run['launches'][3]}, train_step captures/replays/eager "
+              f"{run['calls']} [{ctx['card']}]")
+        shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        ctx["finetune"].update(resnet_launches=run["launches"][3],
+                               resnet={"step_ms": run["step_ms"],
+                                       "replay_ms": replay_ms,
+                                       "host_ms": host_ms})
+        batch = batches[0]
+        del trainer, model, run, gate, batches
+        torch.cuda.empty_cache()
+        resnet_plain_check(ctx, batch)
+        del batch
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    w = measure_adamw(ctx["flush"], shapes, torch.float32, with_copy=False)
+    ctx["finetune"]["resnet_adamw"] = w
+    print_adamw(ctx, "phase 19c fused AdamW over ResNet-50's leaf set", w)
+
+
+def resnet_plain_logits(p: dict, x):
+    """ResNet-50's ``train=False`` forward written plainly from its
+    state_dict ``p``: fp32, NCHW, contiguous, flax's ``"SAME"`` padding
+    worked out here (the odd pixel last), the max pool padded with
+    -inf, the norms by their running statistics."""
+    import torch
+    import torch.nn.functional as F
+
+    def same(n: int, k: int, s: int) -> tuple[int, int]:
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        return total // 2, total - total // 2
+
+    def conv(x, name: str, stride: int, pad: int | None = None):
+        w = p[f"{name}.weight"]
+        if pad is None:
+            (t, b), (lt, r) = (same(n, w.shape[-1], stride)
+                               for n in x.shape[2:])
+        else:
+            t = b = lt = r = pad
+        return F.conv2d(F.pad(x, (lt, r, t, b)), w, stride=stride)
+
+    def norm(x, name: str):
+        mul = torch.rsqrt(p[f"{name}.var"] + 1e-5) * p[f"{name}.scale"]
+        return (x - p[f"{name}.mean"][:, None, None]) * mul[:, None, None] \
+            + p[f"{name}.bias"][:, None, None]
+
+    x = x.float().permute(0, 3, 1, 2).contiguous()
+    x = F.relu(norm(conv(x, "conv_init", 2, 3), "bn_init"))
+    (t, b), (lt, r) = (same(n, 3, 2) for n in x.shape[2:])
+    x = F.max_pool2d(F.pad(x, (lt, r, t, b), value=-float("inf")), 3, 2)
+    i = 0
+    for stage, size in enumerate(RESNET50_STAGES):
+        for j in range(size):
+            pre = f"blocks.{i}"
+            stride = 2 if stage > 0 and j == 0 else 1
+            y = F.relu(norm(conv(x, f"{pre}.convs.0", 1), f"{pre}.norms.0"))
+            y = F.relu(norm(conv(y, f"{pre}.convs.1", stride),
+                            f"{pre}.norms.1"))
+            y = norm(conv(y, f"{pre}.convs.2", 1), f"{pre}.norms.2")
+            if f"{pre}.conv_proj.weight" in p:
+                x = norm(conv(x, f"{pre}.conv_proj", stride),
+                         f"{pre}.norm_proj")
+            x = F.relu(x + y)
+            i += 1
+    return F.linear(x.mean(dim=(2, 3)), p["head.weight"], p["head.bias"])
+
+
+def resnet_plain_check(ctx, batch) -> None:
+    """19c's ResNet-50 on one of its batches against
+    ``resnet_plain_logits``, run in fp32 (the module's structure, held
+    close) and in bf16 as 19c trains it (channels-last, cuDNN; held to
+    bf16's precision): the logits, and the gradient of the
+    cross-entropy over all parameters as one vector. The norms' scales,
+    biases and statistics are drawn from the seed first (scale 1 + 0.2
+    N, bias and mean 0.1 N, var 1 + 0.3 |N|, as the CPU tests draw
+    them), so no block's branch is zero, as each is at init."""
+    import torch
+    import torch.nn.functional as F
+
+    from tony_tpu_torch.models import ResNet50
+    from tony_tpu_torch.models.resnet import BatchNorm
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    model = ResNet50(num_classes=1000, num_filters=64, dtype=torch.float32,
+                     device=DEVICE).init_weights(gen)
+
+    def draw(t):
+        return torch.randn(t.shape, device=DEVICE, generator=gen)
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.scale.copy_(1 + 0.2 * draw(m.scale))
+                m.bias.copy_(0.1 * draw(m.bias))
+                m.mean.copy_(0.1 * draw(m.mean))
+                m.var.copy_(1 + 0.3 * draw(m.var).abs())
+    x, label = batch["image"], batch["label"].long()
+    p = {n: t.detach().clone().requires_grad_()
+         for n, t in model.named_parameters()}
+    p.update({n: t.detach().clone() for n, t in model.named_buffers()})
+    names = [n for n, _ in model.named_parameters()]
+
+    def run(forward, params):
+        logits = forward(x)
+        F.cross_entropy(logits, label).backward()
+        sync()
+        check(bool(torch.isfinite(logits).all()),
+              "19c check: logits not finite")
+        return logits.detach(), torch.cat([params[n].grad.flatten()
+                                           for n in names])
+
+    want, want_g = run(lambda x: resnet_plain_logits(p, x), p)
+    del p
+    top, g_norm = want.abs().max().item(), want_g.norm().item()
+    out = {}
+    for dt, tol, gtol in ((torch.float32, RESNET32_LOGIT_TOL,
+                           RESNET32_GRAD_TOL),
+                          (torch.bfloat16, RESNET_LOGIT_TOL,
+                           RESNET_GRAD_TOL)):
+        if dt != torch.float32:
+            m = ResNet50(num_classes=1000, num_filters=64, dtype=dt,
+                         device=DEVICE)
+            m.load_state_dict(model.state_dict())
+            model = m
+        got, got_g = run(lambda x: model(x, train=False),
+                         dict(model.named_parameters()))
+        err = (got - want).abs().max().item() / top
+        g_err = (got_g - want_g).norm().item() / g_norm
+        name = str(dt).split(".")[-1]
+        check(err <= tol, f"19c: the {name} model's logits differ from "
+              f"the plain fp32 forward's by {err:.4g} of max|logit| > "
+              f"{tol:.4g}")
+        check(g_err <= gtol, f"19c: the {name} model's gradient differs "
+              f"from the plain one's by {g_err:.4g} of its norm > "
+              f"{gtol:.4g}")
+        out[name] = (err, g_err)
+    print(f"phase 19c check on one batch ({x.shape[0]} x {RESNET_SIZE}x"
+          f"{RESNET_SIZE}x3), the norms drawn from the seed, against a "
+          f"plain fp32 NCHW forward (max|logit| {top:.4g}): "
+          + "; ".join(f"the {n} channels-last model's logits within "
+                      f"{e:.4g} of max|logit|, its gradient within {g:.4g} "
+                      f"of the plain one's in L2 norm"
+                      for n, (e, g) in out.items())
+          + f" (limits: fp32 {RESNET32_LOGIT_TOL:.3g} and "
+          f"{RESNET32_GRAD_TOL:.3g}, bf16 {RESNET_LOGIT_TOL:.3g} and "
+          f"{RESNET_GRAD_TOL:.3g}) [{ctx['card']}]")
+
+
+def finetune_kernel_lines(ctx) -> list[dict]:
+    """Fused AdamW at the leaf sets phase 19 gives it, the adapters'
+    (19a, and 19b's at two layers) and ResNet-50's (19c); the attention
+    kernels' and flash-decode's phase 19 launches are on their own
+    lines."""
+    f = ctx["finetune"]
+    lines = []
+    for tag, w, by in (
+            ("19a LoRA adapters", f["lora_adamw"],
+             {"19a": f["lora_launches"][3],
+              "19b": f["job_launches"]["fused_adamw"]}),
+            ("19c ResNet-50", f["resnet_adamw"],
+             {"19c": f["resnet_launches"]})):
+        lines.append({
+            "name": f"fused_adamw ({tag})", "route": "cuda",
+            "source": "tony_tpu_torch/csrc/adamw.cu",
+            "replaces": "tony_tpu/ops/adamw.py:74",
+            "launches": next(iter(by.values())), "launches_by_phase": by,
+            "max_abs_err": w["max_abs_err"], "ms": w["ms"],
+            "plain_ms": w["plain_ms"], "bound_ms": w["bound"][0],
+            "bound_by": w["bound"][1], "library_ms": w["library_ms"]})
+    return lines
+
+
 def mistral_kernel_line(ctx) -> dict:
     m = ctx["mistral_call"]
     return {"name": "flash_decode (Mistral-7B-v0.1, window 4096)",
@@ -5469,7 +6196,8 @@ def main() -> int:
                         ("gateway", phase_gateway),
                         ("gateway-cli", phase_gateway_cli),
                         ("sampled", phase_sampled),
-                        ("fabric", phase_fabric), ("job", phase_job)):
+                        ("fabric", phase_fabric), ("job", phase_job),
+                        ("finetune", phase_finetune)):
         t0 = time.perf_counter()
         try:
             phase(ctx)
@@ -5480,7 +6208,8 @@ def main() -> int:
         print(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
     try:
         kernels = [kernel_line(ctx), mistral_kernel_line(ctx)] \
-            + train_kernel_lines(ctx) + int8_kernel_lines(ctx)
+            + train_kernel_lines(ctx) + int8_kernel_lines(ctx) \
+            + finetune_kernel_lines(ctx)
     except Exception:  # noqa: BLE001
         traceback.print_exc()
         return 1

@@ -25,7 +25,9 @@ from tony_tpu_torch.cli import gateway as torch_gateway_cli
 from tony_tpu_torch.cli import generate as torch_cli
 from tony_tpu_torch.cli import replica as torch_replica_cli
 from tony_tpu_torch.cli import score as torch_score
+from tony_tpu_torch.examples import sft_lora
 from tony_tpu_torch.models.generate import generate
+from tony_tpu_torch.models.resnet import ResNet50
 from tony_tpu_torch.models.transformer import Transformer, TransformerConfig
 from tony_tpu_torch.models.quantize import quantize_for_serving
 from tony_tpu_torch.ops import add_rmsnorm, q8_matmul, rmsnorm
@@ -176,6 +178,10 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
             torch_gateway_cli.main([*argv, "--replicas", "2", "--port", "0"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             torch_replica_cli.main([*argv, "--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ResNet50(num_classes=10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sft_lora.main(["--steps", "1"])
 
 
 class _Built(Exception):

@@ -1,5 +1,6 @@
 """Prefetched data loading: host numpy -> batches of torch tensors on the
-device. The counterpart of ``tony_tpu/data/loader.py``.
+device. The counterpart of ``tony_tpu/data/loader.py``, with
+``device_prefetch`` for any iterator of host batches.
 
 The same contract as the JAX loader: every process sees the same seeded
 (seed, epoch) permutation and takes a disjoint stride of it;
@@ -190,3 +191,70 @@ def _prefetch_iter(it: Iterator, size: int) -> Iterator:
                 q.get_nowait()
             except queue.Empty:
                 break
+
+
+def _tree_map(fn, batch):
+    """``fn`` over the leaves of a batch of dicts, lists and tuples."""
+    if isinstance(batch, Mapping):
+        return {k: _tree_map(fn, v) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(_tree_map(fn, v) for v in batch)
+    return fn(batch)
+
+
+def device_prefetch(iterator: Iterator, device=None, size: int = 2):
+    """Wrap any iterator of host batches (numpy arrays or CPU tensors, in
+    dicts, lists or tuples): each batch is copied to ``device`` (None =
+    cuda, which must exist) up to ``size`` batches ahead, so the next
+    batch's copy overlaps the current step. The counterpart of the JAX
+    ``device_put`` wrapper (``tony_tpu/data/loader.py:201``).
+
+    On the card a daemon thread stages each host leaf in page-locked
+    memory and copies it with ``non_blocking`` on a stream of its own;
+    the consumer's current stream waits on that batch's copy (an event
+    recorded after it) before the batch is handed out, and each tensor
+    is recorded on the consumer's stream, so the allocator does not
+    reuse its memory while the consumer's work is queued. The thread
+    stages under a shared hold of ``models.graphs.DEVICE``, so it never
+    allocates or copies while a step's first call or capture holds the
+    card exclusively. Leaves already on the device pass through as they
+    are."""
+    device = resolve_device(device)
+
+    def leaf(v):
+        return v if torch.is_tensor(v) else torch.from_numpy(
+            np.ascontiguousarray(v))
+
+    if device.type != "cuda":
+        return _prefetch_iter((_tree_map(lambda v: leaf(v).to(device), b)
+                               for b in iterator), size)
+    from tony_tpu_torch.models.graphs import DEVICE
+
+    copies = torch.cuda.Stream(device)
+
+    def put(batch):
+        def move(v):
+            t = leaf(v)
+            if t.device == device:
+                return t
+            # an asynchronous copy needs page-locked memory
+            return t.pin_memory().to(device, non_blocking=True)
+
+        with DEVICE.shared(), torch.cuda.stream(copies):
+            out = _tree_map(move, batch)
+            done = torch.cuda.Event()
+            done.record(copies)
+        return out, done
+
+    def handed_out():
+        staged = _prefetch_iter((put(b) for b in iterator), size)
+        try:
+            for out, done in staged:
+                consumer = torch.cuda.current_stream(device)
+                consumer.wait_event(done)
+                _tree_map(lambda t: t.record_stream(consumer), out)
+                yield out
+        finally:
+            staged.close()
+
+    return handed_out()

@@ -16,6 +16,13 @@ fills, raises.
 so both packages can continue from the same non-zero state. Elementwise
 optimizer leaves map exactly as their params do (a transpose is a
 permutation of elements).
+
+``from_jax_lora`` carries a ``tony_tpu.train.lora_init`` adapter tree
+across as it is (the port keeps the reference's adapter shapes, see
+``train.lora``), keyed as ``train.lora.LoraAdapters``' parameters;
+``from_jax_resnet`` maps a ``tony_tpu.models.resnet`` model's ``params``
+and ``batch_stats`` onto the port's ``ResNet.state_dict()``: HWIO
+kernels become OIHW, the dense head ``[out, in]``.
 """
 
 from __future__ import annotations
@@ -138,3 +145,59 @@ def from_jax_train_state(state_np: Any, cfg):
                                dtype=torch.int32),
             mu=tree(opt.mu), nu=tree(opt.nu),
             compute_params=tree(opt.compute_params)))
+
+
+def from_jax_lora(lora_np: Any, cfg) -> dict[str, torch.Tensor]:
+    """A JAX adapter tree (``{"params": {"block_0": {"attn": {"q":
+    {"kernel": {"a", "b"}}}}}}``, numpy leaves) -> fp32 CPU tensors keyed
+    as the port's ``LoraAdapters`` parameters
+    (``params.block_0.attn.q.kernel.a``), each shape checked against
+    ``cfg``'s kernels."""
+    from tony_tpu_torch.train.lora import _ab_shapes, kernel_shapes
+
+    shapes = kernel_shapes(cfg)
+    out: dict[str, torch.Tensor] = {}
+    for path, x in _flatten(lora_np).items():
+        kernel, leaf = path.rsplit("/", 1)
+        if kernel not in shapes or leaf not in ("a", "b"):
+            raise ValueError(f"unmapped adapter leaf {path!r}")
+        rank = x.shape[0] if leaf == "b" else x.shape[-1]
+        want = _ab_shapes(shapes[kernel], rank)[leaf == "b"]
+        if tuple(x.shape) != want:
+            raise ValueError(f"{path}: shape {tuple(x.shape)}, config "
+                             f"wants {want}")
+        out[path.replace("/", ".")] = torch.from_numpy(
+            np.array(x, dtype=np.float32))
+    return out
+
+
+def _map_resnet_leaf(path: str, x: np.ndarray) -> tuple[str, np.ndarray]:
+    parts = path.split("/")
+    if parts[0] == "Dense_0":
+        return ("head.weight", x.T) if parts[1] == "kernel" \
+            else ("head.bias", x)
+    *mods, leaf = parts
+    names = []
+    for m in mods:
+        kind, _, idx = m.rpartition("_")
+        if kind.endswith("Block"):  # ResNetBlock_i, BottleneckResNetBlock_i
+            names += ["blocks", idx]
+        elif kind in ("Conv", "BatchNorm"):
+            names += ["convs" if kind == "Conv" else "norms", idx]
+        else:  # conv_init, bn_init, conv_proj, norm_proj
+            names.append(m)
+    if leaf == "kernel":  # HWIO -> OIHW
+        return ".".join(names + ["weight"]), x.transpose(3, 2, 0, 1)
+    return ".".join(names + [leaf]), x
+
+
+def from_jax_resnet(variables_np: Any) -> dict[str, torch.Tensor]:
+    """A JAX ResNet's variables (``{"params", "batch_stats"}``, numpy
+    leaves) -> the port's ``ResNet.state_dict()`` as fp32 CPU tensors
+    (``load_state_dict`` checks every key and shape)."""
+    out: dict[str, torch.Tensor] = {}
+    for coll in ("params", "batch_stats"):
+        for path, x in _flatten(variables_np[coll]).items():
+            key, arr = _map_resnet_leaf(path, x)
+            out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    return out

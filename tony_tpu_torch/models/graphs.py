@@ -216,9 +216,20 @@ class CudaGraphs:
         graph = torch.cuda.CUDAGraph()
         parts = dict.fromkeys(CAPTURE_PARTS, 0.0)
         t0 = time.perf_counter()
-        with _timed_entry(parts):
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-                out = fn(*statics)
+        # no automatic collection while recording: one, in any thread,
+        # can free an earlier key's graph that cyclic garbage still holds,
+        # and destroying a graph invalidates the capture in progress (this
+        # PyTorch runs no gc.collect() before a capture)
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with _timed_entry(parts):
+                with torch.cuda.graph(graph, pool=self.pool,
+                                      stream=self.stream):
+                    out = fn(*statics)
+        finally:
+            if enabled:
+                gc.enable()
         parts["record"] = time.perf_counter() - t0 - parts["sync"] \
             - parts["gc"] - parts["empty_cache"]
         self.last_parts = parts

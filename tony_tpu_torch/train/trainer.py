@@ -228,7 +228,10 @@ class Trainer:
             loss = self._loss(b)
             got = torch.autograd.grad(loss, [p for _, p in named],
                                       allow_unused=True)
-            return loss.detach(), [torch.zeros_like(p) if g is None else g
+            # contiguous: a convolution's weight gradient can come back
+            # channels-last, and fused AdamW reads every leaf flat
+            return loss.detach(), [torch.zeros_like(p) if g is None
+                                   else g.contiguous()
                                    for (_, p), g in zip(named, got)]
 
         if accum == 1:
