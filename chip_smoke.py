@@ -161,12 +161,15 @@ exits non-zero.
       checkpoint ``--no-paged-kv`` equal to paged in fp32, one-shot
       ``--num-beams 4`` and ``--repetition-penalty 1.3``.
 15. The gateway (``tony_tpu_torch.gateway``), in process:
-   a. two replicas of phase 4's serving configuration (the same seeded
-      bf16 weights, shared) behind ``GatewayEdge`` on ``127.0.0.1:0``,
-      started cold, so that both replicas capture their first graphs in
-      the same run; phase 4's 24 requests sent at once by 24 HTTP
-      clients, every second one streamed as NDJSON: every response 200,
-      each stream equal to phase 4's or parting at a near tie,
+   a. two replicas of phase 4's serving configuration cut to
+      ``GATEWAY_LAYERS`` (14) of its 28 layers (the smoke's clock; the
+      same seeded bf16 weights, shared) behind ``GatewayEdge`` on
+      ``127.0.0.1:0``, started cold, so that both replicas capture
+      their first graphs in the same run; phase 4's 24 requests sent at
+      once by 24 HTTP clients, every second one streamed as NDJSON:
+      every response 200, each stream equal to one ``Server``'s of the
+      same model (phase 4's configuration at that depth, run first) or
+      parting at a near tie,
       flash-decode launched n_layers times a micro-step of both
       replicas, replays included; ``/stats`` with each replica's goodput
       ledger (every kind's HBM-BW% within 0-100) and ``/metrics`` with
@@ -198,7 +201,8 @@ exits non-zero.
       8, 512-token prompts, 128 tokens, replayed and eager from one
       generator state: tokens bit-equal; tok/s beside phase 11's greedy.
 
-17. Remote replicas and the KV fabric: phase 4's model written to a
+17. Remote replicas and the KV fabric: 15a's model (phase 4's at
+   ``GATEWAY_LAYERS`` of its 28 layers, the smoke's clock) written to a
    checkpoint directory (``max_position_embeddings`` 4096, the end-of-text
    ids) and read back by ``python -m tony_tpu_torch.cli.replica`` agents
    (bf16, batch 8, pages of 64, a 64 MB prefix store, flash-decode),
@@ -208,7 +212,7 @@ exits non-zero.
       phase 4's 24 requests: tok/s, TTFT p50/p99, each agent's seconds
       capturing, peak memory and flash-decode launches (read from the
       agent, n_layers a single-token micro-step, replays included);
-      streams near-tie equal to phase 4's;
+      streams near-tie equal to 15a's one ``Server`` of the model;
    c. (bf16) a greedy and a sampled stream (512-token prompt, budget
       768) each moved to the other agent by ``Gateway.migrate_session``
       after 64 tokens: freeze-to-resume ms, pages and bytes moved, the
@@ -217,7 +221,7 @@ exits non-zero.
       in parts, with the source agent in this process, idle and busy;
    b. roles prefill=1, decode=1 over the same two agents, phase 4's
       traffic: handoffs, each request's payload bytes and pages on the
-      wire, TTFT, tok/s, streams near-tie equal to phase 4's, no
+      wire, TTFT, tok/s, streams near-tie equal to 15a's ``Server``, no
       flash-decode launch on the prefill agent; in fp32 on
       the 2-layer checkpoint, requests one at a time, the split's streams
       equal one ``Server``'s and a greedy and a sampled stream migrated
@@ -303,11 +307,58 @@ exits non-zero.
       leaf set, its three rounds printed.
    Each training kernel's line carries its launches by phase (8, 19a,
    19c); the flash-decode line carries 19a's.
+20. Mixture of experts at Mixtral-8x7B's published width (hidden 4096,
+   8 SwiGLU experts of 14336, top-2, 32/8 heads, vocabulary 32000;
+   46 702 792 704 parameters, the count checked), random from the seed:
+   a. bf16 at 16 of its 32 layers (93.4 GB of bf16 does not fit the
+      card) through ``Server`` (paged, flash-decode, the dropless
+      experts), 16 greedy requests (prompts 64-1024, budgets 32-128) at
+      batch 8: tok/s, TTFT p50/p99, flash-decode launches, peak memory;
+      one chunk replayed and one eager on one saved state bit-equal,
+      and the replayed chunk's ms a micro-step against its bytes bound
+      (every weight but the embedding); the 16 requests again with
+      every dispatch eager, traced (``RouteTrace``), equal to the
+      replayed run token for token; each stream against the plain full
+      forward (traced too; ``route_compare``): greedy tokens near-tie
+      equal at every position before the first routing difference, the
+      stream equal, parting at a near tie before it or at or after it;
+      the routing differences, the routers' deviations and a control
+      (the plain forward over the tokens padded, a change of shape
+      only) printed, the first layer's router held; then the same 16
+      requests in fp32 at 4 layers (24.3 GB), eagerly, held the same
+      way with every router: logits within the near-tie tolerance
+      wherever no routing difference reaches, each first difference a
+      near tie of the router;
+   b. int8 weights (bf16 activations) at all 32 layers, built on the
+      card a layer at a time (each block drawn at fp32, quantized by
+      ``models.quantize.quantize_module``, loaded), through
+      ``generate`` (batch 8, 512-token prompts, 128 greedy tokens, the
+      step replayed): the expert-batched q8_matmul
+      (``q8_matmul_experts``, one launch for all 8 experts) held to its
+      plain version per element (``ops.quant.error_bound``, a rerun
+      bit-equal) at every FFN product of the path's decode call (T = 8)
+      and a prefill call of one prompt's rows (T = 512), the broadcast
+      x's product timed beside the plain version, ``torch.
+      _weight_int8pack_mm`` over the experts and the bound; tok/s, ms a
+      decode step against its bytes bound, the first 8 tokens equal to
+      eager ``generate``'s, the kernel's launches by route (3 x 32 a
+      forward), peak memory;
+   c. one block at that width, routed (capacity 1.25), flash attention,
+      remat ``attn_saved``, bf16 over fp32 masters, fused AdamW, batch 2
+      x 2048, 4 steps captured whole: losses falling, the aux loss
+      finite, the training kernels launched once a step; phase 8's gate
+      (3 replayed and 3 eager steps from one saved state bit-equal), ms
+      a step and peak memory each way;
+   d. a 2-layer Mixtral at test widths written as two shards and an
+      index: ``cli.generate --serve``, ``cli.generate --int8`` (tokens
+      equal to ``generate`` over the reader's int8 model) and
+      ``cli.score --int8`` (within 5% of fp32).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches (flash-decode's include 16a's
 replays, the training kernels' phase 8's, and phase 17's agents'; the
-two phase 19 AdamW lines 19a's and 19c's), error and times.
+two phase 19 AdamW lines 19a's and 19c's; the expert-batched q8_matmul
+lines 20b's generate by route), error and times.
 
     python3 chip_smoke.py
 """
@@ -841,7 +892,8 @@ def check_run(srv, reqs, run, part: str, base: dict | None = None) -> dict:
     window runs none); and, all requests greedy, every decode chunk,
     verify round, prefill and intermediate prefill chunk the first call
     at its key or a replay, none eager; unpaged, every chunk and verify
-    round so, and every prefill (chunks included) one eager call.
+    round so, and every prefill (chunks included) one eager call (a
+    server with its graphs off runs all of them eagerly: not checked).
     ``base`` = the counters before the run, for a server that served
     before it. Returns the run's counters."""
     c = srv.counters()
@@ -882,6 +934,8 @@ def check_run(srv, reqs, run, part: str, base: dict | None = None) -> dict:
     check(run["launches"] == layers * micro > 0,
           f"{part}: flash_decode launched {run['launches']} times, "
           f"expected {layers} x {micro} single-token micro-steps")
+    if srv.graphs is None:
+        return c
     intermediate = d("prefill_chunk_dispatches") \
         - d("prefill_chunked_requests")
     calls = (("decode", d("dispatches") - d("spec_rounds")),
@@ -1290,7 +1344,7 @@ def kernel_line(ctx) -> dict:
           "point): " + ", ".join(f"{n}: {t * 1e3:.1f} us"
                                  for n, t in by.items())
           + f" (the wrapper takes {m['nsplit']}) [{ctx['card']}]")
-    phases = {"4, 13-17": ctx["launches"]}
+    phases = {"4, 13-17, 20a": ctx["launches"]}
     if "decode_launches" in ctx.get("finetune", {}):
         phases["19a"] = ctx["finetune"]["decode_launches"]
     return {"name": "flash_decode", "route": "cuda",
@@ -2083,7 +2137,7 @@ def train_kernel_lines(ctx) -> list[dict]:
     """The training kernels at phase 6's calls; ``launches`` is phase
     8's, ``launches_by_phase`` adds phase 19's LoRA step (19a) and job
     (19b), which run the attention kernels at other shapes (19b's held
-    in phase 6 as L8-B8)."""
+    in phase 6 as L8-B8), and phase 20's routed MoE block (20c)."""
     a, w = ctx["attention"], ctx["adamw"]
     launches = ctx["train_launches"]
     f = ctx.get("finetune", {})
@@ -2100,6 +2154,8 @@ def train_kernel_lines(ctx) -> list[dict]:
         if "lora_launches" in f:
             by.update({"19a": f["lora_launches"][i],
                        "19b": f["job_launches"][name]})
+        if "moe_train_launches" in ctx:
+            by["20c"] = ctx["moe_train_launches"][i]
         lines.append({
             "name": name, "route": "cuda", "source": src, "replaces": site,
             "launches": launches[i], "launches_by_phase": by,
@@ -2110,7 +2166,9 @@ def train_kernel_lines(ctx) -> list[dict]:
         "name": "fused_adamw", "route": "cuda",
         "source": "tony_tpu_torch/csrc/adamw.cu",
         "replaces": "tony_tpu/ops/adamw.py:74", "launches": launches[3],
-        "launches_by_phase": {"8": launches[3]},
+        "launches_by_phase": {"8": launches[3], **(
+            {"20c": ctx["moe_train_launches"][3]}
+            if "moe_train_launches" in ctx else {})},
         "max_abs_err": w["max_abs_err"], "ms": w["ms"],
         "plain_ms": w["plain_ms"], "bound_ms": w["bound"][0],
         "bound_by": w["bound"][1], "library_ms": w["library_ms"]})
@@ -3822,6 +3880,9 @@ def gateway_pass(url: str, specs: list, tag: str) -> tuple:
     return docs, time.perf_counter() - t0
 
 
+GATEWAY_LAYERS = 14  # 15a's and 17's depth: the smoke's clock (phase 4: 28)
+
+
 def phase_gateway(ctx) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3831,9 +3892,19 @@ def phase_gateway(ctx) -> None:
     from tony_tpu_torch.models.transformer import Transformer
     from tony_tpu_torch.ops.decode import flash_decode
 
-    cfg = qwen_config(dtype=torch.bfloat16)
+    cfg = qwen_config(dtype=torch.bfloat16, n_layers=GATEWAY_LAYERS)
     model = Transformer(cfg, device=DEVICE).init_weights(
         torch.Generator(device=DEVICE).manual_seed(SEED))
+    specs = ctx["serve4"]["specs"]
+    # the streams the gateway's (and phase 17's agents') are held to:
+    # one Server of this model
+    ref = serve_server(model)
+    run = serve_timed(ref, requests(specs))
+    want = run["results"]
+    ctx["serve14"] = {"specs": specs, "results": want, "rate": sum(
+        len(r.tokens) for r in want.values()) / run["wall"]}
+    del ref, run
+    torch.cuda.empty_cache()
     servers = [serve_server(model) for _ in range(2)]
     # each replica's capture windows, to show the cold starts overlap
     spans = {id(s.graphs.backend): [] for s in servers}
@@ -3850,7 +3921,6 @@ def phase_gateway(ctx) -> None:
     gw = Gateway(servers, max_queue=64).start()
     edge = GatewayEdge(gw, host="127.0.0.1", port=0).start()
     url = f"http://127.0.0.1:{edge.port}"
-    specs = ctx["serve4"]["specs"]
     try:
         flash_decode.launches = 0
         t_start = time.perf_counter()
@@ -3869,7 +3939,6 @@ def phase_gateway(ctx) -> None:
         edge.stop()
     check(ok, "15a: the gateway's drain timed out")
     got = {i: Streamed(d, specs[i][0]) for i, d in enumerate(docs)}
-    want = ctx["serve4"]["results"]
     ties = near_ties(model, specs, got, want, "15a")
     warm = {i: Streamed(d, specs[i][0]) for i, d in enumerate(warm_docs)}
     warm_ties = near_ties(model, specs, warm, want, "15a warm pass")
@@ -3911,12 +3980,13 @@ def phase_gateway(ctx) -> None:
         f"{max(0.0, 1.0 - dev_us * 1e-6 / warm_wall):.3f}"
     s4 = ctx["serve4"]
     print(f"phase 15a gateway, 2 replicas x batch 8 of phase 4's "
-          f"configuration behind GatewayEdge, cold, 24 HTTP clients (12 "
-          f"NDJSON streams): {gen} tokens in {wall:.2f} s = "
-          f"{gen / wall:.1f} tok/s (phase 4, one Server: "
-          f"{s4['rate']:.1f}); TTFT p50 {p50:.3f} s, p99 {p99:.3f} s "
-          f"(phase 4: {s4['ttft'][0]:.3f} / {s4['ttft'][1]:.3f} s); "
-          f"{ties_text(ties, len(specs))} [{ctx['card']}]")
+          f"configuration at {cfg.n_layers} layers behind GatewayEdge, "
+          f"cold, 24 HTTP clients (12 NDJSON streams): {gen} tokens in "
+          f"{wall:.2f} s = {gen / wall:.1f} tok/s (phase 4, one Server "
+          f"at 28 layers: {s4['rate']:.1f}); TTFT p50 {p50:.3f} s, p99 "
+          f"{p99:.3f} s (phase 4: {s4['ttft'][0]:.3f} / "
+          f"{s4['ttft'][1]:.3f} s); against one Server at {cfg.n_layers} "
+          f"layers: {ties_text(ties, len(specs))} [{ctx['card']}]")
     print(f"phase 15a captures: replica 0 "
           f"{cs[0]['graph_decode_captures']} chunk + "
           f"{cs[0]['graph_prefill_captures']} prefill keys in "
@@ -3930,7 +4000,7 @@ def phase_gateway(ctx) -> None:
           f"{micro}; requests by replica "
           f"{[c['prefills'] for c in cs]} prefills [{ctx['card']}]")
     print(f"phase 15a warm pass: {warm_gen / warm_wall:.1f} tok/s in "
-          f"{warm_wall:.2f} s, against phase 4: "
+          f"{warm_wall:.2f} s, against one Server: "
           f"{ties_text(warm_ties, len(specs))}; host share of wall {host} (device busy "
           f"{dev_us * 1e-3:.1f} ms in {ops} device ops over a profiled "
           f"warm pass) [{ctx['card']}]")
@@ -3950,7 +4020,7 @@ def phase_gateway_cli(ctx) -> None:
     import numpy as np
     import torch
 
-    from tony_tpu_torch.models.hf import load_llama_dir
+    from tony_tpu_torch.models.hf import load_hf_dir
     from tony_tpu_torch.serve import Request, Server
 
     ckpt = write_checkpoint()
@@ -3961,7 +4031,7 @@ def phase_gateway_cli(ctx) -> None:
                  for n, m in ((40, 12), (300, 20), (5, 1), (900, 8))]
         # the gateway CLI's defaults on the card: flash-decode, batch 4,
         # chunks of 1, a 64 MB prefix store, the config's end-of-text id
-        model, _ = load_llama_dir(ckpt, device=DEVICE,
+        model, _ = load_hf_dir(ckpt, device=DEVICE,
                                   decode_attention="flash")
         srv = Server(model, batch_size=4, chunk_steps=1,
                      eos_id=QWEN25_15B["eos_token_id"],
@@ -4421,7 +4491,7 @@ class Spans:
 
 def export_checkpoint(model, hf: dict) -> str:
     """``model``'s weights as a checkpoint directory under build/ that
-    ``models.hf.load_llama_dir`` reads back to the same model:
+    ``models.hf.load_hf_dir`` reads back to the same model:
     ``config.json`` = ``hf``, ``model.safetensors`` in the Hugging Face
     names, each tensor in its own dtype. The caller removes it."""
     from tony_tpu_torch.models.hf import write_safetensors
@@ -4563,10 +4633,13 @@ def phase_fabric(ctx) -> None:
     # take the card
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = qwen_config(dtype=torch.bfloat16)
+    # 15a's model (GATEWAY_LAYERS of phase 4's 28 layers, the smoke's
+    # clock), held to 15a's one Server of it
+    cfg = qwen_config(dtype=torch.bfloat16, n_layers=GATEWAY_LAYERS)
     model = Transformer(cfg, device=DEVICE).init_weights(
         torch.Generator(device=DEVICE).manual_seed(SEED))
-    hf = dict(QWEN25_15B, max_position_embeddings=SERVE_MAX_LEN,
+    hf = dict(QWEN25_15B, num_hidden_layers=GATEWAY_LAYERS,
+              max_position_embeddings=SERVE_MAX_LEN,
               eos_token_id=list(SERVE_EOS))
     bf16_ckpt = export_checkpoint(model, hf)
     fp32_ckpt = write_checkpoint()
@@ -4579,9 +4652,9 @@ def phase_fabric(ctx) -> None:
             "--chunk-steps", "1", *FABRIC_FLAGS, *dev]] * 2)
     boot_s = time.perf_counter() - t0
     bf16_agents, fp32_agents = agents[:2], agents[2:]
-    s4 = ctx["serve4"]
-    specs = s4["specs"]
-    want = s4["results"]
+    s14 = ctx["serve14"]
+    specs = s14["specs"]
+    want = s14["results"]
     layers = cfg.n_layers
     launched = 0
     try:
@@ -4602,7 +4675,8 @@ def phase_fabric(ctx) -> None:
             print(f"phase 17a two cli.replica agents (bf16, batch 8, "
                   f"flash-decode) behind a Gateway of RemoteServers, cold, "
                   f"phase 4's 24 requests: {gen} tokens in {wall:.2f} s = "
-                  f"{gen / wall:.1f} tok/s (phase 4: {s4['rate']:.1f}); "
+                  f"{gen / wall:.1f} tok/s (one Server of this model: "
+                  f"{s14['rate']:.1f}); "
                   f"TTFT p50 {p50:.3f} s, p99 {p99:.3f} s; "
                   f"{ties_text(ties, len(specs))}; the four agents booted "
                   f"in {boot_s:.1f} s [{ctx['card']}]")
@@ -4689,8 +4763,8 @@ def phase_fabric(ctx) -> None:
                   + ", ".join(f"{i}: {b} B / {n} p"
                               for i, (b, n) in enumerate(wire))
                   + f"; {sum(b for b, _ in wire) / sum(n for _, n in wire):.0f}"
-                  f" B a real page (28 layers x 2 x 2 KV heads x 128 x 2 B"
-                  f" x 64 tokens = {28 * 2 * 2 * 128 * 2 * 64} B) "
+                  f" B a real page ({layers} layers x 2 x 2 KV heads x 128"
+                  f" x 2 B x 64 tokens = {layers * 2 * 2 * 128 * 2 * 64} B) "
                   f"[{ctx['card']}]")
         finally:
             gw.drain(timeout=600)
@@ -4866,7 +4940,7 @@ def fabric_fp32(ctx, ckpt: str, agents: list) -> int:
     import numpy as np
 
     from tony_tpu_torch.gateway import GenRequest
-    from tony_tpu_torch.models.hf import load_llama_dir
+    from tony_tpu_torch.models.hf import load_hf_dir
     from tony_tpu_torch.serve import Request, Server
 
     rng = np.random.default_rng(SEED + 2)
@@ -4876,7 +4950,7 @@ def fabric_fp32(ctx, ckpt: str, agents: list) -> int:
     long_p = rng.integers(0, 151643, 200).tolist()
     knobs = [{}, dict(temperature=SAMPLED_TEMP, top_k=SAMPLED_TOP_K,
                       seed=SEED + 5)]
-    model, _ = load_llama_dir(ckpt, device=DEVICE, decode_attention="flash")
+    model, _ = load_hf_dir(ckpt, device=DEVICE, decode_attention="flash")
     srv = Server(model, batch_size=4, chunk_steps=1, kv_page_size=64,
                  eos_id=QWEN25_15B["eos_token_id"], prefix_cache_mb=64.0,
                  device=DEVICE)
@@ -5062,13 +5136,13 @@ def fabric_cli(ctx, ckpt: str) -> None:
     SIGTERM drains it to exit 0 with no process of that group left."""
     import numpy as np
 
-    from tony_tpu_torch.models.hf import load_llama_dir
+    from tony_tpu_torch.models.hf import load_hf_dir
     from tony_tpu_torch.serve import Request, Server
 
     rng = np.random.default_rng(SEED + 2)
     specs = [(rng.integers(0, 151643, n).tolist(), m)
              for n, m in ((40, 12), (300, 20), (5, 1), (900, 8))]
-    model, _ = load_llama_dir(ckpt, device=DEVICE, decode_attention="flash")
+    model, _ = load_hf_dir(ckpt, device=DEVICE, decode_attention="flash")
     layers = model.cfg.n_layers
     srv = Server(model, batch_size=4, chunk_steps=1,
                  eos_id=QWEN25_15B["eos_token_id"], prefix_cache_mb=64.0,
@@ -6160,6 +6234,1032 @@ def mistral_kernel_line(ctx) -> dict:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
 
 
+# ------------------------------------------ mixture of experts (phase 20)
+
+# Mixtral-8x7B-v0.1, https://huggingface.co/mistralai/Mixtral-8x7B-v0.1
+# config.json
+MIXTRAL_8X7B = {
+    "model_type": "mixtral", "architectures": ["MixtralForCausalLM"],
+    "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "num_local_experts": 8,
+    "num_experts_per_tok": 2, "vocab_size": 32000, "hidden_act": "silu",
+    "rope_theta": 1e6, "rms_norm_eps": 1e-5, "sliding_window": None,
+    "tie_word_embeddings": False, "max_position_embeddings": 32768,
+    "router_aux_loss_coef": 0.02, "bos_token_id": 1, "eos_token_id": 2,
+    "torch_dtype": "bfloat16",
+}
+MIXTRAL_PARAMS = 46_702_792_704  # the published model's count
+MIXTRAL_SERVE_LAYERS = 16  # 20a: 93.4 GB of bf16 at 32 layers
+MIXTRAL_FP32_LAYERS = 4    # 20a's fp32 check: 24.3 GB
+MIXTRAL_MAX_LEN = 4096     # 20a/20b cap (published: 32768)
+MIXTRAL_EOS = (2,)         # </s>
+MOE_TRAIN_SEQ, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 2048, 2, 4
+MOE_PREFILL_ROWS = 512     # 20b's prefill kernel call: one prompt's rows
+XENT_CHUNK_MOE = 2048
+
+
+def mixtral_config(**overrides):
+    from tony_tpu_torch.models.hf import mixtral_config as make
+
+    kw = dict(max_seq_len=MIXTRAL_MAX_LEN, decode_attention="flash")
+    kw.update(overrides)
+    return make(MIXTRAL_8X7B, **kw)
+
+
+def init_block(block, gen) -> None:
+    """``Transformer.init_weights``' rule on one block: N(0, 0.02)
+    weights, unit norm scales."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if name.rsplit(".", 1)[-1] == "scale":
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+
+
+def int8_mixtral(layers: int, max_seq_len: int):
+    """Mixtral-8x7B with int8 weights (bf16 activations) at ``layers``
+    layers, random from the seed, built on the card one layer at a time:
+    each block is drawn at fp32 on the card, quantized there by
+    ``models.quantize.quantize_module`` and loaded into the int8 model
+    before the next is drawn, so the fp32 model (187 GB) never exists."""
+    import dataclasses
+
+    import torch
+
+    from tony_tpu_torch.models.quantize import quantize_module
+    from tony_tpu_torch.models.transformer import Block, Transformer
+
+    fcfg = mixtral_config(n_layers=layers, max_seq_len=max_seq_len,
+                          dtype=torch.float32)
+    qmodel = Transformer(dataclasses.replace(
+        fcfg, quantized=True, dtype=torch.bfloat16), device="meta")
+    qmodel.to_empty(device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    with torch.no_grad():
+        qmodel.embedding.normal_(0.0, 0.02, generator=gen)
+        qmodel.lm_head.normal_(0.0, 0.02, generator=gen)
+        qmodel.ln_f.scale.fill_(1.0)
+    for i in range(layers):
+        block = Block(fcfg, device=DEVICE, use_moe=True)
+        init_block(block, gen)
+        qmodel.blocks[i].load_state_dict(quantize_module(block),
+                                         strict=True)
+        del block
+    torch.cuda.empty_cache()
+    return qmodel
+
+
+def q8e_bound(x, w_q, out_dtype) -> tuple[float, str]:
+    """Least time for ``q8_matmul_experts`` on these inputs: x (once, a
+    broadcast x once for all experts), every expert's int8 weights and
+    scales read once and the [E, T, n] output written once, over HBM
+    bandwidth, against 2 E T k n operations at the peak for x's type."""
+    import torch
+
+    e, k, n = w_q.shape
+    t = x.shape[-2]
+    nbytes = x.numel() * x.element_size() + w_q.numel() + 4 * e * n \
+        + e * t * n * torch.empty((), dtype=out_dtype).element_size()
+    peak = PEAK_OPS["float32" if x.dtype == torch.float32 else "bfloat16"]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * e * t * k * n / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def q8e_library(x, w_q, scale):
+    """One PyTorch call a expert computing the same products, timed and
+    never used by the port: ``torch._weight_int8pack_mm`` over each
+    expert in turn (int8 weights [n, k], scales in x's dtype)."""
+    import torch
+
+    wt = [w.t().contiguous() for w in w_q]
+    sc = scale.to(x.dtype)
+    xs = [x] * len(wt) if x.dim() == 2 else list(x)
+    return lambda: [torch._weight_int8pack_mm(a, w, s)
+                    for a, w, s in zip(xs, wt, sc)]
+
+
+def measure_q8e(ctx, x, w_q, scale, reps: int, time_it: bool) -> dict:
+    """``q8_matmul_experts`` against its plain version on one input set:
+    inputs unchanged, a rerun bit-equal, every element within
+    ``ops.quant.error_bound``; then (``time_it``) the kernel, the plain
+    version and the library loop timed beside the bound."""
+    import torch
+
+    from tony_tpu_torch.ops import quant
+
+    before = [t.clone() for t in (x, w_q, scale)]
+    got = quant.q8_matmul_experts(x, w_q, scale)
+    sync()
+    check(all(torch.equal(a, b) for a, b in zip((x, w_q, scale), before)),
+          "q8_matmul_experts wrote into its inputs")
+    del before
+    check(torch.equal(quant.q8_matmul_experts(x, w_q, scale), got),
+          f"q8_matmul_experts x{tuple(x.shape)}: a rerun gave other bits")
+    want = quant.q8_matmul_experts_reference(x, w_q, scale)
+    limit = quant.error_bound(x, w_q, scale, want)
+    diff = (got.float() - want.float()).abs()
+    check(bool(torch.isfinite(got.float()).all()),
+          "q8_matmul_experts not finite")
+    worst = (diff / limit.clamp_min(1e-30)).max().item()
+    err = diff.max().item()
+    check(worst <= 1.0, f"q8_matmul_experts x{tuple(x.shape)} "
+          f"w{tuple(w_q.shape)}: |got - want| reaches {worst:.3g} of its "
+          f"limit (max abs err {err:.3g})")
+    del got, want, limit, diff
+    e, k, n = w_q.shape
+    t = x.shape[-2]
+    p = quant.plan(t, n, k, x.dtype, quant._sms(x.device.index), e)
+    out = {"max_abs_err": err, "of_limit": worst, "grid": p.grid,
+           "route": ("decode", "tensor cores", "SIMT tile")[p.route]}
+    if not time_it:
+        return out
+    bound_ms, bound_by = q8e_bound(x, w_q, x.dtype)
+    ms = cuda_time_ms(lambda: quant.q8_matmul_experts(x, w_q, scale), reps,
+                      ctx["flush"])
+    plain_ms = cuda_time_ms(
+        lambda: quant.q8_matmul_experts_reference(x, w_q, scale), reps,
+        ctx["flush"])
+    library_ms = cuda_time_ms(q8e_library(x, w_q, scale), reps,
+                              ctx["flush"])
+    nbytes = x.numel() * x.element_size() + w_q.numel() + 4 * e * n \
+        + e * t * n * x.element_size()
+    rate = (f"{nbytes / ms / 1e9:.3f} TB/s" if bound_by == "bytes"
+            else f"{2.0 * e * t * k * n / ms / 1e9:.1f} TFLOP/s")
+    out.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by, rate=rate)
+    return out
+
+
+def phase_moe(ctx) -> None:
+    """Phase 20: Mixtral-8x7B's published width through the port."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 20 starts with {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated [{ctx['card']}]")
+    for part in (moe_serve, moe_generate, moe_train, moe_cli):
+        t0 = time.perf_counter()
+        part(ctx)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  ({part.__name__}: {time.perf_counter() - t0:.1f} s)")
+
+
+def moe_specs(rng) -> list:
+    """20a's 16 requests as (prompt, budget): prompts of 64-1024 tokens,
+    budgets 32-128."""
+    return [(rng.integers(0, 32000, int(rng.integers(64, 1025))).tolist(),
+             int(rng.integers(32, 129))) for _ in range(16)]
+
+
+def moe_serve(ctx) -> None:
+    """20a: Mixtral-8x7B bf16 at full width and 16 of its 32 layers
+    through ``Server`` (paged, flash-decode, dropless experts), 16 greedy
+    requests at batch 8; then one chunk replayed and one eager on one
+    saved state, bit-equal, and a replayed chunk timed beside the
+    micro-step's bytes bound; then the streams held to the plain
+    forward (``moe_route_gate``), and the same traffic in fp32
+    (``moe_fp32_gate``)."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.serve import Request, Server
+    from tony_tpu_torch.serve.engine import _decode_chunk
+
+    card_ = ctx["card"]
+    full = mixtral_config()
+    n_full = sum(p.numel() for p in Transformer(
+        full, device="meta").parameters())
+    check(n_full == MIXTRAL_PARAMS, f"Mixtral-8x7B at the published config "
+          f"has {n_full} parameters, not {MIXTRAL_PARAMS}")
+    cfg = mixtral_config(n_layers=MIXTRAL_SERVE_LAYERS, dtype=torch.bfloat16)
+    check(cfg.sliding_window == 0, "Mixtral-8x7B read with a window")
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer(cfg, device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 20))
+    weights = torch.cuda.memory_allocated()
+    srv = Server(model, batch_size=8, eos_id=MIXTRAL_EOS, chunk_steps=8,
+                 device=DEVICE)
+    check(srv.paged, "20a: Mixtral-8x7B (no window) not served paged")
+    specs = moe_specs(np.random.default_rng(SEED + 20))
+    reqs = requests(specs)
+    run = serve_timed(srv, reqs)
+    c = check_run(srv, reqs, run, "20a")
+    peak = torch.cuda.max_memory_allocated()
+    ctx["launches"] += run["launches"]
+    toks = sum(len(r.tokens) for r in run["results"].values())
+    p50, p99 = percentiles(run["first"][r.id] for r in reqs)
+    print(f"phase 20a serve Mixtral-8x7B bf16 ({n_full} params published; "
+          f"{cfg.n_layers} of 32 layers here, "
+          f"{weights / 1e9:.2f} GB of weights), paged, flash-decode, "
+          f"batch 8, 16 greedy requests (prompts 64-1024, budgets "
+          f"32-128): {toks} tokens in {run['wall']:.2f} s = "
+          f"{toks / run['wall']:.1f} tok/s; TTFT p50 {p50:.3f} s, p99 "
+          f"{p99:.3f} s; {c['decode_steps']} micro-steps in "
+          f"{c['dispatches']} chunks ({c['graph_decode_captures']} keys "
+          f"captured, {c['graph_decode_replays']} replays, "
+          f"{c['graph_capture_s']:.2f} s capturing); flash_decode "
+          f"launches {run['launches']} = {cfg.n_layers} x "
+          f"{c['decode_steps']}; peak memory {peak / 2**30:.2f} GiB "
+          f"[{card_}]")
+    # one chunk replayed and one eager on one saved state
+    rng = np.random.default_rng(SEED + 201)
+    for i in range(8):
+        srv.submit(Request(rng.integers(0, cfg.vocab_size, 256).tolist(),
+                           64, id=f"probe{i}"))
+    srv.step()
+    check(srv.n_active == 8, f"20a probe: {srv.n_active} of 8 live")
+    s = srv.slots
+    k, cols, flat = srv._prepare_chunk()
+    leaves = pool_leaves(srv)
+    saved = [leaf.clone() for leaf in leaves]
+    n = s.pool.n_pages
+
+    def restore():
+        for leaf, keep in zip(leaves, saved):
+            leaf.copy_(keep)
+        sync()
+
+    if ("decode", k, cols) not in srv.graphs.entries:
+        srv._run_chunk(flat, k, cols)
+        restore()
+    want = _decode_chunk(model, s.cache, torch.as_tensor(flat, device=DEVICE),
+                         b=s.batch_size, cols=cols, n_steps=k,
+                         eos_ids=srv.eos_ids).cpu().numpy()
+    want_pool = [leaf[:n].clone() for leaf in leaves]
+    restore()
+    replays = srv.graphs.calls["decode", "replays"]
+    got = srv._run_chunk(flat, k, cols)
+    check(srv.graphs.calls["decode", "replays"] == replays + 1,
+          "20a: the chunk was not a replay")
+    check((got == want).all(), "20a: replayed chunk tokens differ from "
+          "the eager chunk's")
+    check(all(torch.equal(leaf[:n], w) for leaf, w in zip(leaves,
+                                                           want_pool)),
+          "20a: replayed chunk pool bytes differ from the eager chunk's")
+    del want_pool
+    restore()
+    chunk_ms = cuda_time_ms(lambda: srv._run_chunk(flat, k, cols), 2,
+                            ctx["flush"])
+    restore()
+    del saved
+    while not srv.done:
+        srv.step()
+    nbytes = sum(p.numel() * p.element_size()
+                 for name, p in model.named_parameters()
+                 if name != "embedding")
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase 20a one chunk ({k} micro-steps, batch 8, 256-token "
+          f"prompts) replayed and eager on one saved state: tokens and "
+          f"pool bytes bit-equal; replayed {chunk_ms:.1f} ms = "
+          f"{chunk_ms / k:.2f} ms a micro-step against a bound of "
+          f"{bound:.2f} ms ({nbytes / 1e9:.2f} GB of weights a "
+          f"micro-step, every expert of a dropless layer read; at most "
+          f"{8 * 1e3 / bound:.0f} tok/s at 8 slots) [{card_}]")
+    ctx["moe_serve"] = {"tok_s": toks / run["wall"], "p50": p50, "p99": p99,
+                        "peak": peak, "micro_ms": chunk_ms / k,
+                        "bound_ms": bound}
+    del srv, leaves, restore
+    free_card()
+    moe_route_gate(ctx, model, specs, run["results"], "20a", False)
+    del model
+    free_card()
+    moe_fp32_gate(ctx, specs)
+
+
+def free_card() -> None:
+    """Collect what cycles hold (a ``Server`` and its graphs) and give
+    the cached blocks back."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class RouteTrace:
+    """Forward hooks on a MoE ``Transformer`` that keep, for each forward:
+    its tokens and positions, each MoE block's router logits (fp32, as
+    the block computes them) and top-k experts, and the final
+    activations; every call tagged with ``tag``, a map of batch row to
+    request id (rows left out are not kept)."""
+
+    def __init__(self, model):
+        import torch
+
+        from tony_tpu_torch.parallel.moe import _top_k, router_logits
+
+        self.calls, self.tag = [], None
+        k = model.cfg.moe_top_k
+
+        def start(mod, args, kwargs):
+            pos = kwargs.get("positions")
+            toks = args[0]
+            if pos is None:
+                pos = torch.arange(toks.shape[1], device=toks.device)[None]
+            elif pos.dim() == 1:
+                pos = pos[:, None]
+            self.calls.append({"tag": self.tag, "tokens": toks.clone(),
+                               "positions": pos.expand_as(toks).clone(),
+                               "router": [], "top": [], "final": None})
+
+        def route(mod, args):
+            x = args[0]
+            logits = router_logits(x.reshape(-1, x.shape[-1]), mod.router)
+            self.calls[-1]["router"].append(logits)
+            self.calls[-1]["top"].append(
+                _top_k(torch.softmax(logits, dim=-1), k)[1].sort(-1).values)
+
+        def final(mod, args, out):
+            self.calls[-1]["final"] = out.reshape(-1, out.shape[-1]).clone()
+
+        self.hooks = [model.register_forward_pre_hook(start,
+                                                      with_kwargs=True),
+                      model.ln_f.register_forward_hook(final)]
+        self.hooks += [b.moe.register_forward_pre_hook(route)
+                       for b in model.blocks]
+
+    def remove(self) -> None:
+        for h in self.hooks:
+            h.remove()
+
+    def streams(self, seqs: dict) -> dict:
+        """Per request id, over its positions 0..len(seq)-1: router logits
+        [layers, n, E], top-k [layers, n, k] and final activations [n, D],
+        on the card; every position filled once, at its own token."""
+        import torch
+
+        out = {}
+        first = next(c for c in self.calls if c["router"])
+        layers, e = len(first["router"]), first["router"][0].shape[-1]
+        for rid, seq in seqs.items():
+            n = len(seq)
+            out[rid] = {
+                "router": torch.zeros(layers, n, e, device=DEVICE),
+                "top": torch.zeros(layers, n, first["top"][0].shape[-1],
+                                   dtype=torch.int64, device=DEVICE),
+                "final": torch.zeros(n, first["final"].shape[-1],
+                                     dtype=first["final"].dtype,
+                                     device=DEVICE),
+                "seen": torch.zeros(n, dtype=torch.int64, device=DEVICE),
+                "seq": torch.tensor(seq, device=DEVICE)}
+        for c in self.calls:
+            width = c["tokens"].shape[1]
+            for row, rid in (c["tag"] or {}).items():
+                if rid not in out:
+                    continue
+                o = out[rid]
+                pos = c["positions"][row]
+                keep = (pos >= 0) & (pos < len(o["seq"]))
+                at = pos[keep]
+                flat = torch.arange(row * width, (row + 1) * width,
+                                    device=DEVICE)[keep]
+                check(bool((c["tokens"][row][keep] == o["seq"][at]).all()),
+                      f"route trace: request {rid}'s tokens not at their "
+                      "positions")
+                o["router"][:, at] = torch.stack(c["router"])[:, flat]
+                o["top"][:, at] = torch.stack(c["top"])[:, flat]
+                o["final"][at] = c["final"][flat]
+                o["seen"][at] += 1
+        for rid, o in out.items():
+            check(bool((o["seen"] == 1).all()), f"route trace: request "
+                  f"{rid}: positions seen other than once")
+        return out
+
+
+def route_compare(model, got: dict, want: dict, held: int) -> dict:
+    """One request's trace ``got`` against the plain forward's ``want``
+    (``RouteTrace.streams``). A routing difference (the top-k set of
+    some layer at some position) changes every later layer at that
+    position and, through attention, every later position; before it
+    both computations route alike and differ by rounding alone. Held:
+    at every position before the first difference, the greedy tokens of
+    the final activations agree or part at a near tie of the plain
+    forward's logits (the stream's rule); in the first ``held`` layers,
+    the router logits agree to ``NEAR_TIE`` x the row's largest |logit|
+    at every position that no difference below reaches; with every
+    layer held, the first difference is a near tie of the router there
+    (its 2nd less 3rd logit within the same tolerance). Returns what was
+    seen: ``head``, the first position that differs in some layer, and
+    ``lowest``, the lowest layer differing there; the routers' largest
+    deviation at each layer over its unreached positions, in
+    tolerances."""
+    import torch
+
+    flip = (got["top"] != want["top"]).any(dim=-1)  # [layers, n]
+    layers, n = flip.shape
+    first = [int(f.nonzero()[0]) if bool(f.any()) else n for f in flip]
+    per_layer = []
+    for layer in range(layers):
+        # this layer's router inputs are reached by a difference in any
+        # layer below, at or before the position
+        clean = min(first[:layer], default=n)
+        r_got, r_want = got["router"][layer, :clean], \
+            want["router"][layer, :clean]
+        per_layer.append(float(((r_got - r_want).abs().amax(-1) / (
+            NEAR_TIE * r_want.abs().amax(-1))).max()) if clean else 0.0)
+    head = min(first)
+    lowest = first.index(head) if head < n else None
+    gap_worst = 0.0
+    for s in range(0, head, 256):
+        with torch.no_grad():
+            lg = model.logits(got["final"][s:head][:256].float())
+            lw = model.logits(want["final"][s:head][:256].float())
+        a, b = lg.argmax(-1), lw.argmax(-1)
+        gap = (lw.gather(-1, b[:, None]) - lw.gather(-1, a[:, None]))[:, 0]
+        gap_worst = max(gap_worst, float(
+            (gap / (NEAR_TIE * lw.abs().amax(-1))).max()))
+        del lg, lw
+    check(gap_worst <= 1.0, f"before any routing difference the greedy "
+          f"tokens part by {gap_worst:.3g}x the near-tie tolerance")
+    margin = None
+    if lowest is not None:
+        r = want["router"][lowest, head].sort(descending=True).values
+        margin = float(r[1] - r[2]) / (NEAR_TIE * float(r.abs().max()))
+    worst = max(per_layer[:held], default=0.0)
+    check(worst <= 1.0, f"the router logits of layers 0-{held - 1} differ "
+          f"by {worst:.3g}x the near-tie tolerance where no routing "
+          f"difference reaches them")
+    if held == layers:
+        check(margin is None or margin <= 1.0, f"the first routing "
+              f"difference (position {head}, layer {lowest}) is no near "
+              f"tie: router margin {margin}x the tolerance")
+    return {"flips": int(flip.sum()), "head": head, "lowest": lowest,
+            "margin": margin, "gap_worst": gap_worst,
+            "per_layer": per_layer}
+
+
+def moe_route_gate(ctx, model, specs: list, results: dict | None,
+                   part: str, tight: bool) -> None:
+    """Hold a ``Server``'s streams of ``specs`` to the plain full
+    forward. The requests run through a fresh ``Server`` with every
+    dispatch eager (the functions the replays record), traced by
+    ``RouteTrace``; given ``results`` (a replayed run of the same
+    requests), each stream must equal the replayed run's, token for
+    token, and is held in its place. Each request's prompt and stream
+    then go through the plain forward, traced too, and
+    ``route_compare`` holds the two traces (``tight``: every layer's
+    router, else the first layer's, whose inputs pass no expert layer).
+    Each stream must equal the plain forward's greedy tokens, or
+    part at a near tie before the first routing difference, or part at
+    or after it. Without ``tight`` (bf16), the plain forward over the
+    same tokens padded with zeros (a change of shape only, no server
+    code) is traced beside it, and its first routing difference and
+    router deviations printed with the server's."""
+    import contextlib as ctxlib
+
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.serve import Server
+
+    card_ = ctx["card"]
+    t0 = time.perf_counter()
+    by_prompt = {tuple(p): i for i, (p, _) in enumerate(specs)}
+    srv = Server(model, batch_size=8, eos_id=MIXTRAL_EOS, chunk_steps=8,
+                 device=DEVICE)
+    srv.graphs, srv._hold = None, ctxlib.nullcontext
+    trace = RouteTrace(model)
+    prefill, chunk = srv._prefill_suffix, srv._run_chunk
+
+    def tagged(fn, tag):
+        def run(*a):
+            trace.tag = tag(*a)
+            try:
+                return fn(*a)
+            finally:
+                trace.tag = None
+        return run
+
+    srv._prefill_suffix = tagged(prefill, lambda slot, p, off: {
+        0: by_prompt[tuple(np.asarray(p).tolist())]})
+    srv._run_chunk = tagged(chunk, lambda *a: {
+        s: live.request.id for s, live in enumerate(srv._live)
+        if live is not None})
+    try:
+        eager = serve_timed(srv, requests(specs))
+    finally:
+        trace.remove()
+    again = eager["results"]
+    if results is None:
+        results, same = again, None
+        reqs = requests(specs)
+        check_run(srv, reqs, eager, part)
+    else:
+        same = sum(again[i].tokens == results[i].tokens
+                   and again[i].finish_reason == results[i].finish_reason
+                   for i in results)
+        check(same == len(results), f"{part}: the eager run's streams "
+              f"equal the replayed run's in {same} of {len(results)} "
+              "requests")
+    seqs = {i: p + results[i].tokens[:-1] for i, (p, _) in enumerate(specs)}
+    served = trace.streams(seqs)
+    del srv, trace, prefill, chunk
+    free_card()  # the eager server's pool (its methods close a cycle)
+    plain = RouteTrace(model)
+    rows, parts, after = [], [], []
+
+    def traced(i, pad=0):
+        plain.calls.clear()
+        plain.tag = {0: i}
+        with torch.no_grad():
+            model(torch.tensor([seqs[i] + [0] * pad], device=DEVICE),
+                  return_hidden=True)
+        return plain.streams({i: seqs[i]})[i]
+
+    try:
+        for i, (prompt, _) in enumerate(specs):
+            want = traced(i)
+            m, toks = len(prompt), results[i].tokens
+            seen = route_compare(model, served[i], want,
+                                 len(model.blocks) if tight else 1)
+            ctrl = None if tight else route_compare(
+                model, traced(i, (len(seqs[i]) // 512 + 1) * 512
+                              - len(seqs[i])), want, 0)
+            with torch.no_grad():
+                lw = model.logits(want["final"][m - 1:].float())
+            greedy = lw.argmax(-1).tolist()
+            j = next((x for x, (a, b) in enumerate(zip(toks, greedy))
+                      if a != b), None)
+            if j is not None and m - 1 + j < seen["head"]:
+                gap = float(lw[j, greedy[j]] - lw[j, toks[j]])
+                tol = NEAR_TIE * float(lw[j].abs().max())
+                check(gap <= tol, f"{part} request {i}: the stream parts "
+                      f"from the plain forward's at token {j}, before any "
+                      f"routing difference, by a logit gap {gap:.4g} > "
+                      f"{tol:.4g}")
+                parts.append((i, j))
+            elif j is not None:
+                after.append((i, j, m, seen["head"], seen["lowest"]))
+            rows.append((i, m, seen, ctrl))
+            del want, lw
+            served[i] = None
+    finally:
+        plain.remove()
+    n_req = len(specs)
+    differ = [r for r in rows if r[2]["lowest"] is not None]
+    margins = sorted(s["margin"] for _, _, s, _ in differ)
+    depth = [max(s["per_layer"][k] for _, _, s, _ in rows)
+             for k in range(len(rows[0][2]["per_layer"]))]
+    print(f"phase {part} the {n_req} streams "
+          + ("" if same is None else "again ")
+          + f"through a Server with every dispatch eager, traced "
+          + (f"({eager['launches']} flash_decode launches)" if same is None
+             else f"{same} of {n_req} equal to the replayed run's")
+          + f"; against the plain full forward: routing "
+          f"differs (the top-2 set of a layer at a position) in "
+          f"{len(differ)} of {n_req} requests "
+          f"({sum(s['flips'] for _, _, s, _ in rows)} position-layers in "
+          f"all, the first inside the prompt in "
+          f"{sum(s['head'] < m for _, m, s, _ in differ)}); each first "
+          f"difference at a router margin (2nd less 3rd logit) of "
+          + (", ".join(f"{x:.3g}" for x in margins) or "none")
+          + f" (x the near-tie tolerance{', held' if tight else ''}); "
+          f"greedy tokens before it within "
+          f"{max(s['gap_worst'] for _, _, s, _ in rows):.3g}x (held); "
+          f"router logits where no difference reaches, the largest "
+          f"deviation by layer, in tolerances: "
+          + " ".join(f"{x:.2f}" for x in depth)
+          + (" (all held)" if tight else " (layer 0 held)")
+          + f" ({time.perf_counter() - t0:.1f} s) [{card_}]")
+    if not tight:
+        alike = sum((s["head"], s["lowest"]) == (c["head"], c["lowest"])
+                    for _, _, s, c in rows)
+        cdepth = [max(c["per_layer"][k] for _, _, _, c in rows)
+                  for k in range(len(depth))]
+        print(f"phase {part} control, the plain forward over the same "
+              f"tokens padded with zeros to the next multiple of 512 (a "
+              f"change of shape, no server code) against the plain "
+              f"forward: routing differs in "
+              f"{sum(c['lowest'] is not None for _, _, _, c in rows)} of "
+              f"{n_req} requests, its first difference the server's "
+              f"(position and layer) in {alike} of {n_req}; router "
+              f"deviation by layer: " + " ".join(f"{x:.2f}" for x in cdepth))
+    print(f"phase {part} first routing differences (request: position, of "
+          f"prompt length; layer): " + (", ".join(
+              f"{i}: {s['head']} of {m}; {s['lowest']}"
+              for i, m, s, _ in differ) or "none"))
+    print(f"phase {part} streams against the plain forward's greedy "
+          f"tokens: {n_req - len(parts) - len(after)} of {n_req} equal, "
+          f"{len(parts)} part at a near tie before any routing difference"
+          + "".join(f" (request {i} at token {j})" for i, j in parts)
+          + f", {len(after)} part at or after the first routing difference"
+          + "".join(f" (request {i} at token {j} = position {m + j - 1}; "
+                    f"first difference at {h}, layer {lo})"
+                    for i, j, m, h, lo in after) + f" [{card_}]")
+
+
+def moe_fp32_gate(ctx, specs: list) -> None:
+    """20a's traffic held tightly: Mixtral-8x7B at full width and
+    ``MIXTRAL_FP32_LAYERS`` layers in fp32 (TF32 off), the same 16
+    requests through ``moe_route_gate`` with the routers held too (the
+    eager dispatches only: bf16 above holds them equal to the
+    replays)."""
+    import torch
+
+    from tony_tpu_torch.models.transformer import Transformer
+
+    cfg = mixtral_config(n_layers=MIXTRAL_FP32_LAYERS, dtype=torch.float32)
+    model = Transformer(cfg, device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 207))
+    print(f"phase 20a fp32: full width, {cfg.n_layers} layers, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of weights "
+          f"[{ctx['card']}]")
+    moe_route_gate(ctx, model, specs, None, "20a fp32", True)
+    del model
+
+
+def moe_generate(ctx) -> None:
+    """20b: Mixtral-8x7B with int8 weights at all 32 layers through
+    ``generate`` (batch 8, 512-token prompts, 128 greedy tokens, the
+    decode step replayed); the expert-batched kernel held against its
+    plain version at the path's decode call (T = 8) and a prefill call of
+    one prompt's rows (T = 512), every product of the FFN; its launches
+    on the path counted by route."""
+    import torch
+
+    import tony_tpu_torch.parallel.moe as moe_mod
+    from tony_tpu_torch.models.generate import (_generate_eager, generate,
+                                                init_cache)
+    from tony_tpu_torch.ops.quant import q8_matmul_experts
+
+    card_ = ctx["card"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # generate's KV cache spans max_seq_len: the prompt and the new tokens
+    model = int8_mixtral(32, INT8_PROMPT + INT8_NEW)
+    build_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated()
+    cfg = model.cfg
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 202)
+    prompt = torch.randint(0, cfg.vocab_size, (INT8_BATCH, INT8_PROMPT),
+                           device=DEVICE, generator=gen)
+    # the FFN's three calls at the path's decode and prefill shapes
+    calls = {}
+    real = moe_mod.q8_matmul_experts
+
+    def capture(x, w_q, scale, **kw):
+        key = ("decode" if x.shape[-2] == INT8_BATCH else "prefill",
+               "broadcast" if x.dim() == 2 else "batched", w_q.shape[2])
+        if key not in calls:
+            rows = x[:MOE_PREFILL_ROWS] if x.dim() == 2 \
+                else x[:, :MOE_PREFILL_ROWS]
+            calls[key] = (rows.contiguous().clone(), w_q, scale)
+        return real(x, w_q, scale, **kw)
+
+    moe_mod.q8_matmul_experts = capture
+    try:
+        with torch.no_grad():  # a prefill (T = 8 x 512), then a step
+            cache = init_cache(model, INT8_BATCH, INT8_PROMPT + 1)
+            model(prompt, decode=True, cache=cache)
+            model(prompt[:, :1], decode=True, cache=cache)
+    finally:
+        moe_mod.q8_matmul_experts = real
+    del cache
+    kern = {}
+    for key, (x, w_q, scale) in sorted(calls.items()):
+        timed = key[1] == "broadcast"  # wi and wg, [T, D] x [E, D, F]
+        m = measure_q8e(ctx, x, w_q, scale, 10 if key[0] == "decode" else 3,
+                        timed)
+        text = (f"kernel {m['ms'] * 1e3:.1f} us = {m['rate']}, plain "
+                f"{m['plain_ms'] * 1e3:.1f} us, _weight_int8pack_mm over "
+                f"the experts {m['library_ms'] * 1e3:.1f} us, bound "
+                f"{m['bound_ms'] * 1e3:.2f} us ({m['bound_by']})"
+                if timed else "held, not timed")
+        print(f"phase 20b q8_matmul_experts at the path's {key[0]} call, "
+              f"{key[1]} x{tuple(x.shape)} {x.dtype}, w{tuple(w_q.shape)} "
+              f"(route {m['route']}, grid {m['grid']} x 8 experts): max abs "
+              f"err {m['max_abs_err']:.3g} ({m['of_limit']:.3f} of its "
+              f"limit); {text} [{card_}]")
+        if timed:
+            kern[key[0]] = m
+        del x
+    check(set(kern) == {"decode", "prefill"}, f"20b: measured {set(kern)}")
+    ctx["moe_kernels"] = kern
+    del calls
+    torch.cuda.empty_cache()
+    generate(model, prompt[:, :16], max_new_tokens=2)  # captures the step
+    q8_matmul_experts.launches = 0
+    q8_matmul_experts.route_launches[:] = [0, 0, 0]
+    sync()
+    t0 = time.perf_counter()
+    out = generate(model, prompt, max_new_tokens=INT8_NEW)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = q8_matmul_experts.launches
+    routes = list(q8_matmul_experts.route_launches)
+    c = model.graphs.counters(("generate",))
+    check(c["generate_captures"] == 1
+          and c["generate_replays"] == INT8_NEW - 1,
+          f"20b generate: {c} (every step after the warm-up's first must "
+          "be a replay)")
+    per = 3 * cfg.n_layers
+    check(launches == per * INT8_NEW
+          and routes == [per * (INT8_NEW - 1), per, 0],
+          f"20b: q8_matmul_experts launched {launches} times, by route "
+          f"{routes}; expected 3 x {cfg.n_layers} x ({INT8_NEW - 1} "
+          "replayed decode steps + 1 prefill)")
+    ctx["moe_q8e_launches"] = routes
+    check(out.shape == (INT8_BATCH, INT8_NEW)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"20b generate gave {tuple(out.shape)} or ids out of range")
+    with torch.no_grad():
+        eager = _generate_eager(model, prompt, max_new_tokens=8,
+                                pick=functools.partial(torch.argmax, dim=-1),
+                                eos_ids=())
+    check(torch.equal(out[:, :8], eager),
+          "20b: replayed generate's first 8 tokens differ from eager")
+    cache = init_cache(model, INT8_BATCH, INT8_PROMPT + INT8_NEW)
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model(prompt, decode=True, cache=cache)
+    sync()
+    prefill = time.perf_counter() - t0
+    del cache
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = (wall - prefill) / (INT8_NEW - 1) * 1e3
+    nbytes = sum(t.numel() * t.element_size()
+                 for name, t in model.state_dict().items()
+                 if name != "embedding")
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase 20b generate Mixtral-8x7B int8 weights (bf16 "
+          f"activations), 32 layers ({weights / 1e9:.2f} GB on the card, "
+          f"built layer by layer in {build_s:.1f} s), batch {INT8_BATCH}, "
+          f"{INT8_PROMPT}-token prompts, {INT8_NEW} greedy tokens, steps "
+          f"replayed: {wall:.3f} s = {INT8_BATCH * INT8_NEW / wall:.1f} "
+          f"tok/s; prefill {prefill * 1e3:.1f} ms, then {step_ms:.2f} ms a "
+          f"decode step against a bound of {bound:.2f} ms "
+          f"({nbytes / 1e9:.2f} GB a step) = "
+          f"{INT8_BATCH * 1e3 / step_ms:.1f} decode tok/s; the first 8 "
+          f"tokens equal eager generate's; q8_matmul_experts launches "
+          f"{launches} by route {routes}; peak memory "
+          f"{peak / 2**30:.2f} GiB; no bf16 dense-FFN yardstick (not "
+          f"measured) [{card_}]")
+    ctx["moe_generate"] = {"tok_s": INT8_BATCH * INT8_NEW / wall,
+                           "step_ms": step_ms, "bound_ms": bound,
+                           "peak": peak}
+    del model, out
+
+
+def moe_train(ctx) -> None:
+    """20c: one block at Mixtral-8x7B's width, routed (capacity 1.25, 8
+    SwiGLU experts, top-2), flash attention, remat ``attn_saved``, bf16
+    compute over fp32 masters with fused AdamW, batch 2 x 2048, 4 steps
+    with the step captured whole; losses fall and the aux loss is
+    finite; then phase 8's gate: 3 steps replayed and 3 eager from one
+    saved state, bit-equal."""
+    import torch
+
+    from tony_tpu_torch.models.transformer import Transformer, moe_aux_loss
+    from tony_tpu_torch.ops import adamw, attention
+    from tony_tpu_torch.ops.xent import chunked_cross_entropy
+    from tony_tpu_torch.train import FusedAdamW, Trainer
+
+    card_ = ctx["card"]
+    cfg = mixtral_config(n_layers=1, max_seq_len=MOE_TRAIN_SEQ,
+                         dtype=torch.bfloat16, attention_backend="pallas",
+                         remat=True, remat_policy="attn_saved",
+                         moe_dropless=False, moe_capacity_factor=1.25)
+    model = Transformer(cfg, device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 203))
+    cdt = torch.bfloat16
+
+    def apply_fn(m, batch):
+        losses = []
+        hidden = m(batch["tokens"], return_hidden=True, losses=losses)
+        return chunked_cross_entropy(
+            hidden[:, :-1], m.lm_head, batch["tokens"][:, 1:],
+            chunk_size=XENT_CHUNK_MOE, compute_dtype=cdt) \
+            + moe_aux_loss(losses)
+
+    trainer = Trainer(model, apply_fn, FusedAdamW(3e-4),
+                      compute_dtype=cdt)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 204)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (
+        MOE_TRAIN_BATCH, MOE_TRAIN_SEQ), device=DEVICE, generator=gen)}
+    counters = (attention.flash_attention_fwd,
+                attention.flash_attention_bwd_dq,
+                attention.flash_attention_bwd_dkv, adamw.fused_adamw_update)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state()
+    losses = []
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(MOE_TRAIN_STEPS):
+        state, m = trainer.step(state, batch)
+        losses.append(m["loss"])
+    sync()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = [c.launches for c in counters]
+    losses = torch.stack(losses).float().cpu().tolist()
+    g = trainer.graphs.counters(("train_step",))
+    check(g["train_step_captures"] == 1
+          and g["train_step_replays"] == MOE_TRAIN_STEPS - 1,
+          f"20c: {g} (the first step captured, the rest replays)")
+    check(launches == [MOE_TRAIN_STEPS] * 4,
+          f"20c: launches fwd/dq/dkv/adamw {launches}, expected "
+          f"{MOE_TRAIN_STEPS} each (one layer, attn_saved)")
+    check(all(x == x for x in losses) and losses[-1] < losses[0],
+          f"20c losses {losses} not finite and falling")
+    aux = []
+    with torch.no_grad():
+        model(batch["tokens"], losses=aux)
+    aux_v = float(moe_aux_loss(aux, weight=1.0))
+    check(len(aux) == 1 and aux_v == aux_v and abs(aux_v) < 1e6,
+          f"20c aux loss {aux_v} ({len(aux)} values)")
+    ctx["moe_train_launches"] = launches
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase 20c train one Mixtral-8x7B block ({n_params} params; "
+          f"routed, capacity 1.25, 8 SwiGLU experts, top-2), flash "
+          f"attention, remat attn_saved, bf16 compute over fp32 masters, "
+          f"fused AdamW, batch {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ}, "
+          f"{MOE_TRAIN_STEPS} steps captured whole (1 capture, "
+          f"{g['train_step_replays']} replays, {g['capture_s']:.2f} s "
+          f"capturing): {wall / MOE_TRAIN_STEPS * 1e3:.1f} ms a step "
+          f"with the capture; losses {[round(x, 4) for x in losses]}; aux "
+          f"loss {aux_v:.4f}; launches fwd/dq/dkv/adamw {launches}; peak "
+          f"memory {peak / 2**30:.2f} GiB [{card_}]")
+    state, gate = train_replay_gate(ctx, trainer, state, [batch] * 3,
+                                    counters, [1, 1, 1, 1], tag="phase 20c")
+    for how in ("replayed", "eager"):
+        print(f"phase 20c {how}: {gate['step_s'][how] * 1e3:.1f} ms a "
+              f"step, peak {gate['peak'][how]:.2f} GiB, host share "
+              f"{gate['probe'][how]['host']} [{card_}]")
+    ctx["moe_train"] = {"step_ms": gate["step_s"]["replayed"] * 1e3,
+                        "eager_ms": gate["step_s"]["eager"] * 1e3,
+                        "peak": peak}
+    del trainer, state, model, gate
+
+
+MOE_CLI_HF = {  # 20d: Mixtral's shape at test widths
+    "model_type": "mixtral", "architectures": ["MixtralForCausalLM"],
+    "hidden_size": 256, "intermediate_size": 512, "num_hidden_layers": 2,
+    "num_attention_heads": 8, "num_key_value_heads": 2,
+    "num_local_experts": 4, "num_experts_per_tok": 2, "vocab_size": 1024,
+    "hidden_act": "silu", "rope_theta": 1e6, "rms_norm_eps": 1e-5,
+    "sliding_window": None, "tie_word_embeddings": False,
+    "max_position_embeddings": 512, "eos_token_id": 2,
+}
+
+
+def export_mixtral(model, hf: dict) -> str:
+    """``model`` (a Mixtral) as a checkpoint directory under build/ in
+    the Hugging Face names, fp32, as two shards and an index; the caller
+    removes it."""
+    from tony_tpu_torch.models.hf import write_safetensors
+
+    sd = {k: v.float() for k, v in model.state_dict().items()}
+    out = {"model.embed_tokens.weight": sd["embedding"],
+           "model.norm.weight": sd["ln_f.scale"],
+           "lm_head.weight": sd["lm_head"]}
+    names = {"input_layernorm.weight": "ln1.scale",
+             "post_attention_layernorm.weight": "ln2.scale",
+             "self_attn.o_proj.weight": "attn.o.weight"}
+    for p in "qkv":
+        names[f"self_attn.{p}_proj.weight"] = f"attn.{p}.weight"
+    for i in range(model.cfg.n_layers):
+        pre, src = f"model.layers.{i}.", f"blocks.{i}."
+        for dst, s in names.items():
+            out[pre + dst] = sd[src + s]
+        moe = pre + "block_sparse_moe."
+        out[moe + "gate.weight"] = sd[src + "moe.router"].t()
+        for x in range(model.cfg.moe_num_experts):
+            for w, s in (("w1", "wg"), ("w3", "wi"), ("w2", "wo")):
+                out[f"{moe}experts.{x}.{w}.weight"] = \
+                    sd[f"{src}moe.{s}"][x].t()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="smoke_mixtral_",
+                            dir=os.path.join(ROOT, "build"))
+    with open(os.path.join(ckpt, "config.json"), "w") as fh:
+        json.dump(hf, fh)
+    names = sorted(out)
+    weight_map = {}
+    for j, part in enumerate((names[:len(names) // 2],
+                              names[len(names) // 2:])):
+        fname = f"model-{j + 1:05d}-of-00002.safetensors"
+        write_safetensors({k: out[k] for k in part},
+                          os.path.join(ckpt, fname))
+        weight_map.update(dict.fromkeys(part, fname))
+    with open(os.path.join(ckpt, "model.safetensors.index.json"), "w") as fh:
+        json.dump({"metadata": {}, "weight_map": weight_map}, fh)
+    return ckpt
+
+
+def moe_cli(ctx) -> None:
+    """20d: a 2-layer Mixtral at test widths, written as two shards and
+    an index, through ``cli.generate --serve``, ``cli.generate --int8``
+    (tokens equal to ``generate`` over the reader's int8 model) and
+    ``cli.score --int8`` (within 5% of the fp32 score)."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.cli import generate as cli
+    from tony_tpu_torch.cli import score
+    from tony_tpu_torch.models.generate import generate
+    from tony_tpu_torch.models.hf import load_hf_dir, mixtral_config as mc
+    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.ops.quant import q8_matmul_experts
+
+    def run(main, argv, stdin=""):
+        out = io.StringIO()
+        old = sys.stdin
+        sys.stdin = io.StringIO(stdin)
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = main(argv + ["--device", DEVICE])
+        finally:
+            sys.stdin = old
+        return rc, out.getvalue().strip().splitlines()
+
+    model = Transformer(mc(MOE_CLI_HF), device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 205))
+    ckpt = export_mixtral(model, MOE_CLI_HF)
+    del model
+    try:
+        rng = np.random.default_rng(SEED + 206)
+        prompts = [rng.integers(3, 1024, n).tolist() for n in (12, 12, 40)]
+        lines = [json.dumps({"id": f"r{i}", "token_ids": p,
+                             "max_new_tokens": 16})
+                 for i, p in enumerate(prompts)]
+        rc, out = run(cli.main, ["--model", ckpt, "--serve", "--serve-batch",
+                                 "2"], "\n".join(lines) + "\n")
+        check(rc == 0 and len(out) == 3, f"20d --serve: exit {rc}, "
+              f"{len(out)} lines")
+        ids = [a for p in prompts for a in ("--token-ids",
+                                            ",".join(map(str, p)))]
+        q8_matmul_experts.launches = 0
+        rc, out = run(cli.main, ["--model", ckpt, *ids, "--int8",
+                                 "--max-new-tokens", "8"])
+        check(rc == 0 and len(out) == 3, f"20d --int8: exit {rc}")
+        cli_launches = q8_matmul_experts.launches
+        check(cli_launches > 0, "20d --int8 launched no q8_matmul_experts")
+        qmodel, _ = load_hf_dir(ckpt, device=DEVICE, int8=True)
+        # the CLI decodes prompts of one length as one batch: so here
+        want = {}
+        for n in sorted({len(p) for p in prompts}):
+            group = [p for p in prompts if len(p) == n]
+            rows = generate(qmodel, torch.tensor(group, device=DEVICE),
+                            max_new_tokens=8, eos_id=2).tolist()
+            want.update({tuple(p): r for p, r in zip(group, rows)})
+        for p, line in zip(prompts, out):
+            got = [int(t) for t in line.split(",")][len(p):]
+            w = want[tuple(p)]
+            check(got == w[:len(got)] and len(got) >= 1,
+                  f"20d --int8 tokens {got} against generate's {w}")
+        del qmodel
+        seqs = ["--token-ids", ",".join(map(str, prompts[2]))]
+        rc, q8_lines = run(score.main, ["--model", ckpt, *seqs, "--int8"])
+        rc2, fp_lines = run(score.main, ["--model", ckpt, *seqs])
+        check(rc == rc2 == 0, f"20d score: exits {rc}, {rc2}")
+
+        def nll(lines_):
+            fields = dict(f.split("=") for f in lines_[-1].split()[1:])
+            return float(fields["nll/token"])
+
+        nq, nf = nll(q8_lines), nll(fp_lines)
+        check(abs(nq - nf) <= 0.05 * nf, f"20d int8 nll {nq} not within 5% "
+              f"of fp32 {nf}")
+        print(f"phase 20d CLIs over a 2-layer Mixtral checkpoint at test "
+              f"widths (two shards and an index): --serve answered 3 "
+              f"requests; --int8 answered 3 prompts, tokens equal to "
+              f"generate over the reader's int8 model "
+              f"(q8_matmul_experts launches {cli_launches}); score "
+              f"nll/token int8 {nq:.4f} vs fp32 {nf:.4f} [{ctx['card']}]")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def moe_kernel_lines(ctx) -> list[dict]:
+    """The expert-batched q8_matmul at 20b's decode call (T = 8) and a
+    prefill call (T = 512), launches from 20b's generate by route."""
+    lines = []
+    for i, call in ((0, "decode"), (1, "prefill")):
+        m = ctx["moe_kernels"][call]
+        lines.append({"name": f"q8_matmul_experts_{call}", "route": "cuda",
+                      "source": "tony_tpu_torch/csrc/q8_matmul.cu",
+                      "replaces": "tony_tpu/ops/quant.py:42",
+                      "launches": ctx["moe_q8e_launches"][i],
+                      "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                      "bound_by": m["bound_by"],
+                      "library_ms": m["library_ms"]})
+    return lines
+
+
 def main() -> int:
     try:
         import torch
@@ -6197,7 +7297,7 @@ def main() -> int:
                         ("gateway-cli", phase_gateway_cli),
                         ("sampled", phase_sampled),
                         ("fabric", phase_fabric), ("job", phase_job),
-                        ("finetune", phase_finetune)):
+                        ("finetune", phase_finetune), ("moe", phase_moe)):
         t0 = time.perf_counter()
         try:
             phase(ctx)
@@ -6209,7 +7309,7 @@ def main() -> int:
     try:
         kernels = [kernel_line(ctx), mistral_kernel_line(ctx)] \
             + train_kernel_lines(ctx) + int8_kernel_lines(ctx) \
-            + finetune_kernel_lines(ctx)
+            + finetune_kernel_lines(ctx) + moe_kernel_lines(ctx)
     except Exception:  # noqa: BLE001
         traceback.print_exc()
         return 1

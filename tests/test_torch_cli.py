@@ -254,9 +254,9 @@ def mistral_ckpt(tmp_path_factory):
 
 
 def test_mistral_checkpoint_loads(mistral_ckpt):
-    from tony_tpu_torch.models.hf import load_llama_dir
+    from tony_tpu_torch.models.hf import load_hf_dir
 
-    model, hf = load_llama_dir(mistral_ckpt, device="cpu")
+    model, hf = load_hf_dir(mistral_ckpt, device="cpu")
     cfg = model.cfg
     assert hf["model_type"] == "mistral"
     assert cfg.sliding_window == 8 and not cfg.tied_embeddings

@@ -980,3 +980,115 @@ def test_norm_kernels_refuse_a_plan_they_do_not_take():
         assert lib.tony_rmsnorm(0, 0, x.data_ptr(), scale.data_ptr(),
                                 out.data_ptr(), 16, 1536, 1e-6, *bad,
                                 stream) == -1
+
+
+# ------------------------------------- expert-batched q8_matmul (MoE)
+# q8_matmul_experts: jax.vmap(q8_matmul) over the expert axis in one
+# launch. Per element within ops.quant.error_bound, as above.
+
+Q8E_SHAPES = [  # experts, m, k, n: every route, ragged edges, splits
+    (8, 8, 512, 1792), (4, 1, 1536, 256), (3, 16, 1000, 300),
+    (3, 17, 1000, 300), (2, 257, 1000, 300), (4, 5, 7, 3),
+    (8, 64, 512, 1024), (2, 300, 96, 40)]
+
+
+def _q8e_inputs(e, m, k, n, dtype, broadcast, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (m, k) if broadcast else (e, m, k)
+    x = torch.randn(*shape, device="cuda", generator=g).to(dtype)
+    w = 0.02 * torch.randn(e, k, n, device="cuda", generator=g)
+    scale = torch.clamp(w.abs().amax(dim=1), min=1e-8) / 127.0
+    w_q = torch.clamp(torch.round(w / scale[:, None, :]), -127,
+                      127).to(torch.int8)
+    return x, w_q, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", Q8E_SHAPES)
+@pytest.mark.parametrize("broadcast", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8_matmul_experts_kernel_matches_plain_version(shape, broadcast,
+                                                        dtype):
+    """One launch for every expert, broadcast x (stride 0) and batched x,
+    every route; inputs untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x, w_q, scale = _q8e_inputs(*shape, dtype, broadcast)
+    before = [t.clone() for t in (x, w_q, scale)]
+    n0 = q8.q8_matmul_experts.launches
+    got = q8.q8_matmul_experts(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert q8.q8_matmul_experts.launches == n0 + 1
+    assert all(torch.equal(a, b) for a, b in zip((x, w_q, scale), before))
+    want = q8.q8_matmul_experts_reference(x, w_q, scale)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    _within(got, want, q8.error_bound(x, w_q, scale, want),
+            "q8_matmul_experts")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 8, 512, 1792), (3, 17, 1000, 300),
+                                   (2, 257, 96, 40), (4, 1, 1536, 256)])
+@pytest.mark.parametrize("broadcast", [True, False])
+def test_q8_matmul_experts_writes_only_its_outputs(shape, broadcast):
+    """Output and split-K scratch as windows into guarded buffers: the
+    canaries survive and the result is the wrapper's, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    e, m, k, n = shape
+    x, w_q, scale = _q8e_inputs(e, m, k, n, torch.bfloat16, broadcast,
+                                seed=1)
+    want = q8.q8_matmul_experts(x, w_q, scale)
+    p = q8.plan(m, n, k, x.dtype, q8._sms(x.device.index), e)
+    pad = 4096
+
+    def guarded(count, dtype):
+        buf = torch.full((pad + count + pad,), -7.25, dtype=dtype,
+                         device="cuda")
+        return buf, buf[pad:pad + count]
+
+    out_buf, out = guarded(e * m * n, torch.bfloat16)
+    part_buf, part = guarded(e * p.splits * m * n, torch.float32)
+    err = q8._lib().tony_q8_matmul_experts(
+        1, 1, x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), part.data_ptr(), e, 0 if broadcast else m * k, m,
+        n, k, p.route, p.splits, p.kps,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    for buf in (out_buf, part_buf):
+        assert (buf[:pad] == -7.25).all() and (buf[-pad:] == -7.25).all()
+    assert torch.equal(out.view(e, m, n), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 8, 512, 1792), (3, 17, 1000, 300),
+                                   (2, 300, 1000, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8_matmul_experts_rerun_gives_the_same_bits(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x, w_q, scale = _q8e_inputs(*shape, dtype, False, seed=3)
+    first = q8.q8_matmul_experts(x, w_q, scale)
+    for _ in range(2):
+        assert torch.equal(q8.q8_matmul_experts(x, w_q, scale), first)
+
+
+@pytest.mark.cuda
+def test_q8_matmul_experts_each_expert_reads_its_own_matrix():
+    """Experts with different weights and x rows: expert e's output is
+    the plain product of its own x and weight (a kernel reading expert
+    0's matrices everywhere fails)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    x, w_q, scale = _q8e_inputs(4, 8, 512, 640, torch.bfloat16, False,
+                                seed=5)
+    got = q8.q8_matmul_experts(x, w_q, scale)
+    for e in range(4):
+        want = q8.q8_matmul_reference(x[e], w_q[e], scale[e])
+        _within(got[e], want, q8.error_bound(x[e], w_q[e], scale[e], want),
+                f"expert {e}")
+        other = q8.q8_matmul_reference(x[e], w_q[(e + 1) % 4],
+                                       scale[(e + 1) % 4])
+        assert not torch.equal(got[e], other)

@@ -16,6 +16,10 @@ JAX package, carried across by ``models.convert.from_jax_lora``).
   against the JAX ``Trainer`` with ``optax.adam``: losses within 1e-5
   relative each step, adapters within 1e-4 at the end. The optimizer
   state is LoRA-sized and the base is bit-equal before and after.
+- Six steps with remat off and under each policy, one and two
+  accumulation steps, weight decay 0 and 0.1 (four cases, ``FusedAdamW``
+  in both packages): losses within 1.04e-6 relative, adapters within
+  3.5e-5.
 - The captured step (the graph cache's stand-in) equals the eager one
   bit for bit over the adapters.
 - ``materialize_lora`` serves through ``generate`` with the JAX
@@ -33,6 +37,7 @@ import torch
 from test_torch_graphs import StandIn
 from torch_parity import build_pair, tokens
 from tony_tpu.models import generate as jax_generate
+from tony_tpu.ops.adamw import FusedAdamW as JaxFusedAdamW
 from tony_tpu.train import Trainer as JaxTrainer
 from tony_tpu.train import cross_entropy_loss as jax_xent
 from tony_tpu.train import lora_init as jax_lora_init
@@ -297,3 +302,50 @@ def test_wrap_apply_fn_compute_dtype_casts_the_base(pair):
     wrap_apply_fn(base_apply, tm)(lora, {})
     assert seen == {"dtype": torch.float32, "k": torch.float32}
     assert all(p.dtype == torch.float32 for p in tm.parameters())
+
+
+@pytest.mark.parametrize("remat,accum,wd", [
+    ("off", 1, 0.0), ("nothing", 2, 0.1), ("dots", 1, 0.1),
+    ("attn_saved", 2, 0.0)])
+def test_training_under_remat_accum_and_decay_matches_jax(remat, accum, wd):
+    """Six steps over the example's adapters at rank 4 on the base of
+    ``build_pair(0)``: remat off and under each policy, one and two
+    accumulation steps, weight decay 0 and 0.1, each value in two of the
+    four cases (``FusedAdamW`` in both packages): losses within 1.04e-6
+    relative each step and the adapters within 3.5e-5 at the end."""
+    kw = {} if remat == "off" else dict(remat=True, remat_policy=remat)
+    jm, jparams, tm = build_pair(0, **kw)
+    lr, steps = 1e-2, 6
+    jlora = _jax_lora(jparams, 4, EXAMPLE_TARGETS)
+    batches = _batches(steps)
+
+    def base_apply(p, b):
+        logits = jm.apply(p, b["tokens"])
+        return jax_xent(logits[:, :-1], b["tokens"][:, 1:],
+                        mask=b["loss_mask"][:, 1:])
+
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",))
+    jt = JaxTrainer(mesh=mesh, apply_fn=jax_wrap(
+        base_apply, {"params": jparams}, alpha=ALPHA),
+        optimizer=JaxFusedAdamW(lr, weight_decay=wd), donate=False,
+        accum_steps=accum)
+    step_fn, jstate = jt.build_step(jt.init_state(jlora))
+    jlosses = []
+    for b in batches:
+        jstate, m = step_fn(jstate, {k: jnp.asarray(v)
+                                     for k, v in b.items()})
+        jlosses.append(float(m["loss"]))
+
+    lora = lora_init(torch.Generator(), tm, rank=4, targets=EXAMPLE_TARGETS)
+    trainer = Trainer(lora, wrap_apply_fn(_port_apply, tm, alpha=ALPHA),
+                      FusedAdamW(lr, weight_decay=wd), accum_steps=accum)
+    state = trainer.init_state(from_jax_lora(_np(jlora), tm.cfg))
+    losses = []
+    for b in batches:
+        state, m = trainer.step(state, {k: torch.from_numpy(v)
+                                        for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    np.testing.assert_allclose(losses, jlosses, rtol=1.04e-6, atol=0)
+    for name, w in from_jax_lora(_np(jstate.params), tm.cfg).items():
+        np.testing.assert_allclose(state.params[name].numpy(), w.numpy(),
+                                   atol=3.5e-5, rtol=0, err_msg=name)

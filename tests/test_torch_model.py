@@ -69,9 +69,8 @@ def test_converter_is_strict():
 
 def test_config_refuses_what_is_not_ported():
     # remat and the pallas backend are ported (training slice)
-    # int8 weights are ported (int8 slice), int8 MoE experts are not
-    for kw in ({"moe_every": 2}, {"quantized": True, "moe_every": 2},
-               {"scan_layers": True}, {"shard_activations": True},
+    # int8 weights are ported (int8 slice); MoE and its int8 experts too
+    for kw in ({"scan_layers": True}, {"shard_activations": True},
                {"mesh": object()}, {"attention_backend": "ring"},
                {"attention_backend": "ulysses"}):
         with pytest.raises(NotImplementedError):
@@ -79,6 +78,8 @@ def test_config_refuses_what_is_not_ported():
     TransformerConfig(remat=True, remat_policy="attn_saved",
                       attention_backend="pallas")
     TransformerConfig(quantized=True)
+    TransformerConfig(moe_every=2)
+    TransformerConfig(quantized=True, moe_every=2)
 
 
 # prompts per row (row 2 is an empty slot in the per-slot/paged modes)

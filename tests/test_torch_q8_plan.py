@@ -217,3 +217,62 @@ def test_table_key_holds_every_arrays_shape(which):
     assert short[which].data_ptr() == leaf[which].data_ptr()
     key2, words2 = adw.table_key(("dtypes",), [tuple(short)])
     assert words2 == words and key2 != key
+
+
+# the expert-batched form (q8_matmul_experts): Mixtral-8x7B's experts,
+# E = 8, hidden 4096, FFN 14336
+MIXTRAL = {"wi/wg": (4096, 14336), "wo": (14336, 4096)}
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("dtype", [BF16, FP32])
+def test_one_expert_plans_as_one_matrix(m, k, n, dtype):
+    assert q8.plan(m, n, k, dtype, H100_SMS, 1) \
+        == q8.plan(m, n, k, dtype, H100_SMS)
+
+
+@pytest.mark.parametrize("experts", [2, 8, 64])
+@pytest.mark.parametrize("m,k,n", [s for s in SHAPES if s[0] <= 16]
+                         + [(8, *MIXTRAL["wi/wg"]), (8, *MIXTRAL["wo"])])
+def test_decode_wave_is_shared_over_the_experts(experts, m, k, n):
+    """On the decode route the blocks of all experts fit on the card at
+    once (DEC_BLOCKS_PER_SM an SM), unless one split a slab is already
+    more than that; the splits still cover k once and stay one
+    cluster."""
+    p = q8.plan(m, n, k, BF16, H100_SMS, experts)
+    blocks = p.grid[0] * p.splits * experts
+    assert p.splits == 1 or blocks <= q8.DEC_BLOCKS_PER_SM * H100_SMS
+    assert p.splits <= q8.DEC_MAX_SPLITS
+    taken = [j for z in range(p.splits)
+             for j in q8.split_stages(z, p.splits, k)]
+    assert sorted(taken) == list(range(-(-k // q8.DEC_BK)))
+    assert p.splits <= q8.plan(m, n, k, BF16, H100_SMS).splits
+
+
+@pytest.mark.parametrize("experts", [2, 8])
+@pytest.mark.parametrize("m", [17, 512, 4096])
+@pytest.mark.parametrize("dtype", [BF16, FP32])
+def test_tile_routes_split_k_for_all_experts_tiles(experts, m, dtype):
+    """Routes 1 and 2 count every expert's tiles when they decide the
+    K split: a split only where all experts' tiles together leave the
+    card less than two blocks an SM."""
+    k, n = MIXTRAL["wi/wg"]
+    p = q8.plan(m, n, k, dtype, H100_SMS, experts)
+    tiles = -(-m // q8.TILE_M) * -(-n // q8.TILE_N) * experts
+    assert p.splits == 1 or tiles < 2 * H100_SMS
+    assert p.kps % q8.TILE_K == 0
+    assert (p.splits - 1) * p.kps < k <= p.splits * p.kps
+
+
+def test_mixtral_expert_call_plans():
+    """The plans at Mixtral-8x7B's expert calls on an H100, pinned: at
+    decode (T = 8) one split a slab, 112 x 8 = 896 blocks for wi/wg and
+    32 x 8 = 256 for wo; at prefill (T = 512) the tensor cores in 112 x
+    4 (wi/wg) and 32 x 4 (wo) tiles an expert, no split."""
+    def plan(m, proj):
+        k, n = MIXTRAL[proj]
+        return q8.plan(m, n, k, BF16, H100_SMS, 8)
+    assert plan(8, "wi/wg") == (q8.DECODE, (112, 1, 1), 1, 4096)
+    assert plan(8, "wo") == (q8.DECODE, (32, 1, 1), 1, 14336)
+    assert plan(512, "wi/wg") == (q8.TENSOR_CORES, (112, 4, 1), 1, 4096)
+    assert plan(512, "wo") == (q8.TENSOR_CORES, (32, 4, 1), 1, 14336)

@@ -38,8 +38,7 @@ from tony_tpu_torch.models import quantize_for_serving
 from tony_tpu_torch.models.convert import from_jax_params
 from tony_tpu_torch.models.generate import (generate, init_cache,
                                             single_decode_step)
-from tony_tpu_torch.models.quantize import (quantize_cli,
-                                            quantize_transformer_params)
+from tony_tpu_torch.models.quantize import quantize_transformer_params
 from tony_tpu_torch.models.transformer import QuantDense, Transformer
 from tony_tpu_torch.ops.quant import q8_matmul
 
@@ -159,11 +158,14 @@ def test_quantize_refuses_what_it_cannot_convert():
     bf16.load_state_dict(tm.state_dict())
     with pytest.raises(ValueError, match="fp32"):
         quantize_for_serving(bf16)
-    with pytest.raises(SystemExit, match="--int8: .*fp32"):
-        quantize_cli(bf16)
-    moe = {"block_0": {"mlp": {"router": {"kernel": np.zeros((4, 2))},
+    # MoE experts convert (int8 [E, in, out], fp32 scales [E, out]); an
+    # expert block with a leaf the conversion does not know is refused
+    moe = {"block_0": {"moe": {"router": np.zeros((4, 2), np.float32),
                                "wi": np.zeros((2, 4, 8), np.float32)}}}
-    with pytest.raises(NotImplementedError, match="MoE"):
+    out = quantize_transformer_params(moe)["block_0"]["moe"]
+    assert out["wi_q8"].shape == (2, 4, 8) and out["wi_scale"].shape == (2, 8)
+    moe["block_0"]["moe"]["w9"] = np.zeros((2, 8, 4), np.float32)
+    with pytest.raises(ValueError, match="MoE"):
         quantize_transformer_params(moe)
 
 

@@ -799,11 +799,11 @@ def main(argv=None) -> int:
     else:
         import torch
 
-        from tony_tpu_torch.models.hf import load_llama_dir
+        from tony_tpu_torch.models.hf import load_hf_dir
 
         overrides = {"dtype": torch.bfloat16} if args.dtype == "bf16" \
             else {}
-        model, hf = load_llama_dir(args.model, device=args.device,
+        model, hf = load_hf_dir(args.model, device=args.device,
                                    **overrides,
                                    **decode_attention_for(args.device))
         eos = normalize_eos_ids(args.eos_id) or \

@@ -214,7 +214,7 @@ def main(argv=None) -> int:
 
     from tony_tpu_torch.models.generate import (beam_search, generate,
                                                 normalize_eos_ids)
-    from tony_tpu_torch.models.hf import load_llama_dir
+    from tony_tpu_torch.models.hf import load_hf_dir
 
     overrides = {"kv_cache_quant": args.kv_int8}
     if args.dtype == "bf16" and args.int8:
@@ -224,11 +224,11 @@ def main(argv=None) -> int:
         overrides["dtype"] = torch.bfloat16
     if args.flash_decode:
         overrides["decode_attention"] = "flash"
-    model, hf = load_llama_dir(args.model, device=args.device, **overrides)
-    if args.int8:
-        from tony_tpu_torch.models.quantize import quantize_cli
-
-        model = quantize_cli(model)
+    try:
+        model, hf = load_hf_dir(args.model, device=args.device,
+                                int8=args.int8, **overrides)
+    except ValueError as e:
+        raise SystemExit(str(e))
     # HF configs may ship a LIST of eos ids; the loops stop on any
     eos = normalize_eos_ids(args.eos_id) or \
         normalize_eos_ids(hf.get("eos_token_id"))

@@ -104,10 +104,10 @@ def load(args):
         return demo_model(args.device), normalize_eos_ids(args.eos_id)
     import torch
 
-    from tony_tpu_torch.models.hf import load_llama_dir
+    from tony_tpu_torch.models.hf import load_hf_dir
 
     overrides = {"dtype": torch.bfloat16} if args.dtype == "bf16" else {}
-    model, hf = load_llama_dir(args.model, device=args.device, **overrides,
+    model, hf = load_hf_dir(args.model, device=args.device, **overrides,
                                **decode_attention_for(args.device))
     return model, normalize_eos_ids(args.eos_id) or \
         normalize_eos_ids(hf.get("eos_token_id"))

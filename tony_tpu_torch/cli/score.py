@@ -114,7 +114,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from tony_tpu_torch.models.hf import load_llama_dir
+    from tony_tpu_torch.models.hf import load_hf_dir
 
     overrides = {"kv_cache_quant": args.kv_int8}
     if args.dtype == "bf16" and args.int8:
@@ -122,11 +122,11 @@ def main(argv=None) -> int:
               "--dtype bf16 is ignored", file=sys.stderr)
     elif args.dtype == "bf16":
         overrides["dtype"] = torch.bfloat16
-    model, _ = load_llama_dir(args.model, device=args.device, **overrides)
-    if args.int8:
-        from tony_tpu_torch.models.quantize import quantize_cli
-
-        model = quantize_cli(model)
+    try:
+        model, _ = load_hf_dir(args.model, device=args.device,
+                               int8=args.int8, **overrides)
+    except ValueError as e:
+        raise SystemExit(str(e))
 
     limit = min(args.max_len or model.cfg.max_seq_len,
                 model.cfg.max_seq_len)

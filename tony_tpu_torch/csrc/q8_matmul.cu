@@ -76,6 +76,18 @@
 // second kernel adds the partials in split order. Any m, n, k: ragged
 // edges load zeros, stores are bounds-checked, and 16-byte copies are
 // used only where the row stride and the base pointer allow them.
+//
+// Expert-batched form (tony_q8_matmul_experts): the same product for E
+// weight matrices q [E, k, n] with scales [E, n] into out [E, m, n], in
+// one launch, as jax.vmap(q8_matmul) over the expert axis is one Pallas
+// call with an expert grid dimension (the int8 MoE expert FFN of
+// tony_tpu/parallel/moe.py, _q8_expert_ffn). x is [E, m, k] (stride m k
+// between experts) or one [m, k] that every expert reads (stride 0, the
+// dropless FFN's broadcast tokens). The decode route puts the expert on
+// grid z (the K-split cluster stays within one expert); routes 1 and 2
+// fold it into grid z beside the K split. Each block moves its pointers
+// to its expert's matrices first; every bound check below is then the
+// single matrix's.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -342,10 +354,16 @@ __global__ void __launch_bounds__(NT, MR <= 8 ? 3 : 2)
     q8_decode_kernel(const float* __restrict__ x,
                      const int8_t* __restrict__ w,
                      const float* __restrict__ scale, OT* __restrict__ out,
-                     int m, int n, int k, int vec_x, int vec_w) {
+                     int m, int n, int k, int vec_x, int vec_w,
+                     long long xstride) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int STAGE = dec_stage<float, MR>(), XLD = dec_xld<float>();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // this block's expert (grid z): its x rows, weight, scale and output
+  x += blockIdx.z * xstride;
+  w += (size_t)blockIdx.z * k * n;
+  scale += (size_t)blockIdx.z * n;
+  out += (size_t)blockIdx.z * m * n;
   const int n0 = blockIdx.x * DEC_BN;
   const int nst = dec_nst(k);
   if (gridDim.y > 1) cluster_arrive_relaxed();  // waited for in dec_finish
@@ -428,8 +446,14 @@ __global__ void __launch_bounds__(NT, 3)
     q8_decode_tc_kernel(const uint16_t* __restrict__ x,
                         const int8_t* __restrict__ w,
                         const float* __restrict__ scale, OT* __restrict__ out,
-                        int m, int n, int k, int vec_x, int vec_w) {
+                        int m, int n, int k, int vec_x, int vec_w,
+                        long long xstride) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // this block's expert (grid z): its x rows, weight, scale and output
+  x += blockIdx.z * xstride;
+  w += (size_t)blockIdx.z * k * n;
+  scale += (size_t)blockIdx.z * n;
+  out += (size_t)blockIdx.z * m * n;
   constexpr int R = NB * 8, STAGE = dec_stage<uint16_t, R>();
   constexpr int XLD = dec_xld<uint16_t>();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -523,12 +547,18 @@ __global__ void __launch_bounds__(NT)
     q8_tc_kernel(const uint16_t* __restrict__ x, const int8_t* __restrict__ w,
                  const float* __restrict__ scale, OT* __restrict__ out,
                  float* __restrict__ part, int m, int n, int k, int kps,
-                 int vec_x, int vec_w) {
+                 int vec_x, int vec_w, int splits, long long xstride) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
   const int n0 = blockIdx.x * TILE_N, m0 = blockIdx.y * TILE_M;
-  const int z = blockIdx.z;
+  const int z = blockIdx.z % splits, ex = blockIdx.z / splits;
+  x += ex * xstride;  // this block's expert (see the decode kernels)
+  w += (size_t)ex * k * n;
+  scale += (size_t)ex * n;
+  out += (size_t)ex * m * n;
+  const bool split = splits > 1;
+  if (split) part += (size_t)ex * splits * m * n;
   const int kbeg = z * kps, kend = min(k, kbeg + kps);
   const int nkt = kend > kbeg ? (kend - kbeg + TILE_K - 1) / TILE_K : 0;
   unsigned char* wb = smem + TC_STAGES * TC_STAGE;  // bf16 [TILE_K][WLD]
@@ -626,7 +656,6 @@ __global__ void __launch_bounds__(NT)
   }
   cp_wait<0>();
 
-  const bool split = gridDim.z > 1;
   const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
@@ -716,7 +745,7 @@ __global__ void __launch_bounds__(NT)
     q8_matmul_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
                      const float* __restrict__ scale, OT* __restrict__ out,
                      float* __restrict__ part, int m, int n, int k, int kps,
-                     int vec_x, int vec_w) {
+                     int vec_x, int vec_w, int splits, long long xstride) {
   constexpr int TX = BN / TN;  // threads along n
   static_assert(TX * (BM / TM) == NT, "tile does not match the block");
   static_assert(TN % 4 == 0, "columns come in groups of 4");
@@ -736,7 +765,14 @@ __global__ void __launch_bounds__(NT)
   const int tid = threadIdx.x;
   const int tx = tid % TX, ty = tid / TX;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kbeg = blockIdx.z * kps;
+  const int z = blockIdx.z % splits, ex = blockIdx.z / splits;
+  x += ex * xstride;  // this block's expert (see the decode kernels)
+  w += (size_t)ex * k * n;
+  scale += (size_t)ex * n;
+  out += (size_t)ex * m * n;
+  const bool split = splits > 1;
+  if (split) part += (size_t)ex * splits * m * n;
+  const int kbeg = z * kps;
   const int kend = min(k, kbeg + kps);
 
   auto row_of = [&](int i) {
@@ -838,7 +874,6 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
   }
 
-  const bool split = gridDim.z > 1;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = m0 + row_of(i);
@@ -848,26 +883,28 @@ __global__ void __launch_bounds__(NT)
       const int c = n0 + col_of(j);
       if (c >= n) continue;
       if (split)
-        part[((size_t)blockIdx.z * m + r) * n + c] = acc[i][j];
+        part[((size_t)z * m + r) * n + c] = acc[i][j];
       else
         out[(size_t)r * n + c] = to_out<OT>(acc[i][j] * scale[c]);
     }
   }
 }
 
-// routes 1 and 2: the split-K partials [splits, m, n], added in split
-// order, then the scale and one rounding
+// routes 1 and 2: the split-K partials [experts, splits, m, n], added in
+// split order, then the scale and one rounding
 template <typename OT>
 __global__ void __launch_bounds__(NT)
     q8_combine_kernel(const float* __restrict__ part,
                       const float* __restrict__ scale, OT* __restrict__ out,
-                      int m, int n, int splits) {
-  const size_t total = (size_t)m * n;
+                      int m, int n, int splits, int experts) {
+  const size_t mn = (size_t)m * n, total = mn * experts;
   for (size_t e = (size_t)blockIdx.x * NT + threadIdx.x; e < total;
        e += (size_t)gridDim.x * NT) {
+    const size_t ex = e / mn, r = e - ex * mn;
+    const float* p = part + ex * splits * mn + r;
     float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += part[z * total + e];
-    out[e] = to_out<OT>(s * scale[e % n]);
+    for (int z = 0; z < splits; ++z) s += p[z * mn];
+    out[e] = to_out<OT>(s * scale[ex * n + r % n]);
   }
 }
 
@@ -897,8 +934,8 @@ constexpr int dec_rows(int m) {
 
 // a decode launch: a cluster of the K splits of each column slab
 template <typename K, typename... A>
-int launch_dec(K kern, int smem, int n, int splits, cudaStream_t st,
-               A... args) {
+int launch_dec(K kern, int smem, int n, int splits, int experts,
+               cudaStream_t st, A... args) {
   cudaError_t e = allow_smem(kern, smem);
   if (e == cudaSuccess && splits > 8)
     e = cudaFuncSetAttribute(kern,
@@ -906,7 +943,7 @@ int launch_dec(K kern, int smem, int n, int splits, cudaStream_t st,
                              1);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n + DEC_BN - 1) / DEC_BN, splits);
+  cfg.gridDim = dim3((n + DEC_BN - 1) / DEC_BN, splits, experts);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -922,8 +959,8 @@ int launch_dec(K kern, int smem, int n, int splits, cudaStream_t st,
 
 template <typename XT, typename OT>
 int launch(int route, const void* xv, const void* wv, const void* sv,
-           void* ov, void* pv, int m, int n, int k, int splits, int kps,
-           cudaStream_t st) {
+           void* ov, void* pv, int experts, long long xs, int m, int n,
+           int k, int splits, int kps, cudaStream_t st) {
   const XT* x = static_cast<const XT*>(xv);
   const int8_t* w = static_cast<const int8_t*>(wv);
   const float* scale = static_cast<const float*>(sv);
@@ -938,55 +975,55 @@ int launch(int route, const void* xv, const void* wv, const void* sv,
     if constexpr (sizeof(XT) == 2) {  // bf16 x: tensor cores
       if (m <= 8)
         return launch_dec(q8_decode_tc_kernel<OT, 1>,
-                          dec_smem<uint16_t, 8>(), n, splits, st, x, w,
-                          scale, out, m, n, k, vec_x, vec_w);
+                          dec_smem<uint16_t, 8>(), n, splits, experts, st, x,
+                          w, scale, out, m, n, k, vec_x, vec_w, xs);
       return launch_dec(q8_decode_tc_kernel<OT, 2>, dec_smem<uint16_t, 16>(),
-                        n, splits, st, x, w, scale, out, m, n, k, vec_x,
-                        vec_w);
+                        n, splits, experts, st, x, w, scale, out, m, n, k,
+                        vec_x, vec_w, xs);
     } else {  // fp32 x: SIMT
       switch (dec_rows(m)) {
         case 1:
           return launch_dec(q8_decode_kernel<OT, 1>, dec_smem<float, 1>(), n,
-                            splits, st, x, w, scale, out, m, n, k, vec_x,
-                            vec_w);
+                            splits, experts, st, x, w, scale, out, m, n, k,
+                            vec_x, vec_w, xs);
         case 4:
           return launch_dec(q8_decode_kernel<OT, 4>, dec_smem<float, 4>(), n,
-                            splits, st, x, w, scale, out, m, n, k, vec_x,
-                            vec_w);
+                            splits, experts, st, x, w, scale, out, m, n, k,
+                            vec_x, vec_w, xs);
         case 8:
           return launch_dec(q8_decode_kernel<OT, 8>, dec_smem<float, 8>(), n,
-                            splits, st, x, w, scale, out, m, n, k, vec_x,
-                            vec_w);
+                            splits, experts, st, x, w, scale, out, m, n, k,
+                            vec_x, vec_w, xs);
         default:
           return launch_dec(q8_decode_kernel<OT, 16>, dec_smem<float, 16>(),
-                            n, splits, st, x, w, scale, out, m, n, k, vec_x,
-                            vec_w);
+                            n, splits, experts, st, x, w, scale, out, m, n,
+                            k, vec_x, vec_w, xs);
       }
     }
   }
   if (kps % TILE_K != 0) return -1;
   const dim3 grid((n + TILE_N - 1) / TILE_N, (m + TILE_M - 1) / TILE_M,
-                  splits);
+                  splits * experts);
   if constexpr (sizeof(XT) == 2) {
     if (route != 1) return -1;
     auto kern = q8_tc_kernel<OT>;
     cudaError_t e = allow_smem(kern, TC_SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     kern<<<grid, NT, TC_SMEM, st>>>(x, w, scale, out, part, m, n, k, kps,
-                                    vec_x, vec_w);
+                                    vec_x, vec_w, splits, xs);
   } else {
     if (route != 2) return -1;
     q8_matmul_kernel<float, OT, TILE_M, TILE_N, TILE_K, 8, 8>
         <<<grid, NT, 0, st>>>(x, w, scale, out, part, m, n, k, kps, vec_x,
-                              vec_w);
+                              vec_w, splits, xs);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  const size_t total = (size_t)m * n;
+  const size_t total = (size_t)m * n * experts;
   const int blocks =
       (int)((total + NT - 1) / NT < 8192 ? (total + NT - 1) / NT : 8192);
   q8_combine_kernel<OT><<<blocks, NT, 0, st>>>(part, scale, out, m, n,
-                                               splits);
+                                               splits, experts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1001,34 +1038,53 @@ extern "C" int tony_q8_matmul_route(int x_code, int m) {
   return x_code == 1 ? 1 : 2;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16. x [m, k], w [k, n] int8,
-// scale [n] fp32 and out [m, n] are contiguous device arrays. `route` is
-// tony_q8_matmul_route's, with `splits` K splits. On route 0 split z of
-// S takes the DEC_BK-row stages z, z + S, ..., and S is at most
-// DEC_MAX_SPLITS (one cluster); `kps` is unused. On routes 1 and 2 a
-// split is `kps` rows, a multiple of TILE_K, and with splits > 1 `part`
-// is fp32 scratch of splits * m * n elements (else unused).
-// Returns the launch's CUDA error (0 = launched), or -1 for arguments
-// the kernels are not built for.
+// dtype codes: 0 = float32, 1 = bfloat16. For each of `experts` experts
+// e: x_e [m, k] (x + e * x_stride elements; x_stride 0 reads one x for
+// every expert), w [e][k, n] int8, scale [e][n] fp32 and out [e][m, n],
+// all contiguous device arrays. `route` is tony_q8_matmul_route's, with
+// `splits` K splits an expert. On route 0 split z of S takes the
+// DEC_BK-row stages z, z + S, ..., and S is at most DEC_MAX_SPLITS (one
+// cluster); `kps` is unused. On routes 1 and 2 a split is `kps` rows, a
+// multiple of TILE_K, and with splits > 1 `part` is fp32 scratch of
+// experts * splits * m * n elements (else unused). One launch (two with
+// the split-K combine) for every expert. Returns the launch's CUDA error
+// (0 = launched), or -1 for arguments the kernels are not built for.
+extern "C" int tony_q8_matmul_experts(int x_code, int out_code,
+                                      const void* x, const void* w,
+                                      const void* scale, void* out,
+                                      void* part, int experts,
+                                      long long x_stride, int m, int n,
+                                      int k, int route, int splits, int kps,
+                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route != tony_q8_matmul_route(x_code, m) || splits < 1 ||
+      experts < 1 || experts > 65535 || (long long)splits * experts > 65535)
+    return -1;
+  if (x_code == 0 && out_code == 0)
+    return launch<float, float>(route, x, w, scale, out, part, experts,
+                                x_stride, m, n, k, splits, kps, st);
+  if (x_code == 0 && out_code == 1)
+    return launch<float, __nv_bfloat16>(route, x, w, scale, out, part,
+                                        experts, x_stride, m, n, k, splits,
+                                        kps, st);
+  if (x_code == 1 && out_code == 0)
+    return launch<uint16_t, float>(route, x, w, scale, out, part, experts,
+                                   x_stride, m, n, k, splits, kps, st);
+  if (x_code == 1 && out_code == 1)
+    return launch<uint16_t, __nv_bfloat16>(route, x, w, scale, out, part,
+                                           experts, x_stride, m, n, k,
+                                           splits, kps, st);
+  return -1;
+}
+
+// One matrix: x [m, k], w [k, n] int8, scale [n] fp32, out [m, n]; as
+// tony_q8_matmul_experts with one expert.
 extern "C" int tony_q8_matmul(int x_code, int out_code, const void* x,
                               const void* w, const void* scale, void* out,
                               void* part, int m, int n, int k, int route,
                               int splits, int kps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route != tony_q8_matmul_route(x_code, m) || splits < 1) return -1;
-  if (x_code == 0 && out_code == 0)
-    return launch<float, float>(route, x, w, scale, out, part, m, n, k,
-                                splits, kps, st);
-  if (x_code == 0 && out_code == 1)
-    return launch<float, __nv_bfloat16>(route, x, w, scale, out, part, m, n,
-                                        k, splits, kps, st);
-  if (x_code == 1 && out_code == 0)
-    return launch<uint16_t, float>(route, x, w, scale, out, part, m, n, k,
-                                   splits, kps, st);
-  if (x_code == 1 && out_code == 1)
-    return launch<uint16_t, __nv_bfloat16>(route, x, w, scale, out, part, m,
-                                           n, k, splits, kps, st);
-  return -1;
+  return tony_q8_matmul_experts(x_code, out_code, x, w, scale, out, part, 1,
+                                0, m, n, k, route, splits, kps, stream);
 }
 
 // The tile constants the wrapper's plan mirrors: 0 DEC_ROWS, 1 DEC_BN,

@@ -17,6 +17,10 @@ something to resume.
         --task_params "--steps 8 --result /tmp/r.json" \\
         --conf tony.worker.instances=1 --conf tony.worker.chips=1
 
+``--moe`` makes every second block a routed mixture of experts (4
+experts, top-2, the JAX example's), its load-balancing loss added to
+the objective through ``moe_aux_loss``.
+
 ``--device cpu`` (with ``cli.local --device cpu``) runs it on the CPU
 through the kernels' plain versions, at a size that fits there.
 ``--result`` receives one JSON object: the losses, ms a step, each
@@ -73,7 +77,7 @@ def build(cfg, *, seed: int, micro: int, accum: int, seq_len: int,
     import torch
 
     from tony_tpu_torch.data import ArraySource, DataLoader
-    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.models.transformer import Transformer, moe_aux_loss
     from tony_tpu_torch.ops.xent import chunked_cross_entropy
     from tony_tpu_torch.train import FusedAdamW, Trainer
 
@@ -82,11 +86,14 @@ def build(cfg, *, seed: int, micro: int, accum: int, seq_len: int,
     cdt = torch.bfloat16
 
     def apply_fn(m, batch):
-        hidden = m(batch["tokens"], return_hidden=True)
-        return chunked_cross_entropy(hidden[:, :-1], m.embedding,
-                                     batch["tokens"][:, 1:],
-                                     chunk_size=XENT_CHUNK,
-                                     compute_dtype=cdt)
+        losses = [] if cfg.moe_every else None
+        hidden = m(batch["tokens"], return_hidden=True, losses=losses)
+        ce = chunked_cross_entropy(hidden[:, :-1], m.embedding,
+                                   batch["tokens"][:, 1:],
+                                   chunk_size=XENT_CHUNK, compute_dtype=cdt)
+        # the MoE blocks' load-balancing loss, or the router can collapse
+        # onto a few experts
+        return ce + moe_aux_loss(losses) if cfg.moe_every else ce
 
     def warmup_lr(count):
         return lr * torch.clamp((count + 1).float() / warmup, max=1.0)
@@ -119,6 +126,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--config-json",
                    help="a Llama-family config.json (default Qwen2.5-1.5B)")
     p.add_argument("--layers", type=int, help="cut the depth to N layers")
+    p.add_argument("--moe", action="store_true",
+                   help="every second block a routed MoE (4 experts, "
+                        "top-2)")
     p.add_argument("--steps", type=int, default=8,
                    help="the step budget a retry completes")
     p.add_argument("--micro", type=int, default=4)
@@ -158,7 +168,9 @@ def main(argv=None) -> int:
             hf = json.load(f)
     if args.layers:
         hf = {**hf, "num_hidden_layers": args.layers}
-    cfg = train_config(hf, args.max_seq_len, dtype=torch.bfloat16)
+    moe = dict(moe_every=2, moe_num_experts=4, moe_top_k=2,
+               gated_mlp=False) if args.moe else {}
+    cfg = train_config(hf, args.max_seq_len, dtype=torch.bfloat16, **moe)
     model, trainer, loader = build(
         cfg, seed=args.seed, micro=args.micro, accum=args.accum,
         seq_len=args.seq_len, lr=args.lr, warmup=args.warmup,

@@ -2,14 +2,17 @@
 
 ``from_jax_params`` takes the tree ``tony_tpu.models.Transformer.init``
 returns (``embedding``, ``ln_f``, ``lm_head``, ``block_i/{ln1, ln2,
-attn/{q,k,v,o}, mlp/{wg,wi,wo}}``), each leaf a numpy array, and
-returns tensors keyed as the port's ``Transformer.state_dict()``:
-flax kernels ``[in, ...out]`` become ``nn.Linear``'s ``[out, in]``; the
-int8 tree ``models.quantize`` makes (``{kernel_q8, scale, bias?}`` under
-each projection) maps onto a ``cfg.quantized`` model's ``QuantDense``
-buffers as it is, int8 kept int8.
-Strict both ways: a leaf it cannot map, or a port parameter no leaf
-fills, raises.
+attn/{q,k,v,o}, mlp/{wg,wi,wo}}``, and ``block_i/moe/{router, wi, wg,
+wo}`` in an MoE block), each leaf a numpy array, and returns tensors
+keyed as the port's ``Transformer.state_dict()``: flax kernels ``[in,
+...out]`` become ``nn.Linear``'s ``[out, in]``; the expert leaves keep
+their layout (``router`` [D, E], ``wi``/``wg`` [E, D, F], ``wo`` [E, F,
+D]); the int8 tree ``models.quantize`` makes (``{kernel_q8, scale,
+bias?}`` under each projection, ``{wi_q8, wi_scale, ...}`` beside the
+router) maps onto a ``cfg.quantized`` model's buffers as it is, int8
+kept int8. Strict both ways: a leaf it cannot map, or a port parameter
+no leaf fills, raises. ``to_jax_params`` is the inverse: a port
+``state_dict`` back to the JAX tree.
 
 ``from_jax_train_state`` carries a whole JAX ``TrainState`` across
 (params, and the ``FusedAdamWState`` count, moments and compute copy),
@@ -35,6 +38,11 @@ import torch
 from tony_tpu_torch.models.quantize import _DENSE_NAMES
 
 
+# an MoE block's leaves, in the same layout in both packages
+_MOE_LEAVES = ("router", "wi", "wg", "wo", "wi_q8", "wg_q8", "wo_q8",
+               "wi_scale", "wg_scale", "wo_scale")
+
+
 def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     if isinstance(tree, dict) or hasattr(tree, "items"):
         out: dict[str, np.ndarray] = {}
@@ -56,6 +64,8 @@ def _map_leaf(path: str, x: np.ndarray) -> tuple[str, np.ndarray]:
         raise ValueError(f"unmapped param leaf {path!r}")
     i = int(top[len("block_"):])
     sub = parts[1:]
+    if len(sub) == 2 and sub[0] == "moe" and sub[1] in _MOE_LEAVES:
+        return f"blocks.{i}.moe.{sub[1]}", x
     if sub[0] in ("ln1", "ln2") and len(sub) == 2 \
             and sub[1] in ("scale", "bias"):
         return f"blocks.{i}.{sub[0]}.{sub[1]}", x
@@ -118,6 +128,48 @@ def from_jax_params(params_np: Any, cfg, keep_dtype: bool = False) \
             raise ValueError(f"{key}: shape {tuple(t.shape)}, config "
                              f"wants {tuple(want[key].shape)}")
     return out
+
+
+def _unmap_key(key: str, x: np.ndarray, cfg) -> tuple[list, np.ndarray]:
+    """One port ``state_dict`` entry -> (its JAX path, the JAX leaf)."""
+    parts = key.split(".")
+    if parts[0] != "blocks":
+        if parts[0] == "ln_f":
+            return ["ln_f", parts[1]], x
+        return [parts[0]], x
+    i, mod, *rest = parts[1:]
+    path = [f"block_{i}", mod, *rest]
+    if mod in ("ln1", "ln2", "moe") or rest[-1] in ("kernel_q8", "scale"):
+        return path, x
+    name, leaf = rest
+    heads = {"q": cfg.n_heads, "k": cfg.kv_heads, "v": cfg.kv_heads}
+    dh = cfg.head_dim
+    if leaf == "bias":
+        if mod == "attn" and name in heads:
+            return path, x.reshape(heads[name], dh)
+        return path, x
+    path[-1] = "kernel"
+    if mod == "attn" and name in heads:  # [heads*dh, d] -> [d, heads, dh]
+        return path, x.T.reshape(x.shape[1], heads[name], dh)
+    if mod == "attn" and name == "o":  # [d, heads*dh] -> [heads, dh, d]
+        return path, x.T.reshape(cfg.n_heads, dh, x.shape[0])
+    return path, x.T
+
+
+def to_jax_params(state_dict: dict, cfg) -> dict:
+    """The port's ``state_dict`` -> the JAX param tree (``{"params":
+    ...}``, numpy leaves; bf16 as fp32): ``from_jax_params``' inverse."""
+    tree: dict = {}
+    for key, t in state_dict.items():
+        arr = t.detach().cpu()
+        arr = arr.numpy() if arr.dtype == torch.int8 else \
+            arr.float().numpy()
+        path, leaf = _unmap_key(key, arr, cfg)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = leaf
+    return {"params": tree}
 
 
 def from_jax_train_state(state_np: Any, cfg):

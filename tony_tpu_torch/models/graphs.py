@@ -24,9 +24,9 @@ be another's: a decode chunk's gathered page view alone is about a GB
 at full width, and the serving engine holds tens of keys.
 
 Launch counts: each kernel wrapper counts its launches in Python
-(``flash_decode.launches``, ``q8_matmul.launches`` and
-``route_launches``, the flash attention kernels' and fused AdamW's,
-``COUNTED``). A capture calls the wrappers but launches
+(``flash_decode.launches``, ``q8_matmul.launches``,
+``q8_matmul_experts.launches`` and their ``route_launches``, the flash
+attention kernels' and fused AdamW's, ``COUNTED``). A capture calls the wrappers but launches
 nothing, and a replay launches with no call, so a capture records what
 it added to the counts and restores them, and each replay adds that
 record back: the counts stay the launches on the card.
@@ -60,13 +60,13 @@ from tony_tpu_torch.ops.attention import (flash_attention_bwd_dkv,
                                           flash_attention_bwd_dq,
                                           flash_attention_fwd)
 from tony_tpu_torch.ops.decode import flash_decode
-from tony_tpu_torch.ops.quant import q8_matmul
+from tony_tpu_torch.ops.quant import q8_matmul, q8_matmul_experts
 
 # the counting wrappers a captured call reaches: the decode forward's,
 # then the training step's
-COUNTED = (flash_decode, q8_matmul, flash_attention_fwd,
-           flash_attention_bwd_dq, flash_attention_bwd_dkv,
-           fused_adamw_update)
+COUNTED = (flash_decode, q8_matmul, q8_matmul_experts,
+           flash_attention_fwd, flash_attention_bwd_dq,
+           flash_attention_bwd_dkv, fused_adamw_update)
 # the parts of a capture that ``CudaGraphs.capture`` times
 CAPTURE_PARTS = ("sync", "gc", "empty_cache", "record")
 

@@ -38,10 +38,18 @@ per-column scale as buffers and runs ``ops.quant.q8_matmul`` (the CUDA
 kernel on the GPU); ``models.quantize.quantize_for_serving`` converts a
 float model.
 
-Left out, refused at config construction: MoE (``moe_every``),
-``scan_layers``, ``shard_activations``/``mesh`` (so ``QuantDense`` has
-no tensor-parallel form yet), and the ring and ulysses attention
-backends.
+MoE (``moe_every``): every ``moe_every``-th block holds ``MoEMLP``
+(named ``moe``, as the JAX ``Block`` names it) in place of the dense
+MLP: an fp32 router and expert weights [E, ...] run by
+``parallel.moe.moe_layer``; with ``cfg.quantized`` the experts are int8
+buffers run by the expert-batched kernel. Each MoE block's
+load-balancing loss goes into the ``losses`` list a caller passes to
+``forward`` (the counterpart of flax's ``sow`` into ``"losses"``), and
+``moe_aux_loss`` sums it; plain inference passes none.
+
+Left out, refused at config construction: ``scan_layers``,
+``shard_activations``/``mesh`` (so ``QuantDense`` and the experts have
+no sharded form yet), and the ring and ulysses attention backends.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from tony_tpu_torch.ops.attention import flash_attention
 from tony_tpu_torch.ops.decode import flash_decode, quantize_kv
 from tony_tpu_torch.ops.quant import q8_matmul
+from tony_tpu_torch.parallel.moe import MoEConfig, moe_layer
 from tony_tpu_torch.parallel.ring_attention import reference_attention
 
 NEG_INF = -1e30
@@ -159,7 +168,6 @@ class TransformerConfig:
                 f"unknown remat_policy {self.remat_policy!r}; "
                 "expected one of: nothing, dots, attn_saved")
         later = {
-            "moe_every": self.moe_every > 0,
             "scan_layers": self.scan_layers,
             "shard_activations": self.shard_activations,
             "mesh": self.mesh is not None,
@@ -619,17 +627,77 @@ class MLP(nn.Module):
         return self.wo(h)
 
 
-class Block(nn.Module):
+class MoEMLP(nn.Module):
+    """The expert FFN (``moe_every``), the counterpart of the JAX
+    ``MoEMLP``: ``router`` [D, E] fp32 (routing in bf16 flips top-k
+    choices), experts ``wi``/``wg`` [E, D, F] and ``wo`` [E, F, D] held
+    in ``cfg.dtype`` (the JAX package stores them fp32 and casts them on
+    every call, which gives the same values), F = ``moe_d_ff`` or
+    ``d_ff``. With ``cfg.quantized`` the experts are buffers ``wi_q8``
+    int8 with ``wi_scale`` fp32 [E, F] (and so on), per (expert, output
+    column), filled by ``models.quantize``. ``forward`` returns the
+    output in ``cfg.dtype`` and the fp32 load-balancing loss."""
+
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        e, d = cfg.moe_num_experts, cfg.d_model
+        f = cfg.moe_d_ff or cfg.d_ff
+        self.moe_cfg = MoEConfig(
+            num_experts=e, capacity_factor=cfg.moe_capacity_factor,
+            top_k=cfg.moe_top_k, d_model=d, d_ff=f, gated=cfg.moe_gated,
+            activation=cfg.moe_activation,
+            renormalize_top_k=cfg.moe_renormalize,
+            dropless=cfg.moe_dropless, mesh=cfg.mesh)
+        self.router = nn.Parameter(torch.empty(d, e, dtype=torch.float32,
+                                               device=device))
+        self.names = ("wi", "wg", "wo") if cfg.moe_gated else ("wi", "wo")
+        for nm in self.names:
+            shp = (e, f, d) if nm == "wo" else (e, d, f)
+            if cfg.quantized:
+                self.register_buffer(nm + "_q8", torch.zeros(
+                    shp, dtype=torch.int8, device=device))
+                self.register_buffer(nm + "_scale", torch.ones(
+                    shp[0], shp[2], dtype=torch.float32, device=device))
+            else:
+                setattr(self, nm, nn.Parameter(torch.empty(
+                    shp, dtype=cfg.dtype, device=device)))
+
+    def forward(self, x):
+        cfg = self.cfg
+        params = {"router": self.router}
+        for nm in self.names:
+            if cfg.quantized:
+                params[nm + "_q8"] = getattr(self, nm + "_q8")
+                params[nm + "_scale"] = getattr(self, nm + "_scale")
+            else:
+                w = getattr(self, nm)
+                params[nm] = w if w.dtype == cfg.dtype else w.to(cfg.dtype)
+        out, aux = moe_layer(params, x, self.moe_cfg)
+        return out.to(cfg.dtype), aux.float()
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 use_moe: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.use_moe = use_moe
         self.ln1 = make_norm(cfg, device)
         self.attn = Attention(cfg, device)
         self.ln2 = make_norm(cfg, device)
-        self.mlp = MLP(cfg, device)
+        if use_moe:
+            self.moe = MoEMLP(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
     def forward(self, x, decode: bool = False, segment_ids=None,
-                positions=None, page_table=None, cache=None, plan=None):
+                positions=None, page_table=None, cache=None, plan=None,
+                losses: list | None = None):
+        """The block's output; an MoE block appends its load-balancing
+        loss to ``losses`` when given. Under remat the loss is an output
+        of the recomputed function and is appended here, once: the
+        recomputation in the backward appends nothing."""
         cfg = self.cfg
         if cfg.remat and not decode and torch.is_grad_enabled() \
                 and cfg.remat_policy != "attn_saved":
@@ -638,11 +706,20 @@ class Block(nn.Module):
             # no module draws randomness (no dropout): nothing to stash,
             # and stashing reads the CUDA generator, which a graph
             # capture refuses
-            return checkpoint(self._forward, x, False, segment_ids,
-                              use_reentrant=False, preserve_rng_state=False,
-                              **kw)
-        return self._forward(x, decode, segment_ids, positions, page_table,
-                             cache, plan)
+            x, aux = checkpoint(self._forward, x, False, segment_ids,
+                                use_reentrant=False,
+                                preserve_rng_state=False, **kw)
+        else:
+            x, aux = self._forward(x, decode, segment_ids, positions,
+                                   page_table, cache, plan)
+        if aux is not None and losses is not None:
+            losses.append(aux)
+        return x
+
+    def _ffn_call(self, x):
+        if self.use_moe:
+            return self.moe(x)
+        return self.mlp(x), None
 
     def _ffn(self, x, decode: bool):
         cfg = self.cfg
@@ -651,20 +728,23 @@ class Block(nn.Module):
             # attention stays outside the recomputation (its kernels'
             # saved tensors are kept); only the FFN is recomputed, its
             # dot outputs kept
-            return checkpoint(self.mlp, x, use_reentrant=False,
+            return checkpoint(self._ffn_call, x, use_reentrant=False,
                               preserve_rng_state=False,
                               context_fn=_keep_dots)
-        return self.mlp(x)
+        return self._ffn_call(x)
 
     def _forward(self, x, decode: bool = False, segment_ids=None,
                  positions=None, page_table=None, cache=None, plan=None):
+        """(output, the MoE loss or None)."""
         attn_out = self.attn(self.ln1(x), decode=decode,
                              segment_ids=segment_ids, positions=positions,
                              page_table=page_table, cache=cache, plan=plan)
         if self.cfg.parallel_residual:
-            return x + attn_out + self._ffn(self.ln2(x), decode)
+            ffn, aux = self._ffn(self.ln2(x), decode)
+            return x + attn_out + ffn, aux
         x = x + attn_out
-        return x + self._ffn(self.ln2(x), decode)
+        ffn, aux = self._ffn(self.ln2(x), decode)
+        return x + ffn, aux
 
 
 _DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -703,8 +783,10 @@ class Transformer(nn.Module):
                 torch.empty(cfg.max_seq_len, cfg.d_model, **f32))
         elif cfg.positional != "rope":
             raise ValueError(f"unknown positional {cfg.positional!r}")
-        self.blocks = nn.ModuleList(Block(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        every = cfg.moe_every
+        self.blocks = nn.ModuleList(
+            Block(cfg, device, use_moe=every > 0 and (i + 1) % every == 0)
+            for i in range(cfg.n_layers))
         self.ln_f = make_norm(cfg, device)
         if not cfg.tied_embeddings:
             self.lm_head = nn.Parameter(
@@ -752,11 +834,14 @@ class Transformer(nn.Module):
 
     def forward(self, tokens, decode: bool = False,
                 return_hidden: bool = False, segment_ids=None,
-                positions=None, page_table=None, cache: dict | None = None):
+                positions=None, page_table=None, cache: dict | None = None,
+                losses: list | None = None):
         """Logits [B, L, V] in fp32 (or the final [B, L, D] activations
         with ``return_hidden``). ``positions`` [B] or [B, L] and
         ``page_table`` [B, cols] select the per-slot and paged decode
-        modes, as in the JAX ``Transformer.__call__``."""
+        modes, as in the JAX ``Transformer.__call__``. ``losses``, a
+        list, receives each MoE block's load-balancing loss (fp32
+        scalars, in block order) for ``moe_aux_loss``."""
         if segment_ids is not None and decode:
             raise ValueError("segment_ids are a training-path feature; "
                              "decode has no segment notion")
@@ -789,7 +874,7 @@ class Transformer(nn.Module):
             x = block(x, decode, segment_ids=segment_ids,
                       positions=positions, page_table=page_table,
                       cache=cache[f"block_{i}"] if decode else None,
-                      plan=plan)
+                      plan=plan, losses=losses)
         x = self.ln_f(x).float()
         return x if return_hidden else self.logits(x)
 
@@ -802,3 +887,11 @@ class Transformer(nn.Module):
         if self.cfg.lm_head_bias:
             logits = logits + self.lm_head_bias
         return logits
+
+
+def moe_aux_loss(losses, weight: float = 0.01) -> torch.Tensor:
+    """``weight`` times the sum of the MoE load-balancing losses a
+    forward appended to ``losses`` (fp32; 0 when there are none)."""
+    if not losses:
+        return torch.zeros((), dtype=torch.float32)
+    return weight * sum(torch.sum(t) for t in losses)

@@ -18,6 +18,11 @@ tile constants mirrored here (``tests/test_torch_q8_plan.py`` pins it).
 Unlike the JAX ``q8_matmul`` it takes any m, n and k: there is no
 m-padding (the kernel checks its bounds) and no XLA fallback for an n
 without a divisor of at least 64 (nothing in the kernel depends on one).
+
+``q8_matmul_experts`` is ``jax.vmap(q8_matmul)`` over a leading expert
+axis (the int8 MoE expert FFN, ``tony_tpu/parallel/moe.py``): one launch
+for every expert, an expert grid dimension on each route, with an x
+broadcast to every expert read at expert stride 0.
 """
 
 from __future__ import annotations
@@ -82,8 +87,9 @@ def error_bound(x, w_q, scale, want) -> torch.Tensor:
     bounds what fp32 sums taken in another order can differ by. Each
     side rounds its fp32 sum to bf16 once; when the two sums straddle a
     rounding point they land one bf16 step apart, and a step is up to
-    2^-7 of the value."""
-    mag = (x.float().abs() @ w_q.float().abs()) * scale.float()
+    2^-7 of the value. Takes ``q8_matmul_experts``' shapes too."""
+    sc = scale.float() if w_q.dim() == 2 else scale.float()[:, None, :]
+    mag = (x.float().abs() @ w_q.float().abs()) * sc
     rel = 2.0 ** -7 if want.dtype == torch.bfloat16 else 0.0
     return rel * want.float().abs() + 2.0 ** -14 * mag
 
@@ -104,6 +110,11 @@ def _lib():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 \
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fe = lib.tony_q8_matmul_experts
+        fe.restype = ctypes.c_int
+        fe.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
     return lib
 
 
@@ -170,9 +181,11 @@ def decode_in_flight(kps: int) -> int:
     return min(DEC_STAGES - 1, kps // DEC_BK) * DEC_BK * DEC_BN
 
 
-def plan(m: int, n: int, k: int, x_dtype, sm_count: int) -> Plan:
-    """The launch of one call, a pure function of its shape, x's dtype
-    and the card's SM count.
+def plan(m: int, n: int, k: int, x_dtype, sm_count: int,
+         experts: int = 1) -> Plan:
+    """The launch of one call, a pure function of its shape, x's dtype,
+    the card's SM count and the number of experts (``q8_matmul_experts``;
+    the grid is one expert's, and the kernel repeats it for each).
 
     Decode: a block a 128-column slab and K split, the splits of a slab
     one cluster: as many splits as fill DEC_BLOCKS_PER_SM blocks an SM in
@@ -181,17 +194,20 @@ def plan(m: int, n: int, k: int, x_dtype, sm_count: int) -> Plan:
     the stages z, z + S, ... (the kernel's order); ``kps`` is the rows of
     the longest. Routes 1 and 2: 128 x 128 tiles; K split so that about
     two blocks run per SM, each split at least MIN_SPLIT_K deep and a
-    whole number of TILE_K."""
+    whole number of TILE_K. With several experts the wave and the blocks
+    an SM are shared out over the experts' slabs and tiles."""
     route = route_of(m, x_dtype)
+    experts = max(1, experts)
     if route == DECODE:
         slabs = -(-n // DEC_BN)
         stages = max(1, -(-k // DEC_BK))
-        splits = min(max(1, DEC_BLOCKS_PER_SM * sm_count // slabs),
+        splits = min(max(1, DEC_BLOCKS_PER_SM * sm_count
+                         // (slabs * experts)),
                      DEC_MAX_SPLITS, stages)
         per = -(-stages // splits)
         splits = -(-stages // per)
         return Plan(route, (slabs, 1, splits), splits, per * DEC_BK)
-    tiles = -(-m // TILE_M) * -(-n // TILE_N)
+    tiles = -(-m // TILE_M) * -(-n // TILE_N) * experts
     want = -(-2 * sm_count // tiles)
     splits = max(1, min(want, k // MIN_SPLIT_K))
     kps = -(-max(k, 1) // splits)
@@ -199,6 +215,50 @@ def plan(m: int, n: int, k: int, x_dtype, sm_count: int) -> Plan:
     splits = -(-max(k, 1) // kps)
     return Plan(route, (-(-n // TILE_N), -(-m // TILE_M), splits), splits,
                 kps)
+
+
+def _launch(x, w_q, scale, out_dtype, experts: int, x_stride: int,
+            wrapper) -> torch.Tensor:
+    """One launch over ``experts`` weight matrices (1: plain
+    ``q8_matmul``); ``x_stride`` is x's elements from one expert's rows
+    to the next (0: every expert reads the same x)."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"q8_matmul runs on cuda or cpu, not {dev}")
+    if w_q.device != dev or scale.device != dev:
+        raise ValueError("x, w_q and scale must share one device")
+    if x.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"x and the output must be float32 or bfloat16, "
+                         f"not {x.dtype} -> {out_dtype}")
+    if scale.dtype != torch.float32:
+        raise ValueError(f"scale must be float32, not {scale.dtype}")
+    if not (x.is_contiguous() and w_q.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError("q8_matmul needs contiguous x, w_q and scale")
+    m, k = x.shape[-2:]
+    n = w_q.shape[-1]
+    shape = (m, n) if w_q.dim() == 2 else (experts, m, n)
+    out = torch.empty(shape, dtype=out_dtype, device=dev)
+    if m == 0 or n == 0 or experts == 0:
+        return out
+    p = plan(m, n, k, x.dtype, _sms(dev.index), experts)
+    # split-K scratch of routes 1 and 2 (the decode route adds its splits
+    # in shared memory)
+    part = torch.empty(experts * p.splits * m * n if p.route != DECODE
+                       and p.splits > 1 else 0, dtype=torch.float32,
+                       device=dev)
+    err = _lib().tony_q8_matmul_experts(
+        _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], x.data_ptr(),
+        w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        part.data_ptr() if part.numel() else None, experts, x_stride, m,
+        n, k, p.route, p.splits, p.kps,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"q8_matmul kernel launch failed: CUDA error "
+                           f"{err}")
+    wrapper.launches += 1
+    wrapper.route_launches[p.route] += 1
+    return out
 
 
 def q8_matmul(x, w_q, scale, *, out_dtype=None) -> torch.Tensor:
@@ -212,44 +272,52 @@ def q8_matmul(x, w_q, scale, *, out_dtype=None) -> torch.Tensor:
     graph ``models.graphs`` keeps the counts true) or raise."""
     _check(x, w_q, scale)
     out_dtype = out_dtype or x.dtype
-    dev = x.device
-    if dev.type == "cpu":
+    if x.device.type == "cpu":
         return q8_matmul_reference(x, w_q, scale, out_dtype)
-    if dev.type != "cuda":
-        raise ValueError(f"q8_matmul runs on cuda or cpu, not {dev}")
-    if w_q.device != dev or scale.device != dev:
-        raise ValueError("x, w_q and scale must share one device")
-    if x.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
-        raise ValueError(f"x and the output must be float32 or bfloat16, "
-                         f"not {x.dtype} -> {out_dtype}")
-    if scale.dtype != torch.float32:
-        raise ValueError(f"scale must be float32, not {scale.dtype}")
-    if not (x.is_contiguous() and w_q.is_contiguous()
-            and scale.is_contiguous()):
-        raise ValueError("q8_matmul needs contiguous x, w_q and scale")
-    m, k = x.shape
-    n = w_q.shape[1]
-    out = torch.empty(m, n, dtype=out_dtype, device=dev)
-    if m == 0 or n == 0:
-        return out
-    p = plan(m, n, k, x.dtype, _sms(dev.index))
-    # split-K scratch of routes 1 and 2 (the decode route adds its splits
-    # in shared memory)
-    part = torch.empty(p.splits * m * n if p.route != DECODE
-                       and p.splits > 1 else 0, dtype=torch.float32,
-                       device=dev)
-    err = _lib().tony_q8_matmul(
-        _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], x.data_ptr(),
-        w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        part.data_ptr() if part.numel() else None, m, n, k, p.route,
-        p.splits, p.kps, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"q8_matmul kernel launch failed: CUDA error "
-                           f"{err}")
-    q8_matmul.launches += 1
-    q8_matmul.route_launches[p.route] += 1
-    return out
+    return _launch(x, w_q, scale, out_dtype, 1, 0, q8_matmul)
 
 
 q8_matmul.launches = 0
 q8_matmul.route_launches = [0, 0, 0]  # by route: DECODE, TENSOR_CORES, SIMT
+
+
+def _check_experts(x, w_q, scale):
+    if w_q.dim() != 3 or x.dim() not in (2, 3) \
+            or x.shape[-1] != w_q.shape[1] \
+            or (x.dim() == 3 and x.shape[0] != w_q.shape[0]) \
+            or tuple(scale.shape) != (w_q.shape[0], w_q.shape[2]):
+        raise ValueError(f"shape mismatch: x{tuple(x.shape)} "
+                         f"w{tuple(w_q.shape)} scale{tuple(scale.shape)}")
+    if w_q.dtype != torch.int8:
+        raise ValueError(f"weights must be int8, not {w_q.dtype}")
+
+
+def q8_matmul_experts_reference(x, w_q, scale, out_dtype=None):
+    """Plain PyTorch ``q8_matmul_experts``: for each expert e, an fp32
+    product of x (or x[e]) and w_q[e], times scale[e], one cast to
+    ``out_dtype`` (default x's dtype)."""
+    _check_experts(x, w_q, scale)
+    out = (x.float() @ w_q.float()) * scale.float()[:, None, :]
+    return out.to(out_dtype or x.dtype)
+
+
+def q8_matmul_experts(x, w_q, scale, *, out_dtype=None) -> torch.Tensor:
+    """``jax.vmap(q8_matmul)`` over the expert axis: x [T, k] (one x for
+    every expert, the dropless FFN's ``in_axes=(None, 0, 0)``) or [E, T,
+    k] (each expert's own rows), int8 w_q [E, k, n], fp32 ``scale`` [E, n]
+    -> [E, T, n] in ``out_dtype`` (default x's dtype).
+
+    CPU tensors run ``q8_matmul_experts_reference``; CUDA tensors launch
+    the kernel once for all E experts (``q8_matmul_experts.launches``
+    and ``route_launches`` count it) or raise."""
+    _check_experts(x, w_q, scale)
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return q8_matmul_experts_reference(x, w_q, scale, out_dtype)
+    stride = x.shape[1] * x.shape[2] if x.dim() == 3 else 0
+    return _launch(x, w_q, scale, out_dtype, w_q.shape[0], stride,
+                   q8_matmul_experts)
+
+
+q8_matmul_experts.launches = 0
+q8_matmul_experts.route_launches = [0, 0, 0]

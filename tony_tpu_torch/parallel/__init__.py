@@ -1,2 +1,16 @@
-"""Attention over whole sequences (``ring_attention.reference_attention``).
-Ring and Ulysses sequence parallelism come with the parallelism slice."""
+"""Attention over whole sequences (``ring_attention.reference_attention``)
+and the mixture of experts on one card (``moe``). Ring and Ulysses
+sequence parallelism and expert parallelism come with the parallelism
+slice."""
+
+from tony_tpu_torch.parallel.moe import (
+    MoEConfig,
+    init_moe_params,
+    moe_layer,
+    moe_logical_axes,
+    top_k_gating,
+)
+from tony_tpu_torch.parallel.ring_attention import reference_attention
+
+__all__ = ["MoEConfig", "init_moe_params", "moe_layer", "moe_logical_axes",
+           "reference_attention", "top_k_gating"]
