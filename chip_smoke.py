@@ -103,8 +103,10 @@ exits non-zero.
 12. int8 CLI: over a 2-layer full-width checkpoint, ``cli.generate
    --int8 --token-ids``, ``cli.score --int8`` and ``cli.score``; the
    int8 nll/token within 5% of the fp32 one; ``--serve --int8`` refused.
-13. Serving options, each on phase 4's configuration (a fresh Server a
-   part; every run held to ``check_run``: requests finished as budget
+13. Serving options, each on phase 4's configuration at
+   ``OPTIONS_LAYERS`` (14) of its 28 layers (the smoke's clock; a fresh
+   Server a part, each held to 13a's Server without speculation at that
+   depth; every run held to ``check_run``: requests finished as budget
    and eos say, no page leaked, flash-decode n_layers times a
    single-token micro-step, every chunk, verify round, prefill and
    prefill chunk a capture or a replay):
@@ -132,8 +134,9 @@ exits non-zero.
       KVH=8, D=128, S=8192, window 4096, lengths 4200-6000, bf16),
       held to ``decode_tolerance``, timed beside its plain version,
       SDPA with the window mask and its bound;
-   a. Mistral-7B-v0.1 at full width and depth (published config,
-      ``max_seq_len`` 8192, seeded random bf16 weights) through
+   a. Mistral-7B-v0.1 at full width and ``MISTRAL_LAYERS`` (16) of its
+      32 layers (the smoke's clock; published config, ``max_seq_len``
+      8192, seeded random bf16 weights) through
       ``Server(paged=None)``, asserted unpaged: batch 8, chunks of up to
       8, flash-decode, no prefix store; 16 greedy requests (8 prompts of
       4200-6000 tokens, 8 of 64-1024, budgets 64-256): tok/s, TTFT,
@@ -162,7 +165,7 @@ exits non-zero.
       ``--num-beams 4`` and ``--repetition-penalty 1.3``.
 15. The gateway (``tony_tpu_torch.gateway``), in process:
    a. two replicas of phase 4's serving configuration cut to
-      ``GATEWAY_LAYERS`` (14) of its 28 layers (the smoke's clock; the
+      ``GATEWAY_LAYERS`` (7) of its 28 layers (the smoke's clock; the
       same seeded bf16 weights, shared) behind ``GatewayEdge`` on
       ``127.0.0.1:0``, started cold, so that both replicas capture
       their first graphs in the same run; phase 4's 24 requests sent at
@@ -184,13 +187,16 @@ exits non-zero.
       ``Server``'s on the same checkpoint, then SIGTERM: a drain and
       exit 0.
 
-16. Sampled serving and generation, all through replayed graphs:
+16. Sampled serving and generation, all through replayed graphs, at
+   15a's ``GATEWAY_LAYERS`` (7) of phase 4's 28 layers (the smoke's
+   clock):
    a. phase 4's configuration and 24 requests, every second one sampled
       (temperature 0.8, top-k 50 on half of those and none on the
       others, a seed each), cold and then warm: every chunk a capture or
       a replay (none eager) and ``check_run``; tok/s, TTFT and seconds
-      capturing beside phase 4's; the greedy requests' streams equal
-      phase 4's or parting at a near tie; each sampled request served
+      capturing beside 15a's one greedy Server at that depth; the greedy
+      requests' streams equal that Server's or parting at a near tie;
+      each sampled request served
       alone equal to its stream in the mix, or parting at a near tie of
       its draw (``sampled_parting``);
    b. with speculation on, on one saved state (pool and keys), a sampled
@@ -353,12 +359,35 @@ exits non-zero.
       index: ``cli.generate --serve``, ``cli.generate --int8`` (tokens
       equal to ``generate`` over the reader's int8 model) and
       ``cli.score --int8`` (within 5% of fp32).
+21. The model zoo: GPT-2 XL (MHA, D = 64, learned positions), Pythia-1.4B
+   (GPT-NeoX: MHA, D = 128, partial rotary, parallel residual), Phi-2
+   (MHA, D = 80, partial rotary, a biased head) and Gemma-2B (8 query
+   heads over 1 KV head of D = 256, the embedding scale, the 1 + weight
+   RMSNorm) at their published configs (``ZOO``), full width and depth,
+   ``max_seq_len`` the published one up to ``SERVE_MAX_LEN``; each
+   checkpoint drawn on the card in bf16 from the seed under its own
+   tensor names and mapped by the port's reader (``Family.convert``),
+   its parameter count printed. Each serves 8 greedy requests (prompts
+   64-512, budgets 32-64) through one ``Server`` (paged, batch 8,
+   flash-decode, bf16), held as phase 4 is (``check_run``: every chunk a
+   capture or a replay, flash-decode n_layers times a micro-step,
+   replays included), its streams held to greedy decoding by the plain
+   forward by the near-tie rule: tok/s, TTFT, peak memory, flash-decode
+   launches by route (the MHA form on the tensor cores at D = 64 and
+   128, the SIMT route at D = 80 and 256); flash-decode at the model's
+   call (B = 8, S = 1024) held per element to its plain version and
+   timed beside it, SDPA and its bound.
+   e. a 2-layer Gemma-2B at full width as a checkpoint directory:
+      ``cli.generate --serve`` from a pipe in bf16 and in fp32
+      (token-exact to one ``Server`` over the reader's model), and
+      ``cli.score`` in fp32 and bf16 (within 5% of each other).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches (flash-decode's include 16a's
 replays, the training kernels' phase 8's, and phase 17's agents'; the
 two phase 19 AdamW lines 19a's and 19c's; the expert-batched q8_matmul
-lines 20b's generate by route), error and times.
+lines 20b's generate by route; one flash-decode line a zoo model with
+its launches in phase 21), error and times.
 
     python3 chip_smoke.py
 """
@@ -2855,6 +2884,7 @@ def int8_kernel_lines(ctx) -> list[dict]:
 SPEC_K = 8            # 13a: bench.py's spec datum
 PREFILL_CHUNK = 512   # 13c
 FAULT_AT = 3          # 13e: the fault fires at the top of the 3rd step
+OPTIONS_LAYERS = 14   # 13's depth: the smoke's clock (phase 4: 28)
 # the near-tie rule: two streams may part only where the plain forward
 # puts both chosen tokens' logits within this share of the row's largest
 # |logit| (bf16's 2^-7 relative step, once for each of the two paths)
@@ -3118,7 +3148,9 @@ def phase_serving_options(ctx) -> None:
     from tony_tpu_torch.serve import FaultPlan, InjectedFault
     from tony_tpu_torch.ops.decode import flash_decode
 
-    cfg = qwen_config(dtype=torch.bfloat16)
+    # at OPTIONS_LAYERS of 28 (the smoke's clock): every run is held to
+    # 13a's Server without speculation, at the same depth
+    cfg = qwen_config(dtype=torch.bfloat16, n_layers=OPTIONS_LAYERS)
     model = Transformer(cfg, device=DEVICE).init_weights(
         torch.Generator(device=DEVICE).manual_seed(SEED))
     rng = np.random.default_rng(SEED + 13)
@@ -3172,7 +3204,8 @@ def phase_serving_options(ctx) -> None:
         ties = near_ties(model, (specs, warm)[i], spec[i][0]["results"],
                          plain[i][0]["results"], f"13a {name}")
         (_, c, rate, cap), (_, c0, rate0, cap0) = spec[i], plain[i]
-        print(f"phase 13a speculation, {name} pass, 16 greedy requests (a "
+        print(f"phase 13a speculation ({cfg.n_layers} of Qwen's 28 layers), "
+              f"{name} pass, 16 greedy requests (a "
               f"5-16-token pattern repeated to 256-1024 tokens, budgets "
               f"64-256): speculate_k {SPEC_K} {rate:.1f} tok/s in "
               f"{rounds(c)}, {cap:.2f} s capturing; off {rate0:.1f} tok/s "
@@ -3297,6 +3330,7 @@ MISTRAL_7B = {
     "eos_token_id": 2, "torch_dtype": "bfloat16",
 }
 MISTRAL_MAX_LEN = 8192  # the smoke's cap (published: 32768)
+MISTRAL_LAYERS = 16     # 14a/14b: the smoke's clock (published: 32)
 MISTRAL_EOS = (2,)      # </s>
 ROW_STORE_MB = 1024.0   # 14c: room for 8 Qwen2.5-1.5B rows of 117.4 MB
 ROW_PREFILL_CHUNK = 1024  # 14b
@@ -3417,7 +3451,7 @@ def phase_unpaged_mistral(ctx) -> None:
     card_ = ctx["card"]
     ctx["mistral_call"] = mistral_decode_call(ctx)
     torch.cuda.empty_cache()
-    cfg = mistral_config(dtype=torch.bfloat16)
+    cfg = mistral_config(dtype=torch.bfloat16, n_layers=MISTRAL_LAYERS)
     model = Transformer(cfg, device=DEVICE).init_weights(
         torch.Generator(device=DEVICE).manual_seed(SEED))
     n_params = sum(p.numel() for p in model.parameters())
@@ -3443,8 +3477,9 @@ def phase_unpaged_mistral(ctx) -> None:
                   "chunked")
         toks = sum(len(r.tokens) for r in run["results"].values())
         p50, p99 = percentiles(run["first"][r.id] for r in reqs)
-        print(f"phase {part} serve Mistral-7B-v0.1 bf16 ({n_params} params, "
-              f"{cfg.n_layers} layers, window {cfg.sliding_window}, "
+        print(f"phase {part} serve Mistral-7B-v0.1 bf16 at full width, "
+              f"{cfg.n_layers} of 32 layers ({n_params} params), window "
+              f"{cfg.sliding_window}, "
               f"max_seq_len {cfg.max_seq_len}) unpaged, batch 8, "
               f"{'prefill chunks of %d' % chunk if chunk else 'unchunked'}, "
               f"16 greedy requests (8 of 4200-6000 tokens, 8 of 64-1024): "
@@ -3880,7 +3915,7 @@ def gateway_pass(url: str, specs: list, tag: str) -> tuple:
     return docs, time.perf_counter() - t0
 
 
-GATEWAY_LAYERS = 14  # 15a's and 17's depth: the smoke's clock (phase 4: 28)
+GATEWAY_LAYERS = 7  # 15a, 16, 17: the smoke's clock (phase 4: 28)
 
 
 def phase_gateway(ctx) -> None:
@@ -3896,13 +3931,15 @@ def phase_gateway(ctx) -> None:
     model = Transformer(cfg, device=DEVICE).init_weights(
         torch.Generator(device=DEVICE).manual_seed(SEED))
     specs = ctx["serve4"]["specs"]
-    # the streams the gateway's (and phase 17's agents') are held to:
+    # the streams the gateway's (and phases 16's and 17's) are held to:
     # one Server of this model
     ref = serve_server(model)
     run = serve_timed(ref, requests(specs))
     want = run["results"]
-    ctx["serve14"] = {"specs": specs, "results": want, "rate": sum(
-        len(r.tokens) for r in want.values()) / run["wall"]}
+    ctx["serve_cut"] = {"specs": specs, "results": want, "rate": sum(
+        len(r.tokens) for r in want.values()) / run["wall"],
+        "ttft": percentiles(run["first"].values()),
+        "capture_s": ref.counters()["graph_capture_s"]}
     del ref, run
     torch.cuda.empty_cache()
     servers = [serve_server(model) for _ in range(2)]
@@ -4135,11 +4172,12 @@ def phase_sampled(ctx) -> None:
     from tony_tpu_torch.models.transformer import Transformer
     from tony_tpu_torch.serve import Request
 
-    cfg = qwen_config(dtype=torch.bfloat16)
+    # at 15a's depth (the smoke's clock), held to 15a's one Server of it
+    cfg = qwen_config(dtype=torch.bfloat16, n_layers=GATEWAY_LAYERS)
     model = Transformer(cfg, device=DEVICE).init_weights(
         torch.Generator(device=DEVICE).manual_seed(SEED))
     specs = ctx["serve4"]["specs"]
-    s4 = ctx["serve4"]
+    s4 = ctx["serve_cut"]
 
     def reqs():
         return [Request(list(p), n, id=i, **sampled_knobs(i))
@@ -4165,14 +4203,17 @@ def phase_sampled(ctx) -> None:
         p50, p99 = percentiles(run["first"][q.id] for q in r)
         cap_s = c["graph_capture_s"] - base.get("graph_capture_s", 0.0)
         runs[how] = run
-        print(f"phase 16a sampled serve, phase 4's configuration and 24 "
+        print(f"phase 16a sampled serve, phase 4's configuration at "
+              f"{cfg.n_layers} layers and 24 "
               f"requests, 12 sampled (temperature {SAMPLED_TEMP}, top-k "
               f"{SAMPLED_TOP_K} on 6, none on 6), {how}: {gen} tokens in "
               f"{run['wall']:.2f} s = {gen / run['wall']:.1f} tok/s "
-              f"(phase 4 greedy, cold: {s4['rate']:.1f}); TTFT p50 "
-              f"{p50:.3f} s, p99 {p99:.3f} s (phase 4: {s4['ttft'][0]:.3f}"
-              f" / {s4['ttft'][1]:.3f} s); {cap_s:.2f} s capturing (phase "
-              f"4: {s4['capture_s']:.2f} s); {chunks} chunks: {caps} "
+              f"(15a's one greedy Server at {cfg.n_layers} layers, cold: "
+              f"{s4['rate']:.1f}); TTFT p50 "
+              f"{p50:.3f} s, p99 {p99:.3f} s (15a's Server: "
+              f"{s4['ttft'][0]:.3f} / {s4['ttft'][1]:.3f} s); {cap_s:.2f} s "
+              f"capturing (15a's Server: {s4['capture_s']:.2f} s); "
+              f"{chunks} chunks: {caps} "
               f"captures + {reps} replays, 0 eager; flash_decode launches "
               f"{run['launches']} [{ctx['card']}]")
     keys = sorted(k for k in srv.graphs.entries if k[0] == "decode")
@@ -4186,7 +4227,7 @@ def phase_sampled(ctx) -> None:
         if sampled_knobs(i):
             continue
         tie = parting(model, prompt, mixed[i].tokens, want[i].tokens,
-                      f"16a greedy request {i} against phase 4")
+                      f"16a greedy request {i} against 15a's Server")
         if tie is None:
             check(mixed[i].finish_reason == want[i].finish_reason,
                   f"16a request {i}: {mixed[i].finish_reason} against "
@@ -4210,7 +4251,7 @@ def phase_sampled(ctx) -> None:
                   f"mixed against {alone.finish_reason} alone")
         else:
             sampled_ties.append((i, *tie))
-    print(f"phase 16a greedy requests against phase 4: "
+    print(f"phase 16a greedy requests against 15a's one Server: "
           f"{ties_text(greedy_ties, 12)}; sampled requests alone against "
           f"in the mix: {ties_text(sampled_ties, 12)}; warm pass equal to "
           f"cold in {warm_equal} of 24 streams [{ctx['card']}]")
@@ -4652,9 +4693,9 @@ def phase_fabric(ctx) -> None:
             "--chunk-steps", "1", *FABRIC_FLAGS, *dev]] * 2)
     boot_s = time.perf_counter() - t0
     bf16_agents, fp32_agents = agents[:2], agents[2:]
-    s14 = ctx["serve14"]
-    specs = s14["specs"]
-    want = s14["results"]
+    s_cut = ctx["serve_cut"]
+    specs = s_cut["specs"]
+    want = s_cut["results"]
     layers = cfg.n_layers
     launched = 0
     try:
@@ -4676,7 +4717,7 @@ def phase_fabric(ctx) -> None:
                   f"flash-decode) behind a Gateway of RemoteServers, cold, "
                   f"phase 4's 24 requests: {gen} tokens in {wall:.2f} s = "
                   f"{gen / wall:.1f} tok/s (one Server of this model: "
-                  f"{s14['rate']:.1f}); "
+                  f"{s_cut['rate']:.1f}); "
                   f"TTFT p50 {p50:.3f} s, p99 {p99:.3f} s; "
                   f"{ties_text(ties, len(specs))}; the four agents booted "
                   f"in {boot_s:.1f} s [{ctx['card']}]")
@@ -7260,6 +7301,354 @@ def moe_kernel_lines(ctx) -> list[dict]:
     return lines
 
 
+# ------------------------------------------------------------ the zoo
+
+# 21: four published configs (config.json, the keys the port reads),
+# random bf16 weights from the seed, full width and depth
+ZOO = (
+    ("GPT-2 XL", "https://huggingface.co/openai-community/gpt2-xl", {
+        "model_type": "gpt2", "architectures": ["GPT2LMHeadModel"],
+        "n_embd": 1600, "n_layer": 48, "n_head": 25, "n_positions": 1024,
+        "n_ctx": 1024, "vocab_size": 50257,
+        "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5,
+        "bos_token_id": 50256, "eos_token_id": 50256}),
+    ("Pythia-1.4B", "https://huggingface.co/EleutherAI/pythia-1.4b", {
+        "model_type": "gpt_neox", "architectures": ["GPTNeoXForCausalLM"],
+        "hidden_size": 2048, "num_hidden_layers": 24,
+        "num_attention_heads": 16, "intermediate_size": 8192,
+        "rotary_pct": 0.25, "rotary_emb_base": 10000,
+        "max_position_embeddings": 2048, "vocab_size": 50304,
+        "use_parallel_residual": True, "tie_word_embeddings": False,
+        "hidden_act": "gelu", "layer_norm_eps": 1e-5, "bos_token_id": 0,
+        "eos_token_id": 0}),
+    ("Phi-2", "https://huggingface.co/microsoft/phi-2", {
+        "model_type": "phi", "architectures": ["PhiForCausalLM"],
+        "hidden_size": 2560, "num_hidden_layers": 32,
+        "num_attention_heads": 32, "num_key_value_heads": 32,
+        "intermediate_size": 10240, "partial_rotary_factor": 0.4,
+        "max_position_embeddings": 2048, "vocab_size": 51200,
+        "hidden_act": "gelu_new", "layer_norm_eps": 1e-5,
+        "rope_theta": 10000.0, "qk_layernorm": False,
+        "tie_word_embeddings": False, "bos_token_id": 50256,
+        "eos_token_id": 50256}),
+    ("Gemma-2B", "https://huggingface.co/google/gemma-2b", {
+        "model_type": "gemma", "architectures": ["GemmaForCausalLM"],
+        "hidden_size": 2048, "num_hidden_layers": 18,
+        "num_attention_heads": 8, "num_key_value_heads": 1,
+        "head_dim": 256, "intermediate_size": 16384, "vocab_size": 256000,
+        "max_position_embeddings": 8192, "hidden_act": "gelu",
+        "rms_norm_eps": 1e-6, "rope_theta": 10000.0, "attention_bias": False,
+        "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0}),
+)
+ZOO_CLI = "Gemma-2B"  # 21e: the family with the most knobs, at 2 layers
+
+
+def zoo_config(hf: dict, **overrides):
+    """The port's config of a zoo ``config.json`` through its family's
+    reader: bf16, flash-decode, ``max_seq_len`` the published one capped
+    at ``SERVE_MAX_LEN`` (GPT-2's own cap is its ``n_positions``)."""
+    import torch
+
+    from tony_tpu_torch.models.hf import FAMILIES
+
+    make = FAMILIES[hf["model_type"]][0]
+    pub = hf.get("max_position_embeddings") or hf["n_positions"]
+    kw = dict(max_seq_len=min(pub, SERVE_MAX_LEN), dtype=torch.bfloat16,
+              decode_attention="flash")
+    kw.update(overrides)
+    return make(hf, **kw)
+
+
+def zoo_state_dict(kind: str, cfg, gen, device) -> dict:
+    """A checkpoint's tensors under its own names (``models.hf.
+    hf_shapes``), bf16, drawn from ``gen``: norm scales 1 (0 for
+    Gemma's 1 + weight form), every other tensor N(0, 0.02)."""
+    import torch
+
+    from tony_tpu_torch.models.hf import hf_shapes
+
+    out = {}
+    for name, shape in hf_shapes(kind, cfg).items():
+        leaf = name.rsplit(".", 1)[-1]
+        if len(shape) == 1 and leaf == "weight":  # a norm's scale
+            t = torch.full(shape, 0.0 if cfg.norm_unit_offset else 1.0,
+                           dtype=torch.bfloat16, device=device)
+        else:
+            t = (0.02 * torch.randn(shape, generator=gen, device=device)
+                 ).bfloat16()
+        out[name] = t
+    return out
+
+
+def zoo_model(kind: str, cfg, seed: int):
+    """(model, checkpoint parameter count): the checkpoint drawn on the
+    card under its own names, mapped by the family's converter
+    (``Family.convert``) and loaded into a ``Transformer`` built on the
+    meta device."""
+    import torch
+
+    from tony_tpu_torch.models.hf import FAMILIES
+    from tony_tpu_torch.models.transformer import Transformer
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    sd = zoo_state_dict(kind, cfg, gen, DEVICE)
+    n_params = sum(t.numel() for t in sd.values())
+    model = Transformer(cfg, device="meta")
+    model.to_empty(device=DEVICE)
+    model.load_state_dict(FAMILIES[kind][1].convert(sd, cfg), strict=True)
+    del sd
+    return model.eval(), n_params
+
+
+def zoo_specs(rng, vocab: int) -> list:
+    """21's 8 requests as (prompt, budget): prompts of 64-512 tokens,
+    budgets 32-64."""
+    return [(rng.integers(0, vocab, int(rng.integers(64, 513))).tolist(),
+             int(rng.integers(32, 65))) for _ in range(8)]
+
+
+def plain_greedy_check(model, specs, results, part: str) -> list:
+    """Each stream against greedy decoding by the plain full forward
+    (teacher-forced over the stream's own tokens): equal, or parting
+    first at a near tie. Returns the partings as ``near_ties`` does."""
+    import torch
+
+    ties = []
+    for i, (prompt, _) in enumerate(specs):
+        got = results[i].tokens
+        seq = torch.tensor([prompt + got[:-1]], device=DEVICE)
+        with torch.no_grad():
+            hidden = model(seq, return_hidden=True)
+            want = model.logits(hidden[0, len(prompt) - 1:]).argmax(
+                dim=-1).tolist()
+        del hidden
+        j = next((n for n, (a, w) in enumerate(zip(got, want)) if a != w),
+                 None)
+        if j is not None:
+            tie = parting(model, prompt, got, got[:j] + [want[j]],
+                          f"{part} request {i} against the plain forward")
+            ties.append((i, *tie))
+    return ties
+
+
+def zoo_decode_call(ctx, cfg) -> dict:
+    """flash-decode at the model's decode call, B = 8, S = 1024, every
+    row at the full length, bf16: held to ``decode_tolerance`` and timed
+    beside its plain version, SDPA and its bound."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 210)
+    b, s, h, kvh, d = 8, 1024, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    q = torch.randn(b, h, d, device=DEVICE, generator=gen).bfloat16()
+    k = torch.randn(b, s, kvh, d, device=DEVICE, generator=gen).bfloat16()
+    v = torch.randn(b, s, kvh, d, device=DEVICE, generator=gen).bfloat16()
+    length = torch.full((b,), s, dtype=torch.int32, device=DEVICE)
+    m = measure_decode(q, k, v, length, 0, None, None, ctx["flush"])
+    del q, k, v
+    return m
+
+
+def phase_zoo(ctx) -> None:
+    """Phase 21: GPT-2 XL, Pythia-1.4B, Phi-2 and Gemma-2B at their
+    published configs, through ``Server``; then 21e, the CLIs over a
+    2-layer Gemma-2B checkpoint directory."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.ops.decode import _kernel_route
+
+    card_ = ctx["card"]
+    ctx["zoo"] = {}
+    for j, (name, url, hf) in enumerate(ZOO):
+        t0 = time.perf_counter()
+        kind = hf["model_type"]
+        cfg = zoo_config(hf)
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        model, n_params = zoo_model(kind, cfg, SEED + 21 + j)
+        weights = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        eos = hf["eos_token_id"]
+        srv = zoo_server(model, eos)
+        check(srv.paged, f"21 {name}: not served paged")
+        specs = zoo_specs(np.random.default_rng(SEED + 21 + j),
+                          cfg.vocab_size)
+        reqs = requests(specs)
+        run = serve_timed(srv, reqs)
+        c = check_run(srv, reqs, run, f"21 {name}")
+        peak = torch.cuda.max_memory_allocated()
+        toks = sum(len(r.tokens) for r in run["results"].values())
+        p50, p99 = percentiles(run["first"][r.id] for r in reqs)
+        tc = _kernel_route(torch.bfloat16, torch.bfloat16, cfg.head_dim) == 1
+        form = "MHA" if cfg.kv_heads == cfg.n_heads else (
+            f"GQA {cfg.n_heads}/{cfg.kv_heads}")
+        route = f"{'tensor cores' if tc else 'SIMT'}, {form}"
+        del srv
+        free_card()
+        ties = plain_greedy_check(model, specs, run["results"], f"21 {name}")
+        m = zoo_decode_call(ctx, cfg)
+        check(m["route"] == ("tensor cores" if tc else "SIMT"),
+              f"21 {name}: the decode call took the {m['route']} route")
+        ctx["zoo"][name] = {"launches": run["launches"], "call": m,
+                            "route": route, "tok_s": toks / run["wall"],
+                            "D": cfg.head_dim, "form": form,
+                            "H": cfg.n_heads, "KVH": cfg.kv_heads}
+        print(f"phase 21 {name} ({url}; {kind}, {cfg.n_layers} layers, "
+              f"d {cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads of "
+              f"{cfg.head_dim}, max_seq_len {cfg.max_seq_len}): "
+              f"{n_params} parameters in the checkpoint, drawn under its "
+              f"own names and mapped by the port's reader, "
+              f"{weights / 1e9:.2f} GB of weights on the card (embeddings "
+              f"fp32); paged, bf16, batch 8, 8 greedy requests (prompts "
+              f"64-512, budgets 32-64): {toks} tokens in "
+              f"{run['wall']:.2f} s = {toks / run['wall']:.1f} tok/s; "
+              f"TTFT p50 {p50:.3f} s, p99 {p99:.3f} s; "
+              f"{c['decode_steps']} micro-steps in {c['dispatches']} chunks "
+              f"({c['graph_decode_captures']} keys captured, "
+              f"{c['graph_decode_replays']} replays, "
+              f"{c['graph_capture_s']:.2f} s capturing); flash_decode "
+              f"({route}) launches {run['launches']} = {cfg.n_layers} x "
+              f"{c['decode_steps']}, replays included; peak memory "
+              f"{peak / 2**30:.2f} GiB; against the plain forward: "
+              f"{ties_text(ties, len(specs))} [{card_}]")
+        print(f"phase 21 {name} flash_decode at B=8 H={cfg.n_heads} "
+              f"KVH={cfg.kv_heads} D={cfg.head_dim} S=1024 bf16 "
+              f"({m['route']}, {m['nsplit']} split(s)): max abs err "
+              f"{m['max_abs_err']:.3g} (tol {m['rtol']:.3g}*|want| + "
+              f"{m['atol']:.3g}, worst excess {m['excess']:.3g}); kernel "
+              f"{m['ms'] * 1e3:.1f} us ({m['bound_ms'] / m['ms']:.3f} of "
+              f"the bound), plain {m['plain_ms'] * 1e3:.1f} us, sdpa "
+              f"{m['library_ms'] * 1e3:.1f} us, bound "
+              f"{m['bound_ms'] * 1e3:.2f} us ({m['bound_by']}); "
+              f"{time.perf_counter() - t0:.1f} s for the model [{card_}]")
+        del model
+        free_card()
+    by_route: dict = {}
+    for z in ctx["zoo"].values():
+        by_route[z["route"]] = by_route.get(z["route"], 0) + z["launches"]
+    print("phase 21 flash_decode launches by route: " + ", ".join(
+        f"{r} {n}" for r, n in by_route.items()) + f" [{card_}]")
+    zoo_cli(ctx)
+
+
+def zoo_server(model, eos):
+    """21's serving configuration: batch 8, paged, chunks of up to 8
+    micro-steps, no prefix store, the model's end-of-text id."""
+    from tony_tpu_torch.serve import Server
+
+    return Server(model, batch_size=8, eos_id=eos, chunk_steps=8,
+                  paged=True, device=DEVICE)
+
+
+def export_zoo(kind: str, hf: dict, cfg, seed: int) -> str:
+    """A 2-layer checkpoint directory of a zoo config at full width under
+    build/: config.json and model.safetensors, bf16 under the
+    checkpoint's own names; the caller removes it."""
+    import torch
+
+    from tony_tpu_torch.models.hf import write_safetensors
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    sd = {k: v.cpu() for k, v in zoo_state_dict(kind, cfg, gen,
+                                                DEVICE).items()}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="smoke_zoo_",
+                            dir=os.path.join(ROOT, "build"))
+    with open(os.path.join(ckpt, "config.json"), "w") as fh:
+        json.dump(hf, fh)
+    write_safetensors(sd, os.path.join(ckpt, "model.safetensors"))
+    return ckpt
+
+
+def zoo_cli(ctx) -> None:
+    """21e: ``ZOO_CLI`` at 2 layers and full width as a checkpoint
+    directory: ``cli.generate --serve`` from a pipe in bf16 (checked
+    responses) and in fp32 (token-exact to a ``Server`` over the
+    reader's fp32 model), and ``cli.score`` in fp32 and bf16 (finite,
+    within 5% of each other)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.cli import score
+    from tony_tpu_torch.models.hf import load_hf_dir
+    from tony_tpu_torch.serve import Request, Server
+
+    name, url, hf = next(z for z in ZOO if z[0] == ZOO_CLI)
+    hf = dict(hf, num_hidden_layers=2)
+    cfg = zoo_config(hf)
+    ckpt = export_zoo(hf["model_type"], hf, cfg, SEED + 215)
+    try:
+        rng = np.random.default_rng(SEED + 216)
+        lines = [{"id": f"r{i}", "token_ids": rng.integers(
+                     3, hf["vocab_size"], n).tolist(), "max_new_tokens": m}
+                 for i, (n, m) in enumerate(((40, 12), (300, 20), (5, 1),
+                                             (700, 8)))]
+        serve_cli(ckpt, lines, "--dtype", "bf16")
+        got = serve_cli(ckpt, lines, "--dtype", "fp32")
+        model, _ = load_hf_dir(ckpt, device=DEVICE, decode_attention="flash")
+        srv = Server(model, batch_size=4, eos_id=hf["eos_token_id"],
+                     paged=True, kv_pages=128, prefix_cache_mb=64.0,
+                     device=DEVICE)
+        reqs = [Request(x["token_ids"], x["max_new_tokens"], id=x["id"])
+                for x in lines]
+        run = serve_timed(srv, reqs)
+        for x in lines:
+            toks = run["results"][x["id"]].tokens
+            stop = [i for i, t in enumerate(toks) if t in srv.eos_ids]
+            want = x["token_ids"] + toks[:stop[0] if stop else len(toks)]
+            check(got[x["id"]]["token_ids"] == want,
+                  f"21e {x['id']}: cli --serve fp32 {got[x['id']]} against "
+                  f"one Server's {want}")
+        del srv, model
+        free_card()
+
+        def nll(dtype):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = score.main(["--model", ckpt, "--token-ids",
+                                 ",".join(map(str, lines[3]["token_ids"])),
+                                 "--dtype", dtype, "--device", DEVICE])
+            check(rc == 0, f"21e score --dtype {dtype}: exit {rc}")
+            last = out.getvalue().strip().splitlines()[-1]
+            return float(dict(f.split("=") for f in
+                              last.split()[1:])["nll/token"])
+
+        n32, n16 = nll("fp32"), nll("bf16")
+        check(math.isfinite(n32) and abs(n16 - n32) <= 0.05 * n32,
+              f"21e score: bf16 nll/token {n16} not within 5% of fp32 {n32}")
+        size = os.path.getsize(os.path.join(ckpt, "model.safetensors"))
+        print(f"phase 21e CLIs over a 2-layer {name} checkpoint at full "
+              f"width ({size / 1e9:.2f} GB): --serve answered "
+              f"{len(lines)} requests in bf16, and "
+              f"in fp32 token-exact to one Server over the reader's model; "
+              f"score nll/token fp32 {n32:.4f}, bf16 {n16:.4f} "
+              f"[{ctx['card']}]")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def zoo_kernel_lines(ctx) -> list[dict]:
+    """flash-decode at each zoo model's decode call (B = 8, S = 1024),
+    with the launches of that model's serving run."""
+    lines = []
+    for name, z in ctx["zoo"].items():
+        m = z["call"]
+        mha = z["form"] == "MHA"
+        lines.append({
+            "name": "flash_decode_" + name.lower().replace(" ", "_")
+                    .replace("-", "_").replace(".", "_"),
+            "route": "cuda", "source": "tony_tpu_torch/csrc/flash_decode.cu",
+            "replaces": "tony_tpu/ops/decode.py:" + ("146" if mha else "70"),
+            "launches": z["launches"], "kernel_route": z["route"],
+            "shape": f"B=8 H={z['H']} KVH={z['KVH']} D={z['D']} S=1024",
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+    return lines
+
+
 def main() -> int:
     try:
         import torch
@@ -7297,7 +7686,8 @@ def main() -> int:
                         ("gateway-cli", phase_gateway_cli),
                         ("sampled", phase_sampled),
                         ("fabric", phase_fabric), ("job", phase_job),
-                        ("finetune", phase_finetune), ("moe", phase_moe)):
+                        ("finetune", phase_finetune), ("moe", phase_moe),
+                        ("zoo", phase_zoo)):
         t0 = time.perf_counter()
         try:
             phase(ctx)
@@ -7309,7 +7699,8 @@ def main() -> int:
     try:
         kernels = [kernel_line(ctx), mistral_kernel_line(ctx)] \
             + train_kernel_lines(ctx) + int8_kernel_lines(ctx) \
-            + finetune_kernel_lines(ctx) + moe_kernel_lines(ctx)
+            + finetune_kernel_lines(ctx) + moe_kernel_lines(ctx) \
+            + zoo_kernel_lines(ctx)
     except Exception:  # noqa: BLE001
         traceback.print_exc()
         return 1

@@ -18,8 +18,8 @@ dispatch timeline, the goodput ledger and alerts on ``/stats`` and
 Requests carry ``token_ids``: no tokenizer is ported yet (ROADMAP.md
 "Waits"), so the gateway runs in the JAX CLI's no-tokenizer mode and a
 ``prompt`` request is refused. ``--model`` reads ``config.json`` and one
-``model.safetensors`` (Llama, Mistral or Qwen2) with the port's reader;
-``--demo-model`` serves a tiny random decoder and boots in seconds on
+``model.safetensors`` (any family ``models.hf.load_hf_dir`` reads) with
+the port's reader; ``--demo-model`` serves a tiny random decoder and boots in seconds on
 the CPU. Runs on the GPU unless ``--device cpu``.
 
 Shutdown: SIGTERM/SIGINT stops admission (``/readyz`` -> 503), finishes

@@ -21,8 +21,8 @@ window (then unpaged, with a note; the prefix store too is turned off
 over a window, with a note). Requests
 carry ``token_ids``: no tokenizer is ported yet, so a ``prompt`` field
 is rejected. The checkpoint directory needs ``config.json`` and one
-``model.safetensors`` (Llama, Mistral or Qwen2 layout). Runs on the GPU
-unless ``--device cpu``.
+``model.safetensors`` (GPT-2, Llama, Mistral, Qwen2, Gemma, Mixtral,
+GPT-NeoX or Phi layout). Runs on the GPU unless ``--device cpu``.
 
     printf '%s\\n' '{"id": "a", "token_ids": [1, 2, 3]}' \\
         | python -m tony_tpu_torch.cli.generate --model ./qwen --serve

@@ -11,8 +11,8 @@ the int8 weight-only model (``models.quantize``), ``--kv-int8`` scores
 through an int8 KV cache. Inputs are ``--token-ids``: no tokenizer is
 ported yet, so ``--text`` and ``--text-file`` are rejected. The
 checkpoint directory needs ``config.json`` and one ``model.safetensors``
-(Llama, Mistral or Qwen2 layout). Runs on the GPU unless ``--device
-cpu``.
+(GPT-2, Llama, Mistral, Qwen2, Gemma, Mixtral, GPT-NeoX or Phi layout).
+Runs on the GPU unless ``--device cpu``.
 
     python -m tony_tpu_torch.cli.score --model ./ckpt --token-ids 1,2,3,4
 """
