@@ -381,13 +381,40 @@ exits non-zero.
       ``cli.generate --serve`` from a pipe in bf16 and in fp32
       (token-exact to one ``Server`` over the reader's model), and
       ``cli.score`` in fp32 and bf16 (within 5% of each other).
+22. Scanned layers and blocked attention: Qwen2.5-1.5B at full width and
+   depth with ``scan_layers=True`` (every block leaf stacked ``[28,
+   ...]``, the cache too), its weights phase 4's and phase 8's draw,
+   stacked (``convert.stack_layers``).
+   a. phase 4's 24 requests through the paged ``Server`` (batch 8,
+      flash-decode, bf16), held as phase 4 is (``check_run``): the
+      streams equal phase 4's token for token (on a difference, the
+      first layer whose prefill output differs from the unscanned
+      model's is printed); tok/s, TTFT p50/p99 and peak memory beside
+      phase 4's;
+   b. phase 8's fit (remat ``attn_saved``, flash attention, fused AdamW,
+      the step captured whole, 8 steps) on phase 8's weights and
+      batches: the 8 losses and the final masters, unstacked, bit-equal
+      to phase 8's; the launches of fwd/dq/dkv/AdamW, ms a step, MFU and
+      peak memory beside phase 8's (within 10% of it);
+   c. ``blockwise_attention`` at Qwen's heads (12 query, 2 KV, D = 128),
+      B = 1, L = 16384, bf16, blocks of 512, against the fp32
+      ``reference_attention`` per element (2^-8·|want| + 1e-5·max|v|):
+      the peak memory of each forward without gradients (the blocked one
+      below the reference's [L, L] scores), the times of both,
+      ``flash_attention`` and SDPA (a yardstick); then the scanned model
+      on 1 x 8192 tokens with ``attention_backend="blockwise"`` (never
+      reaching ``reference_attention``) against ``"pallas"``: the last
+      position's greedy token the same, or a near tie (the smoke's bf16
+      rule: within 2^-6 of the row's largest |logit|), the logits' gap
+      printed.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches (flash-decode's include 16a's
 replays, the training kernels' phase 8's, and phase 17's agents'; the
 two phase 19 AdamW lines 19a's and 19c's; the expert-batched q8_matmul
 lines 20b's generate by route; one flash-decode line a zoo model with
-its launches in phase 21), error and times.
+its launches in phase 21; phase 22's scanned serving and training in
+``launches_by_phase``), error and times.
 
     python3 chip_smoke.py
 """
@@ -1024,7 +1051,10 @@ def phase_serve(ctx) -> None:
 
     # the timed run: serving work only (no profiler, no kernel-argument
     # capture; the graphs' first calls and captures are inside it)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
     run = serve_timed(srv, reqs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     c = check_run(srv, reqs, run, "phase 4")
     launches, wall = run["launches"], run["wall"]
     check(c["prefix_hits"] > 0, "the prefix store recorded no hit")
@@ -1040,7 +1070,8 @@ def phase_serve(ctx) -> None:
           f"{c['dispatches']} chunks, {c['prefills']} prefills, prefix "
           f"hits {c['prefix_hits']} ({c['prefix_hit_tokens']} tokens); "
           f"flash_decode launches {launches} = {cfg.n_layers} x "
-          f"{c['decode_steps']} [{ctx['card']}]")
+          f"{c['decode_steps']}; peak memory {peak:.2f} GiB "
+          f"[{ctx['card']}]")
     print(f"phase 4 graphs: {c['graph_decode_captures']} chunk keys "
           f"captured, {c['graph_decode_replays']} chunk replays; "
           f"{c['graph_prefill_captures']} prefill keys captured, "
@@ -1055,7 +1086,8 @@ def phase_serve(ctx) -> None:
     ctx["serve4"] = {"specs": [(r.prompt, r.max_new_tokens) for r in reqs],
                      "results": run["results"],
                      "rate": gen_tokens / wall, "ttft": (p50, p99),
-                     "capture_s": c["graph_capture_s"]}
+                     "capture_s": c["graph_capture_s"], "peak_gib": peak,
+                     "base_gib": base}
     ctx["captured"] = probe_pass(ctx, srv, rng)
     del srv, model
     torch.cuda.empty_cache()
@@ -1096,8 +1128,10 @@ def pool_leaves(srv) -> list:
     """Every leaf of the Server's page pool."""
     import torch
 
+    from tony_tpu_torch.models.generate import is_layer_key
+
     return [leaf for key, layer in srv.slots.cache.items()
-            if key.startswith("block_") for leaf in layer.values()
+            if is_layer_key(key) for leaf in layer.values()
             if isinstance(leaf, torch.Tensor)]
 
 
@@ -1373,7 +1407,9 @@ def kernel_line(ctx) -> dict:
           "point): " + ", ".join(f"{n}: {t * 1e3:.1f} us"
                                  for n, t in by.items())
           + f" (the wrapper takes {m['nsplit']}) [{ctx['card']}]")
-    phases = {"4, 13-17, 20a": ctx["launches"]}
+    phases = {"4, 13-17, 20a, 22a": ctx["launches"]}
+    if "scan" in ctx:
+        phases["22a"] = ctx["scan"]["serve_launches"]
     if "decode_launches" in ctx.get("finetune", {}):
         phases["19a"] = ctx["finetune"]["decode_launches"]
     return {"name": "flash_decode", "route": "cuda",
@@ -1954,6 +1990,7 @@ def phase_fit(ctx) -> None:
         return update(opt, grads, *args, **kw)
 
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
     counters = (attention.flash_attention_fwd,
                 attention.flash_attention_bwd_dq,
                 attention.flash_attention_bwd_dkv, adamw.fused_adamw_update)
@@ -2005,6 +2042,9 @@ def phase_fit(ctx) -> None:
     tok_s = tokens / (step_ms / 1e3)
     mfu = flops / (step_ms / 1e3) / PEAK_BF16
     ctx["train_launches"] = launches
+    # phase 22b holds the scanned fit to these, bit for bit
+    ctx["fit_masters"] = {n: t.to("cpu", copy=True)
+                          for n, t in result.state.params.items()}
     pool = g.pool_bytes()
     print(f"phase 8 fit Qwen2.5-1.5B bf16 over fp32 masters, "
           f"{cfg.n_layers} layers, remat attn_saved, {TRAIN_MICRO} x "
@@ -2068,7 +2108,8 @@ def phase_fit(ctx) -> None:
           + ", ".join(f"{n} {t:.1f} ms" for n, t in attn.items())
           + f"; {attn_ms:.1f} ms, {share} of the device busy time")
     ctx["fit"] = {"step_ms": step_ms, "tok_s": tok_s, "mfu": mfu,
-                  "peak_gib": peak, "losses": losses, "host": host,
+                  "peak_gib": peak, "base_gib": base, "losses": losses,
+                  "host": host,
                   "per": per}
     del result, state, trainer, model, prof, g
     torch.cuda.empty_cache()
@@ -2185,6 +2226,8 @@ def train_kernel_lines(ctx) -> list[dict]:
                        "19b": f["job_launches"][name]})
         if "moe_train_launches" in ctx:
             by["20c"] = ctx["moe_train_launches"][i]
+        if "scan" in ctx:
+            by["22b"] = ctx["scan"]["train_launches"][i]
         lines.append({
             "name": name, "route": "cuda", "source": src, "replaces": site,
             "launches": launches[i], "launches_by_phase": by,
@@ -2197,7 +2240,9 @@ def train_kernel_lines(ctx) -> list[dict]:
         "replaces": "tony_tpu/ops/adamw.py:74", "launches": launches[3],
         "launches_by_phase": {"8": launches[3], **(
             {"20c": ctx["moe_train_launches"][3]}
-            if "moe_train_launches" in ctx else {})},
+            if "moe_train_launches" in ctx else {}), **(
+            {"22b": ctx["scan"]["train_launches"][3]}
+            if "scan" in ctx else {})},
         "max_abs_err": w["max_abs_err"], "ms": w["ms"],
         "plain_ms": w["plain_ms"], "bound_ms": w["bound"][0],
         "bound_by": w["bound"][1], "library_ms": w["library_ms"]})
@@ -7648,6 +7693,321 @@ def zoo_kernel_lines(ctx) -> list[dict]:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
     return lines
 
+# ------------------------------------------------------------ scan (22)
+
+SCAN_ATTN_LEN, SCAN_ATTN_BLOCK = 16384, 512  # 22c's blocked call
+SCAN_FWD_LEN = 8192                          # 22c's model forward
+
+
+def scanned_qwen(cfg):
+    """A ``scan_layers`` Qwen2.5-1.5B holding phase 4's draw (the
+    unscanned model from ``SEED``), stacked."""
+    import torch
+
+    from tony_tpu_torch.models.convert import stack_layers
+    from tony_tpu_torch.models.transformer import Transformer
+
+    flat = Transformer(dataclasses.replace(cfg, scan_layers=False),
+                       device=DEVICE).init_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    model = Transformer(cfg, device=DEVICE)
+    model.load_state_dict(stack_layers(flat.state_dict(), cfg.n_layers))
+    return model
+
+
+def first_layer_parting(model, prompt) -> str:
+    """Where a scanned model's prefill first differs from the unscanned
+    model's on the same weights: each layer's output of a paged
+    prefill of ``prompt`` through both, compared bit for bit."""
+    import torch
+
+    from tony_tpu_torch.models.convert import unstack_layers
+    from tony_tpu_torch.models.generate import multi_decode_step
+    from tony_tpu_torch.models.transformer import Transformer
+    from tony_tpu_torch.serve.slots import paged_cache
+
+    cfg = model.cfg
+    flat = Transformer(dataclasses.replace(cfg, scan_layers=False),
+                       device=DEVICE)
+    flat.load_state_dict(unstack_layers(model.state_dict()))
+    n, ps = len(prompt), 64
+    pages = -(-n // ps)
+    window = torch.tensor([prompt], device=DEVICE)
+    pos = torch.arange(n, device=DEVICE)[None]
+    table = torch.arange(pages, device=DEVICE)[None]
+    outs = {}
+    for name, m, mods in (("scan", model, [model.layers.block]),
+                          ("flat", flat, list(flat.blocks))):
+        seen = []
+        hooks = [mod.register_forward_hook(
+            lambda _m, _a, out: seen.append(out.clone())) for mod in mods]
+        try:
+            multi_decode_step(m, paged_cache(m, pages, ps), window, pos,
+                              table)
+        finally:
+            for h in hooks:
+                h.remove()
+        outs[name] = seen
+    for i, (a, b) in enumerate(zip(outs["scan"], outs["flat"])):
+        if not torch.equal(a, b):
+            return (f"layer {i} first differs (max abs "
+                    f"{(a.float() - b.float()).abs().max().item():.3g})")
+    return "no layer differs in the prefill"
+
+
+def phase_scan(ctx) -> None:
+    ctx["scan"] = {}
+    scan_serve(ctx)
+    free_card()
+    scan_train(ctx)
+    free_card()
+    scan_attention(ctx)
+    free_card()
+
+
+def scan_serve(ctx) -> None:
+    """22a: phase 4's traffic through a scanned model."""
+    import torch
+
+    cfg = qwen_config(dtype=torch.bfloat16, scan_layers=True)
+    model = scanned_qwen(cfg)
+    srv = serve_server(model)
+    four = ctx["serve4"]
+    reqs = requests(four["specs"])
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    run = serve_timed(srv, reqs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    c = check_run(srv, reqs, run, "22a")
+    differ = [r.id for r in reqs if run["results"][r.id].tokens
+              != four["results"][r.id].tokens]
+    if differ:
+        where = first_layer_parting(model, reqs[differ[0]].prompt)
+        check(False, f"22a: {len(differ)} of {len(reqs)} streams differ "
+              f"from phase 4's (first: request {differ[0]}; {where})")
+    gen_tokens = sum(len(res.tokens) for res in run["results"].values())
+    p50, p99 = percentiles(run["first"][r.id] for r in reqs)
+    rate = gen_tokens / run["wall"]
+    print(f"phase 22a serve scanned Qwen2.5-1.5B bf16 {cfg.n_layers} "
+          f"layers stacked, phase 4's 24 requests: all {len(reqs)} streams "
+          f"equal phase 4's token for token; {gen_tokens} tokens in "
+          f"{run['wall']:.2f} s = {rate:.1f} tok/s (phase 4 "
+          f"{four['rate']:.1f}); TTFT p50 {p50:.3f} s, p99 {p99:.3f} s "
+          f"(phase 4 {four['ttft'][0]:.3f}, {four['ttft'][1]:.3f}); peak "
+          f"memory {peak:.2f} GiB, {peak - base:.2f} above the "
+          f"{base:.2f} resident at the start (phase 4 "
+          f"{four['peak_gib']:.2f}, {four['peak_gib'] - four['base_gib']:.2f}"
+          f" above {four['base_gib']:.2f}); "
+          f"flash_decode launches {run['launches']} = {cfg.n_layers} x "
+          f"{c['decode_steps']}; {c['graph_decode_captures']} chunk keys "
+          f"captured, {c['graph_decode_replays']} replays, "
+          f"{c['graph_capture_s']:.2f} s capturing [{ctx['card']}]")
+    ctx["launches"] += run["launches"]
+    ctx["scan"]["serve_launches"] = run["launches"]
+
+
+def scan_train(ctx) -> None:
+    """22b: phase 8's fit through a scanned model."""
+    import torch
+
+    from tony_tpu_torch.examples import lm_pretrain
+    from tony_tpu_torch.models.convert import unstack_layers
+    from tony_tpu_torch.ops import adamw, attention
+    from tony_tpu_torch.train import fit
+
+    cfg = qwen_config(dtype=torch.bfloat16, attention_backend="pallas",
+                      remat=True, remat_policy="attn_saved",
+                      scan_layers=True)
+    model, trainer, loader = lm_pretrain.build(
+        cfg, seed=SEED, micro=TRAIN_MICRO, accum=TRAIN_ACCUM,
+        seq_len=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    stamps = []
+
+    def stamp(step, metrics):
+        if not stamps:
+            sync()
+        stamps.append((step, time.perf_counter()))
+
+    counters = (attention.flash_attention_fwd,
+                attention.flash_attention_bwd_dq,
+                attention.flash_attention_bwd_dkv, adamw.fused_adamw_update)
+    for k in counters:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    sync()
+    result = fit(trainer, None, loader, num_steps=TRAIN_STEPS, log_every=1,
+                 metric_sinks=[stamp])
+    sync()
+    t_end = time.perf_counter()
+    launches = [k.launches for k in counters]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [h["loss"] for h in result.history if "loss" in h]
+    eight = ctx["fit"]
+    check(losses == eight["losses"],
+          f"22b: losses {losses} against phase 8's {eight['losses']}")
+    masters = unstack_layers(result.state.params)
+    want = ctx["fit_masters"]
+    check(sorted(masters) == sorted(want),
+          "22b: the unstacked masters are not phase 8's leaves")
+    differ = [n for n, t in masters.items()
+              if not torch.equal(t.cpu(), want[n])]
+    check(not differ, f"22b: {len(differ)} of {len(want)} final masters "
+          f"differ from phase 8's: {differ[:4]}")
+    per_fwd = cfg.n_layers * TRAIN_ACCUM * TRAIN_STEPS
+    check(launches == [per_fwd] * 3 + [TRAIN_STEPS],
+          f"22b: launches fwd/dq/dkv/adamw {launches}, expected "
+          f"{[per_fwd] * 3 + [TRAIN_STEPS]}")
+    calls = [trainer.graphs.calls["train_step", w]
+             for w in ("captures", "replays", "eager")]
+    check(calls == [1, TRAIN_STEPS - 1, 0],
+          f"22b: train_step captures/replays/eager {calls}")
+    check(peak <= 1.1 * eight["peak_gib"],
+          f"22b: peak memory {peak:.2f} GiB, over 1.1 x phase 8's "
+          f"{eight['peak_gib']:.2f}")
+    step_ms = (t_end - stamps[0][1]) / (TRAIN_STEPS - 2) * 1e3
+    tokens = TRAIN_MICRO * TRAIN_ACCUM * TRAIN_SEQ
+    mfu = train_flops_per_token(cfg, n_params) * tokens \
+        / (step_ms / 1e3) / PEAK_BF16
+    print(f"phase 22b fit scanned Qwen2.5-1.5B (phase 8's recipe, weights "
+          f"and batches): losses and all {len(want)} final masters "
+          f"(unstacked) bit-equal to phase 8's; {step_ms:.1f} ms/step "
+          f"(phase 8 {eight['step_ms']:.1f}), MFU {mfu:.4f} (phase 8 "
+          f"{eight['mfu']:.4f}), peak memory {peak:.2f} GiB, "
+          f"{peak - base:.2f} above the {base:.2f} resident at the start "
+          f"(phase 8 {eight['peak_gib']:.2f}, "
+          f"{eight['peak_gib'] - eight['base_gib']:.2f} above "
+          f"{eight['base_gib']:.2f}); launches fwd/dq/dkv/adamw "
+          f"{launches}, replays included; train_step captures/replays/"
+          f"eager {calls} [{ctx['card']}]")
+    ctx["scan"]["train_launches"] = launches
+    del result, trainer, model, masters
+
+
+def forward_peak(fn):
+    """``fn()`` and the bytes it allocated above what was resident."""
+    import torch
+
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    sync()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def scan_attention(ctx) -> None:
+    """22c: the blocked attention loop at Qwen's heads, then a scanned
+    model forward through it against the flash kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    import tony_tpu_torch.models.transformer as tmod
+    from tony_tpu_torch.ops.attention import flash_attention
+    from tony_tpu_torch.parallel import (blockwise_attention,
+                                         reference_attention)
+
+    n, h, kvh, d = SCAN_ATTN_LEN, 12, 2, 128
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+
+    def draw(heads):
+        return torch.randn(1, n, heads, d, generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16)
+
+    q, k, v = draw(h), draw(kvh), draw(kvh)
+    kr = k.repeat_interleave(h // kvh, dim=2)
+    vr = v.repeat_interleave(h // kvh, dim=2)
+    with torch.no_grad():
+        got, peak_b = forward_peak(lambda: blockwise_attention(
+            q, kr, vr, block_size=SCAN_ATTN_BLOCK))
+        want, peak_r = forward_peak(lambda: reference_attention(
+            q.float(), kr.float(), vr.float()))
+    limit = 2.0 ** -8 * want.abs() + 1e-5 * vr.float().abs().max()
+    err = (got.float() - want).abs()
+    check(bool((err <= limit).all()),
+          f"22c: blockwise_attention off the fp32 reference by up to "
+          f"{err.max().item():.3g} (limit 2^-8 |want| + 1e-5 max|v|)")
+    scores = h * n * n * 4
+    check(peak_b < scores, f"22c: the blocked forward took {peak_b} bytes,"
+          f" not below the [L, L] scores' {scores}")
+    del want
+    free_card()
+    flush = ctx["flush"]
+    with torch.no_grad():
+        ms = {
+            "blockwise": cuda_time_ms(lambda: blockwise_attention(
+                q, kr, vr, block_size=SCAN_ATTN_BLOCK), 3, flush,
+                ADAMW_HOLD),
+            "reference": cuda_time_ms(lambda: reference_attention(
+                q.float(), kr.float(), vr.float()), 1, flush),
+            "flash_attention": cuda_time_ms(lambda: flash_attention(
+                q, k, v, causal=True), 5, flush),
+            "sdpa": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kr.transpose(1, 2), vr.transpose(1, 2),
+                is_causal=True), 5, flush)}
+    print(f"phase 22c blockwise_attention B=1 L={n} H={h} (K/V {kvh} heads "
+          f"repeated) D={d} bf16, blocks of {SCAN_ATTN_BLOCK}: max abs err "
+          f"{err.max().item():.3g} against the fp32 reference (within "
+          f"2^-8 |want| + 1e-5 max|v|); peak memory above the inputs "
+          f"{peak_b / 2 ** 30:.3f} GiB blocked, {peak_r / 2 ** 30:.3f} GiB "
+          f"reference ([L, L] fp32 scores {scores / 2 ** 30:.3f} GiB); "
+          + ", ".join(f"{name} {t:.2f} ms" for name, t in ms.items())
+          + f" (SDPA a yardstick) [{ctx['card']}]")
+    del q, k, v, kr, vr, got
+    free_card()
+    cfg = dataclasses.replace(qwen_config(dtype=torch.bfloat16,
+                                          scan_layers=True),
+                              max_seq_len=SCAN_FWD_LEN,
+                              attention_backend="blockwise")
+    blocked = scanned_qwen(cfg)
+    flash = tmod.Transformer(dataclasses.replace(
+        cfg, attention_backend="pallas"), device=DEVICE)
+    flash.load_state_dict(blocked.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (1, SCAN_FWD_LEN),
+                         generator=gen, device=DEVICE)
+    plain = tmod.reference_attention
+
+    def refuse(*a, **kw):
+        raise AssertionError("the blockwise backend reached "
+                             "reference_attention")
+
+    last = {}
+    tmod.reference_attention = refuse
+    try:
+        with torch.no_grad():
+            for name, m in (("blockwise", blocked), ("pallas", flash)):
+                hidden, peak = forward_peak(
+                    lambda m=m: m(toks, return_hidden=True))
+                last[name] = (m.logits(hidden[0, -1:])[0], peak)
+                del hidden
+    finally:
+        tmod.reference_attention = plain
+    # the smoke's rule for two bf16 paths: the same greedy token, or two
+    # tokens within NEAR_TIE x the row's largest |logit| under each
+    # path's own logits (the two attention forms round differently, and
+    # 28 bf16 layers carry it: each bf16 prefill sits 3-4% of the
+    # largest |logit| from fp32, tests/torch_bf16_partings.py)
+    a, b = last["blockwise"][0], last["pallas"][0]
+    ta, tb = int(a.argmax()), int(b.argmax())
+    scale = max(a.abs().max().item(), b.abs().max().item())
+    tie = max((a[ta] - a[tb]).item(), (b[tb] - b[ta]).item())
+    diff = (a - b).abs().max().item()
+    check(bool(torch.isfinite(a).all())
+          and (ta == tb or tie <= NEAR_TIE * scale),
+          f"22c: the scanned model's last greedy token, blockwise {ta} "
+          f"against pallas {tb}, apart by {tie:.3g} > 2^-6 x {scale:.3g}")
+    same = "the same" if ta == tb else \
+        f"{ta} against {tb}, a near tie ({tie:.3g})"
+    print(f"phase 22c scanned Qwen2.5-1.5B bf16 forward on 1 x "
+          f"{SCAN_FWD_LEN} tokens, blockwise against pallas: the last "
+          f"position's greedy token {same}; its logits apart by up to "
+          f"{diff:.3g} ({diff / scale:.3g} of the largest |logit|); peak "
+          f"memory above the weights {last['blockwise'][1] / 2 ** 30:.2f} "
+          f"GiB blockwise, {last['pallas'][1] / 2 ** 30:.2f} GiB pallas "
+          f"[{ctx['card']}]")
+    del blocked, flash
+
 
 def main() -> int:
     try:
@@ -7687,7 +8047,7 @@ def main() -> int:
                         ("sampled", phase_sampled),
                         ("fabric", phase_fabric), ("job", phase_job),
                         ("finetune", phase_finetune), ("moe", phase_moe),
-                        ("zoo", phase_zoo)):
+                        ("zoo", phase_zoo), ("scan", phase_scan)):
         t0 = time.perf_counter()
         try:
             phase(ctx)

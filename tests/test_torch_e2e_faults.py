@@ -107,3 +107,34 @@ def test_registration_timeout_alike(monkeypatch):
         "exit_0.py", {"worker": 1},
         **{"tony.coordinator.registration-timeout-ms": 1500}))
     assert got["status"] == "FAILED" and "register" in got["reason"]
+
+
+# each pair under its own limit, well inside the suite's clock
+LIMIT = 150.0
+
+
+def test_application_timeout_alike():
+    """tests/test_e2e.py:348: the whole-job deadline fails the job with
+    its reason."""
+    got = run_both(_script_job("sleep_5.py", {"worker": 1},
+                               **{"tony.application.timeout-ms": 800}),
+                   limit=LIMIT)
+    assert got["status"] == "FAILED" and "timed out" in got["reason"].lower()
+
+
+def test_preprocess_failure_skips_training_alike(tmp_path):
+    """tests/test_e2e.py:500: a failed preprocess fails the job and no
+    training task starts."""
+    marker = tmp_path / "worker_ran"
+    worker = tmp_path / "worker.py"
+    worker.write_text(f"open({str(marker)!r}, 'w').write('x')\n")
+
+    def build(cluster, mini):
+        conf = mini.script_conf(cluster, str(worker), {"worker": 1})
+        conf.set("tony.application.enable-preprocess", True)
+        conf.set("tony.coordinator.command", "exit 3")
+        return conf
+
+    got = run_both(build, limit=LIMIT)
+    assert got["status"] == "FAILED"
+    assert not marker.exists(), "a worker started after the failed preprocess"

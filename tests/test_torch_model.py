@@ -69,17 +69,21 @@ def test_converter_is_strict():
 
 def test_config_refuses_what_is_not_ported():
     # remat and the pallas backend are ported (training slice)
-    # int8 weights are ported (int8 slice); MoE and its int8 experts too
-    for kw in ({"scan_layers": True}, {"shard_activations": True},
+    # int8 weights are ported (int8 slice); MoE and its int8 experts too;
+    # scan_layers too, refused with moe_every as the JAX config does
+    for kw in ({"shard_activations": True},
                {"mesh": object()}, {"attention_backend": "ring"},
                {"attention_backend": "ulysses"}):
         with pytest.raises(NotImplementedError):
             TransformerConfig(**kw)
+    with pytest.raises(ValueError, match="uniform layers"):
+        TransformerConfig(scan_layers=True, moe_every=2)
     TransformerConfig(remat=True, remat_policy="attn_saved",
                       attention_backend="pallas")
     TransformerConfig(quantized=True)
     TransformerConfig(moe_every=2)
     TransformerConfig(quantized=True, moe_every=2)
+    TransformerConfig(scan_layers=True)
 
 
 # prompts per row (row 2 is an empty slot in the per-slot/paged modes)

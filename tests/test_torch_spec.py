@@ -384,3 +384,44 @@ def test_sampled_verify_rounds_run_eagerly_and_are_counted(models):
         == c["spec_rounds"] > 0
     assert any(k[0] == "verify" and k[-1] == "sampled"
                for k in srv.graphs.entries)
+
+
+def test_scan_int8_speculation_matches_jax():
+    """tests/test_spec.py's ``scan_int8`` variant: stacked caches with
+    int8 K/V and their scales under RoPE. The verify window scores and
+    caches what single steps would (the port's [b, k] window against
+    its own one-token steps, at that test's 1e-4 on logits and 1e-5 on
+    cache values: the products differ in shape), and a speculating
+    Server gives the JAX Server's greedy streams and counters."""
+    import torch
+
+    from tony_tpu_torch.models.generate import (init_cache,
+                                                multi_decode_step,
+                                                single_decode_step)
+
+    m = build_pair(9, scan_layers=True, kv_cache_quant=True)
+    tm = m[2]
+    toks = torch.tensor([[3, 8, 1, 4], [6, 2, 9, 5]])
+    pos = torch.tensor([[0, 1, 2, 3], [0, 1, 2, -1]])
+    window = init_cache(tm, 2)
+    _, logits = multi_decode_step(tm, window, toks, pos)
+    steps = init_cache(tm, 2)
+    for j in range(4):
+        _, last = single_decode_step(tm, steps, toks[:, j], pos[:, j])
+        live = pos[:, j] >= 0
+        np.testing.assert_allclose(last[live].numpy(),
+                                   logits[live, j].numpy(), atol=1e-4)
+    for name, leaf in window["layers"].items():
+        if isinstance(leaf, torch.Tensor):
+            for row, n in ((0, 4), (1, 3)):
+                np.testing.assert_allclose(
+                    leaf[:, row, :n].float().numpy(),
+                    steps["layers"][name][:, row, :n].float().numpy(),
+                    atol=1e-5, err_msg=name)
+    specs = [(REP, 12, {}), (REP2, 10, {}), ([7, 9, 11], 6, {})]
+    on, got = _both(m, specs, batch_size=2, chunk_steps=4, speculate_k=4,
+                    prefix_cache_mb=8)
+    assert on.spec_rounds > 0 and on.freeze_faults == 0
+    _, want = _both(m, specs, batch_size=2, chunk_steps=4,
+                    prefix_cache_mb=8)
+    assert got == want

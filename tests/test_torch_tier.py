@@ -164,6 +164,60 @@ def test_wire_codec_bitwise_including_bf16():
         decode_payload(doc, pool_leaf_keys(pool.cache)[:-1])
 
 
+@pytest.mark.parametrize("dtype,kv_int8", [("fp32", False), ("fp32", True),
+                                           ("bf16", True)])
+def test_scanned_pages_and_wire_match_jax(dtype, kv_int8):
+    """A scanned pool's pages: gathered, their wire form is the JAX
+    package's scanned wire form leaf for leaf (each stacked leaf whole,
+    ``page_axis`` 1, in the JAX flattening order: the JAX doc's paged
+    leaves, its int32 counter left out), and a host round trip onto
+    other pages gives back the same bytes."""
+    from tony_tpu.serve.tier import encode_payload as jax_encode_payload
+
+    jdt, tdt = {"fp32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jm, jp, tm = build_pair(9, jax_dtype=jdt, torch_dtype=tdt,
+                            kv_cache_quant=kv_int8, scan_layers=True)
+    jpool = JaxPagePool(jm, jp, N_PAGES, PS)
+    pool = PagePool(tm, N_PAGES, PS)
+    rng = np.random.default_rng(2)
+    stack = pool.cache["layers"]
+    fills = {}
+    for name, leaf in stack.items():
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        shape = (leaf.shape[0], N_PAGES, *leaf.shape[2:])
+        vals = rng.integers(-120, 120, size=shape).astype(np.int8) \
+            if leaf.dtype == torch.int8 \
+            else rng.standard_normal(shape).astype(np.float32)
+        leaf[:, :N_PAGES] = torch.from_numpy(vals).to(leaf.dtype)
+        fills[name] = vals
+    attn = jpool.cache["layers"]["block"]["attn"]
+    for name, vals in fills.items():
+        attn[name] = jnp.asarray(vals).astype(attn[name].dtype)
+    idx = [0, 2, 5, 5]
+    payload = gather_pages(pool.cache, torch.tensor(idx))
+    doc = encode_payload(payload)
+    jdoc = jax_encode_payload(jax_gather_pages(
+        jpool.cache, jnp.asarray(idx, jnp.int32)))
+    paged = [d for d in jdoc["leaves"] if "page_axis" in d]
+    assert len(paged) == len(doc["leaves"]) == (4 if kv_int8 else 2)
+    for got, want in zip(doc["leaves"], paged):
+        assert got == want
+    assert payload_pages(payload) == 4
+    back = decode_payload(doc, pool_leaf_keys(pool.cache))
+    host = pages_to_host(back, 3)
+    dst = [1, 3, 4]
+    scatter_pages(pool.cache, host, torch.tensor(dst))
+    for name, vals in fills.items():
+        got = stack[name][:, dst]
+        want = torch.from_numpy(vals[:, idx[:3]]).to(got.dtype)
+        assert _bytes(got) == _bytes(want), name
+    cut = decode_payload(trim_payload(doc, 1, 3), pool_leaf_keys(pool.cache))
+    for key, name in pool_leaf_keys(payload):
+        assert _bytes(cut[key][name]) == _bytes(payload[key][name][:, 1:3])
+
+
 def test_tier_requires_paged_and_prefix_store():
     jm, jp, tm = build_pair(9)
     for make in (lambda **kw: JaxServer(jm, jp, batch_size=2, **kw),
@@ -203,7 +257,18 @@ def test_spill_then_prefix_hit_matches_jax(kv_int8):
     the tier and prefix counters equal the JAX ``Server``'s, the outputs
     equal a run without the tier, and every paged-in page holds the
     bytes the tier stored."""
-    jm, jp, tm = build_pair(9, kv_cache_quant=kv_int8)
+    _spill_case(kv_int8, scan_layers=False)
+
+
+def test_scanned_int8_spill_then_prefix_hit_matches_jax():
+    """The same on tests/test_tier.py's hardest layout: int8 K/V with
+    their fp32 scales, stacked over the layers (``scan_layers``)."""
+    _spill_case(True, scan_layers=True)
+
+
+def _spill_case(kv_int8: bool, scan_layers: bool) -> None:
+    jm, jp, tm = build_pair(9, kv_cache_quant=kv_int8,
+                            scan_layers=scan_layers)
     distinct = [tokens(30 + i, 24).tolist() for i in range(3)]
     work = distinct + [distinct[0], distinct[1]]
     page = PagePool(tm, 1, PS).page_nbytes

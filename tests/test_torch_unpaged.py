@@ -5,11 +5,10 @@ and the counters both packages keep (prefix hits, hit tokens, bytes
 stored and evictions included) equal, in fp32.
 
 - ``tests/test_paged.py``'s parity matrix (rope and learned positions,
-  float and int8 KV) through both packages' unpaged servers, and
-  against the port's paged server; the matrix's ``scan_layers=True``
-  cases are left out: the port has no scanned layers. Its sampled
-  request matches the JAX package in distribution only, so it is
-  checked for its length alone.
+  float and int8 KV, and its ``scan_layers=True`` cases) through both
+  packages' unpaged servers, and against the port's paged server. Its
+  sampled request matches the JAX package in distribution only, so it
+  is checked for its length alone.
 - Prefix hits (exact and partial), the slot-reuse mix of
   tests/test_torch_serve.py, eviction under a small budget, donation
   of a finished sequence, and ``_usable_prefix``'s shrink (a seed whose
@@ -21,6 +20,8 @@ stored and evictions included) equal, in fp32.
 EOS ids are chosen up front, never read off a model's output.
 """
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -105,11 +106,24 @@ def test_unpaged_parity_matrix(positional, kv_int8):
     """Unpaged servers in both packages, and the port's paged server,
     give the same greedy streams across positional encoding x int8 KV;
     the sampled request ("c") finishes at its budget."""
+    _matrix(positional, kv_int8, scan_layers=False)
+
+
+@pytest.mark.parametrize("positional,kv_int8", [
+    ("rope", False), ("rope", True), ("learned", True)])
+def test_unpaged_parity_matrix_scanned(positional, kv_int8):
+    """The matrix's ``scan_layers=True`` cases (tests/test_paged.py):
+    stacked caches through both packages' unpaged servers and the
+    port's paged one."""
+    _matrix(positional, kv_int8, scan_layers=True)
+
+
+def _matrix(positional: str, kv_int8: bool, scan_layers: bool) -> None:
     jm, jp, tm = build_pair(
         3, vocab_size=64, d_model=32, n_heads=2, n_kv_heads=2,
         max_seq_len=32, positional=positional,
         norm="layer" if positional == "learned" else "rms",
-        kv_cache_quant=kv_int8)
+        kv_cache_quant=kv_int8, scan_layers=scan_layers)
 
     def reqs(cls):
         return [cls(list(p), n, temperature=0.9 if i == "c" else 0.0,
@@ -264,6 +278,41 @@ def test_slot_rows_round_trip(models):
         t.numel() * t.element_size() for k, v in row.items()
         if k.startswith("block_") for t in v.values()
         if isinstance(t, torch.Tensor)) + 4 * tm.cfg.n_layers
+
+
+def test_scanned_slot_rows_round_trip():
+    """tests/test_serve.py's scanned int8 case: a row read from a
+    stacked cache (slot axis 1 of every K/V leaf and int8 scale, the
+    layer axis whole) writes back into another slot bit for bit, and
+    holds the JAX package's read of the same content."""
+    from tony_tpu.serve.slots import read_slot_row as jax_read_slot_row
+    from tony_tpu_torch.models.generate import init_cache
+
+    jm, jp, tm = build_pair(4, scan_layers=True, kv_cache_quant=True,
+                            max_seq_len=16)
+    cache = init_cache(tm, 3)
+    stack = cache["layers"]
+    gen = torch.Generator().manual_seed(0)
+    for name, leaf in stack.items():
+        if isinstance(leaf, torch.Tensor):
+            leaf.copy_(torch.randint(-100, 100, leaf.shape, generator=gen)
+                       if leaf.dtype == torch.int8
+                       else torch.randn(leaf.shape, generator=gen))
+    row = read_slot_row(cache, 1)
+    assert row["layers"]["cached_key"].shape[:2] == (tm.cfg.n_layers, 1)
+    write_slot_row(cache, row, 2)
+    for name, leaf in stack.items():
+        if isinstance(leaf, torch.Tensor):
+            assert torch.equal(leaf[:, 1], leaf[:, 2]), name
+    jcache = {"layers": {"block": {"attn": {
+        name: jnp.asarray(leaf.numpy()) if isinstance(leaf, torch.Tensor)
+        else jnp.zeros((tm.cfg.n_layers,), jnp.int32)
+        for name, leaf in stack.items()}}}}
+    want = jax_read_slot_row(jcache, 1)["layers"]["block"]["attn"]
+    for name, leaf in row["layers"].items():
+        if isinstance(leaf, torch.Tensor):
+            np.testing.assert_array_equal(leaf.numpy(),
+                                          np.asarray(want[name]))
 
 
 # ------------------------------------------------------------ options

@@ -2,9 +2,11 @@
 control planes (``tony_tpu.mini`` and ``tony_tpu_torch.mini``) with the
 same conf, and compare what each left behind."""
 
+import contextlib
 import json
 import os
 import re
+import signal
 
 from tony_tpu import mini as jax_mini
 from tony_tpu.events import history as jax_history
@@ -76,9 +78,32 @@ def run_job(pkg: str, build, tasks=None) -> dict:
             "final_conf_keys": final_keys}
 
 
-def run_both(build, tasks=None) -> dict:
-    """``run_job`` through the JAX package and the port; asserts they
-    agree and returns the port's."""
-    got = {pkg: run_job(pkg, build, tasks) for pkg in PACKAGES}
+class JobTimeLimit(Exception):
+    """A job pair ran past its time limit (``run_both``'s ``limit``)."""
+
+
+@contextlib.contextmanager
+def time_limit(seconds: float):
+    """Raise ``JobTimeLimit`` in the test's thread once ``seconds`` pass:
+    a case that hangs fails alone instead of holding the whole suite's
+    clock. The mini cluster's exit still stops its processes."""
+    def expire(signum, frame):
+        raise JobTimeLimit(f"the job pair ran past {seconds:.0f} s")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, seconds)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def run_both(build, tasks=None, limit: float | None = None) -> dict:
+    """``run_job`` through the JAX package and the port, within ``limit``
+    seconds for the pair when given; asserts they agree and returns the
+    port's."""
+    with time_limit(limit) if limit else contextlib.nullcontext():
+        got = {pkg: run_job(pkg, build, tasks) for pkg in PACKAGES}
     assert got["port"] == got["jax"]
     return got["port"]

@@ -30,6 +30,7 @@ kernel's launches, the device and the ``CUDA_VISIBLE_DEVICES`` it saw.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -68,7 +69,8 @@ def train_config(hf: dict, max_seq_len: int, **overrides):
 def build(cfg, *, seed: int, micro: int, accum: int, seq_len: int,
           lr: float, warmup: int, device: str):
     """``(model, trainer, loader)``: the model random from ``seed`` in
-    ``cfg.dtype``, a ``Trainer`` of bf16 compute over fp32 masters with
+    ``cfg.dtype`` (a ``scan_layers`` model holds the unscanned draw's
+    weights, stacked), a ``Trainer`` of bf16 compute over fp32 masters with
     ``FusedAdamW`` (``lr`` after a linear ``warmup``, a tensor of the
     step count, as a captured step needs) and ``accum`` micro-batches of
     ``micro`` rows, and a loader over one global batch of synthetic
@@ -77,12 +79,19 @@ def build(cfg, *, seed: int, micro: int, accum: int, seq_len: int,
     import torch
 
     from tony_tpu_torch.data import ArraySource, DataLoader
+    from tony_tpu_torch.models.convert import stack_layers
     from tony_tpu_torch.models.transformer import Transformer, moe_aux_loss
     from tony_tpu_torch.ops.xent import chunked_cross_entropy
     from tony_tpu_torch.train import FusedAdamW, Trainer
 
-    model = Transformer(cfg, device=device).init_weights(
+    model = Transformer(dataclasses.replace(cfg, scan_layers=False),
+                        device=device).init_weights(
         torch.Generator(device=device).manual_seed(seed))
+    if cfg.scan_layers:
+        flat = model.state_dict()
+        model = Transformer(cfg, device=device)
+        model.load_state_dict(stack_layers(flat, cfg.n_layers))
+        del flat
     cdt = torch.bfloat16
 
     def apply_fn(m, batch):

@@ -14,6 +14,13 @@ kept int8. Strict both ways: a leaf it cannot map, or a port parameter
 no leaf fills, raises. ``to_jax_params`` is the inverse: a port
 ``state_dict`` back to the JAX tree.
 
+A ``scan_layers`` tree stacks every block leaf under ``layers/block/``
+with a leading ``[n_layers]`` axis; each maps as its unstacked leaf
+does, slice by slice, onto ``layers.block.*`` (a flax kernel
+``[n_layers, in, ...out]`` becomes ``[n_layers, out, in]``).
+``stack_layers`` and ``unstack_layers`` turn a port ``state_dict``
+between the two layouts.
+
 ``from_jax_train_state`` carries a whole JAX ``TrainState`` across
 (params, and the ``FusedAdamWState`` count, moments and compute copy),
 so both packages can continue from the same non-zero state. Elementwise
@@ -52,9 +59,18 @@ def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     return {prefix[:-1]: np.asarray(tree)}
 
 
-def _map_leaf(path: str, x: np.ndarray) -> tuple[str, np.ndarray]:
+def _map_leaf(path: str, x):
     parts = path.split("/")
     top = parts[0]
+    if top == "layers" and len(parts) >= 3 and parts[1] == "block":
+        # a scanned leaf: each layer's slice maps as block_0's would
+        inner = "block_0/" + "/".join(parts[2:])
+        mapped = [_map_leaf(inner, x[j]) for j in range(x.shape[0])]
+        if not mapped:
+            raise ValueError(f"unmapped param leaf {path!r} (no layers)")
+        stack = torch.stack if isinstance(x, torch.Tensor) else np.stack
+        key = "layers.block." + mapped[0][0].split(".", 2)[2]
+        return key, stack([a for _, a in mapped])
     if len(parts) == 1 and top in ("embedding", "pos_embedding", "lm_head",
                                    "lm_head_bias"):
         return top, x
@@ -133,6 +149,11 @@ def from_jax_params(params_np: Any, cfg, keep_dtype: bool = False) \
 def _unmap_key(key: str, x: np.ndarray, cfg) -> tuple[list, np.ndarray]:
     """One port ``state_dict`` entry -> (its JAX path, the JAX leaf)."""
     parts = key.split(".")
+    if parts[:2] == ["layers", "block"]:
+        inner = "blocks.0." + ".".join(parts[2:])
+        mapped = [_unmap_key(inner, x[j], cfg) for j in range(x.shape[0])]
+        return ["layers", "block", *mapped[0][0][1:]], \
+            np.stack([a for _, a in mapped])
     if parts[0] != "blocks":
         if parts[0] == "ln_f":
             return ["ln_f", parts[1]], x
@@ -170,6 +191,36 @@ def to_jax_params(state_dict: dict, cfg) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = leaf
     return {"params": tree}
+
+
+def stack_layers(state_dict: dict, n_layers: int) -> dict:
+    """An unscanned port ``state_dict`` (``blocks.i.*``) in the
+    ``scan_layers`` layout: each block leaf's ``n_layers`` tensors
+    stacked under ``layers.block.*``; the other entries as they are."""
+    out: dict = {}
+    for key, t in state_dict.items():
+        parts = key.split(".")
+        if parts[0] != "blocks":
+            out[key] = t
+        elif parts[1] == "0":
+            rest = ".".join(parts[2:])
+            out["layers.block." + rest] = torch.stack(
+                [state_dict[f"blocks.{i}.{rest}"] for i in range(n_layers)])
+    return out
+
+
+def unstack_layers(state_dict: dict) -> dict:
+    """``stack_layers``' inverse: each ``layers.block.*`` leaf as its
+    ``blocks.i.*`` slices (views of the stacked tensor)."""
+    out: dict = {}
+    for key, t in state_dict.items():
+        if not key.startswith("layers.block."):
+            out[key] = t
+            continue
+        rest = key[len("layers.block."):]
+        for i, layer in enumerate(t.unbind(0)):
+            out[f"blocks.{i}.{rest}"] = layer
+    return out
 
 
 def from_jax_train_state(state_np: Any, cfg):

@@ -48,30 +48,57 @@ def init_cache(model, batch_size: int, length: int | None = None) -> dict:
     "cache_index"}, ["pos_index"]}`` with K/V buffers ``[batch_size,
     length, kv_heads, head_dim]`` (``length`` defaults to
     ``cfg.max_seq_len``; a page pool is the same dict with
-    ``(n_pages, page_size)`` leading dims), zero-filled on the model's
+    ``(n_pages, page_size)`` in their place), zero-filled on the model's
     device. int8 caches (``kv_cache_quant``) add fp32 scales
-    ``[batch_size, length, kv_heads]``. The counters are host ints: the
-    scalar-index mode reads and advances them, per-slot modes ignore
-    them."""
+    ``[batch_size, length, kv_heads]``. A ``scan_layers`` model's cache
+    is one entry, ``"layers"``, whose leaves carry a leading
+    ``[n_layers]`` axis (the JAX package's stacked cache), so every
+    batch or page axis is counted from the right. The counters are host
+    ints: the scalar-index mode reads and advances them, per-slot modes
+    ignore them."""
     cfg = model.cfg
     dev = model.device
     length = cfg.max_seq_len if length is None else int(length)
     quant = cfg.kv_cache_quant
     dt = torch.int8 if quant else cfg.dtype
     shape = (batch_size, length, cfg.kv_heads, cfg.head_dim)
+    stacks = [("layers", (cfg.n_layers,))] if cfg.scan_layers else \
+        [(f"block_{i}", ()) for i in range(cfg.n_layers)]
     cache: dict = {}
-    for i in range(cfg.n_layers):
-        layer = {"cached_key": torch.zeros(shape, dtype=dt, device=dev),
-                 "cached_value": torch.zeros(shape, dtype=dt, device=dev),
+    for key, lead in stacks:
+        layer = {"cached_key": torch.zeros(lead + shape, dtype=dt,
+                                           device=dev),
+                 "cached_value": torch.zeros(lead + shape, dtype=dt,
+                                             device=dev),
                  "cache_index": 0}
         if quant:
             for name in ("cached_key_scale", "cached_value_scale"):
-                layer[name] = torch.zeros(shape[:3], dtype=torch.float32,
-                                          device=dev)
-        cache[f"block_{i}"] = layer
+                layer[name] = torch.zeros(lead + shape[:3],
+                                          dtype=torch.float32, device=dev)
+        cache[key] = layer
     if cfg.positional == "learned":
         cache["pos_index"] = 0
     return cache
+
+
+# a layer's K/V leaves, in the order the JAX package flattens them
+KV_LEAVES = ("cached_key", "cached_key_scale", "cached_value",
+             "cached_value_scale")
+
+
+def is_layer_key(key: str) -> bool:
+    """Whether a cache dict's entry holds layer leaves: ``block_i``, or a
+    scanned cache's ``layers``."""
+    return key.startswith("block_") or key == "layers"
+
+
+def batch_axis(name: str, leaf: torch.Tensor) -> int:
+    """The batch (slot, or page) axis of a cache leaf, counted from the
+    right as the JAX package's ``cache_batch_axis`` does: K/V buffers
+    are ``[..., b, len, kvh, dh]``, int8 scales ``[..., b, len, kvh]``;
+    a scanned cache's leading layer axis is skipped."""
+    return leaf.dim() - (4 if name in ("cached_key", "cached_value")
+                         else 3)
 
 
 def _penalize_repeats(logits, seen, penalty):
@@ -250,7 +277,7 @@ def _generate_replayed(model, graphs: GraphCache, prompt,
     cache, tok, pos, done, seen, penalty = entry.statics[:6]
     rows = entry.statics[6:]
     for name, layer in cache.items():
-        if name.startswith("block_"):
+        if is_layer_key(name):
             layer["cache_index"] = 0
     if "pos_index" in cache:
         cache["pos_index"] = 0
@@ -307,18 +334,18 @@ def _generate_eager(model, prompt, max_new_tokens: int, pick,
     return torch.stack(out, dim=1)
 
 
-_KV_LEAVES = ("cached_key", "cached_value", "cached_key_scale",
-              "cached_value_scale")
-
-
 def _map_rows(cache: dict, fn) -> None:
-    """Replace every K/V leaf (and int8 scale) of ``cache`` by ``fn`` of
-    it, in the dict: the batch axis is 0 for all of them."""
+    """Replace every K/V leaf (and int8 scale) of ``cache`` by ``fn(leaf,
+    its batch axis)``, in the dict. The axis counts from the right
+    (``batch_axis``), so a scanned cache's layer axis stays whole; the
+    scales are reordered with their K/V (the reference's beam search
+    leaves them, ROADMAP.md section 3)."""
     for key, layer in cache.items():
-        if key.startswith("block_"):
-            for name in _KV_LEAVES:
+        if is_layer_key(key):
+            for name in KV_LEAVES:
                 if name in layer:
-                    layer[name] = fn(layer[name])
+                    layer[name] = fn(layer[name],
+                                     batch_axis(name, layer[name]))
 
 
 @torch.no_grad()
@@ -348,7 +375,7 @@ def beam_search(model, prompt, *, max_new_tokens: int, num_beams: int = 4,
     graphs = model_graphs(model)
     cache = init_cache(model, b)
     logits = model(prompt, decode=True, cache=cache)
-    _map_rows(cache, lambda x: x.repeat_interleave(k, dim=0))
+    _map_rows(cache, lambda x, ax: x.repeat_interleave(k, dim=ax))
     logp0 = torch.log_softmax(logits[:, -1].float(), dim=-1)
     scores, tok = torch.topk(logp0, k)  # [b, k]
     finished = _is_eos(tok, eos_ids)
@@ -374,7 +401,7 @@ def beam_search(model, prompt, *, max_new_tokens: int, num_beams: int = 4,
         beam_idx = flat // vocab
         new_tok = flat % vocab
         rows = (base + beam_idx).reshape(-1)
-        _map_rows(cache, lambda x: x.index_select(0, rows))
+        _map_rows(cache, lambda x, ax: x.index_select(ax, rows))
         out = torch.gather(out, 1, beam_idx[:, :, None].expand(
             b, k, max_new_tokens))
         lengths = torch.gather(lengths, 1, beam_idx)

@@ -22,14 +22,16 @@ anyway (``WritePlan``). No write takes a host sync.
 
 The training forward takes ``segment_ids`` and three attention
 backends: ``pallas`` hands q and the grouped (unrepeated) K/V to
-``ops.attention.flash_attention`` (the CUDA kernels on the GPU), while
-``reference`` and ``blockwise`` — the JAX default, an exact blocked
-reformulation of the same softmax — are computed by
-``reference_attention``. ``remat`` ports the three policies of the JAX
-``Block`` with ``torch.utils.checkpoint``: ``nothing`` recomputes the
-whole block, ``dots`` keeps matmul outputs (selective checkpointing),
-``attn_saved`` recomputes only the FFN, its dots kept, so the flash
-forward never runs twice. Recomputation repeats the same operations, so
+``ops.attention.flash_attention`` (the CUDA kernels on the GPU);
+``blockwise``, the JAX default, runs
+``parallel.ring_attention.blockwise_attention`` (a loop over key blocks
+of ``attention_block_size`` with an online softmax, which never holds
+the [L, L] scores) and ``reference`` runs ``reference_attention``, each
+over K/V repeated to every query head. ``remat`` ports the three
+policies of the JAX ``Block`` with ``torch.utils.checkpoint``:
+``nothing`` recomputes the whole block, ``dots`` keeps matmul outputs
+(selective checkpointing), ``attn_saved`` recomputes only the FFN, its
+dots kept, so the flash forward never runs twice. Recomputation repeats the same operations, so
 remat changes no bit of the loss or the gradients.
 
 ``quantized`` (int8 weight-only, for generation and scoring) swaps
@@ -47,9 +49,23 @@ load-balancing loss goes into the ``losses`` list a caller passes to
 ``forward`` (the counterpart of flax's ``sow`` into ``"losses"``), and
 ``moe_aux_loss`` sums it; plain inference passes none.
 
-Left out, refused at config construction: ``scan_layers``,
-``shard_activations``/``mesh`` (so ``QuantDense`` and the experts have
-no sharded form yet), and the ring and ulysses attention backends.
+``scan_layers`` is the JAX package's stacked layout (``_scan_blocks``):
+one ``nn.Parameter`` per block leaf with a leading ``[n_layers]`` axis,
+under ``layers.block.`` (the JAX ``layers/block/...``), and a cache whose
+leaves carry the same axis (``cache["layers"]``, ``models.generate.
+init_cache``). The forward takes each stacked leaf's slices once
+(``torch.unbind``, whose backward is one ``stack``) and runs the same
+``Block`` code over each layer's slices, passed down as ``p``; nothing
+is swapped into a module, so replicas sharing a model on several
+threads stay safe. Each layer's cache is a dict of views of the
+stacked leaves, written in place. Remat is per layer, as the JAX
+package remats the scan body (``attn_saved`` inside the block). The
+JAX config refuses it with ``moe_every`` (uniform layers only), and so
+does this one.
+
+Left out, refused at config construction: ``shard_activations``/
+``mesh`` (so ``QuantDense`` and the experts have no sharded form yet),
+and the ring and ulysses attention backends.
 """
 
 from __future__ import annotations
@@ -68,7 +84,8 @@ from tony_tpu_torch.ops.attention import flash_attention
 from tony_tpu_torch.ops.decode import flash_decode, quantize_kv
 from tony_tpu_torch.ops.quant import q8_matmul
 from tony_tpu_torch.parallel.moe import MoEConfig, moe_layer
-from tony_tpu_torch.parallel.ring_attention import reference_attention
+from tony_tpu_torch.parallel.ring_attention import (blockwise_attention,
+                                                   reference_attention)
 
 NEG_INF = -1e30
 
@@ -168,7 +185,6 @@ class TransformerConfig:
                 f"unknown remat_policy {self.remat_policy!r}; "
                 "expected one of: nothing, dots, attn_saved")
         later = {
-            "scan_layers": self.scan_layers,
             "shard_activations": self.shard_activations,
             "mesh": self.mesh is not None,
             f"attention_backend={self.attention_backend!r}":
@@ -238,11 +254,14 @@ class RMSNorm(nn.Module):
                                        device=device))
         self.dtype, self.eps, self.unit_offset = dtype, eps, unit_offset
 
-    def forward(self, x):
+    def forward(self, x, p=None):
+        """``p`` (a scanned layer's slices, ``{"scale": ...}``) stands in
+        for the module's own parameter."""
+        scale = self.scale if p is None else p["scale"]
         x32 = x.float()
         norm = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True)
                                  + self.eps)
-        mult = 1.0 + self.scale if self.unit_offset else self.scale
+        mult = 1.0 + scale if self.unit_offset else scale
         return (norm * mult).to(self.dtype)
 
 
@@ -258,12 +277,14 @@ class LayerNorm(nn.Module):
                                              device=device))
         self.dtype, self.eps = dtype, eps
 
-    def forward(self, x):
+    def forward(self, x, p=None):
+        scale, bias = (self.scale, self.bias) if p is None \
+            else (p["scale"], p["bias"])
         x32 = x.float()
         mu = x32.mean(-1, keepdim=True)
         var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
-        return (((x32 - mu) * torch.rsqrt(var + self.eps)) * self.scale
-                + self.bias).to(self.dtype)
+        return (((x32 - mu) * torch.rsqrt(var + self.eps)) * scale
+                + bias).to(self.dtype)
 
 
 def make_norm(cfg: TransformerConfig, device=None) -> nn.Module:
@@ -296,9 +317,12 @@ class Dense(nn.Linear):
         super().__init__(*args, dtype=dtype, **kw)
         self.compute_dtype = dtype or torch.get_default_dtype()
 
-    def forward(self, x):
+    def forward(self, x, p=None):
+        """``p`` (a scanned layer's slices, ``{"weight", "bias"?}``)
+        stands in for the module's own parameters."""
         dt = self.compute_dtype
-        w, b = self.weight, self.bias
+        w, b = (self.weight, self.bias) if p is None \
+            else (p["weight"], p.get("bias"))
         if w.dtype != dt:
             w = w.to(dt)
         if b is not None and b.dtype != dt:
@@ -330,7 +354,8 @@ class QuantDense(nn.Module):
         else:
             self.bias = None
 
-    def forward(self, x):
+    def forward(self, x, p=None):
+        # ``p`` is never given: int8 models refuse scan_layers
         dt = self.compute_dtype
         in_f, out_f = self.kernel_q8.shape
         x2 = x.reshape(-1, in_f).to(dt).contiguous()
@@ -339,6 +364,12 @@ class QuantDense(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y
+
+
+def _sub(p, name: str):
+    """The entry ``name`` of a scanned layer's nested slices, or None
+    (the module's own parameters)."""
+    return None if p is None else p[name]
 
 
 def _dense(cfg: TransformerConfig, in_features: int, out_features: int,
@@ -439,12 +470,13 @@ class Attention(nn.Module):
         self.o = _dense(cfg, h * dh, d, cfg.use_bias, device)
 
     def forward(self, x, decode: bool = False, segment_ids=None,
-                positions=None, page_table=None, cache=None, plan=None):
+                positions=None, page_table=None, cache=None, plan=None,
+                p=None):
         cfg = self.cfg
         b, l, _ = x.shape
-        q = self.q(x).view(b, l, cfg.n_heads, cfg.head_dim)
-        k = self.k(x).view(b, l, cfg.kv_heads, cfg.head_dim)
-        v = self.v(x).view(b, l, cfg.kv_heads, cfg.head_dim)
+        q = self.q(x, _sub(p, "q")).view(b, l, cfg.n_heads, cfg.head_dim)
+        k = self.k(x, _sub(p, "k")).view(b, l, cfg.kv_heads, cfg.head_dim)
+        v = self.v(x, _sub(p, "v")).view(b, l, cfg.kv_heads, cfg.head_dim)
         if decode:
             out = self._decode_attention(q, k, v, cache, positions,
                                          page_table, plan)
@@ -468,10 +500,16 @@ class Attention(nn.Module):
                     group = cfg.n_heads // cfg.kv_heads
                     k = k.repeat_interleave(group, dim=2)
                     v = v.repeat_interleave(group, dim=2)
-                out = reference_attention(q, k, v, causal=True,
-                                          window=cfg.sliding_window,
-                                          segment_ids=segment_ids)
-        return self.o(out.reshape(b, l, -1))
+                if cfg.attention_backend == "blockwise":
+                    out = blockwise_attention(
+                        q, k, v, block_size=cfg.attention_block_size,
+                        causal=True, window=cfg.sliding_window,
+                        segment_ids=segment_ids)
+                else:
+                    out = reference_attention(q, k, v, causal=True,
+                                              window=cfg.sliding_window,
+                                              segment_ids=segment_ids)
+        return self.o(out.reshape(b, l, -1), _sub(p, "o"))
 
     def _decode_attention(self, q, k, v, cache: dict, positions=None,
                           page_table=None, plan: WritePlan | None = None):
@@ -619,12 +657,12 @@ class MLP(nn.Module):
         self.wo = _dense(cfg, f, d, bias, device)
         self.act = _activation(cfg)
 
-    def forward(self, x):
+    def forward(self, x, p=None):
         if self.cfg.gated_mlp:
-            h = self.act(self.wg(x)) * self.wi(x)
+            h = self.act(self.wg(x, _sub(p, "wg"))) * self.wi(x, _sub(p, "wi"))
         else:
-            h = self.act(self.wi(x))
-        return self.wo(h)
+            h = self.act(self.wi(x, _sub(p, "wi")))
+        return self.wo(h, _sub(p, "wo"))
 
 
 class MoEMLP(nn.Module):
@@ -693,11 +731,14 @@ class Block(nn.Module):
 
     def forward(self, x, decode: bool = False, segment_ids=None,
                 positions=None, page_table=None, cache=None, plan=None,
-                losses: list | None = None):
+                losses: list | None = None, p=None):
         """The block's output; an MoE block appends its load-balancing
         loss to ``losses`` when given. Under remat the loss is an output
         of the recomputed function and is appended here, once: the
-        recomputation in the backward appends nothing."""
+        recomputation in the backward appends nothing. ``p`` (a scanned
+        layer's slices, nested as the block's submodules) stands in for
+        the block's own parameters; the recomputation reads the same
+        slices."""
         cfg = self.cfg
         if cfg.remat and not decode and torch.is_grad_enabled() \
                 and cfg.remat_policy != "attn_saved":
@@ -707,43 +748,46 @@ class Block(nn.Module):
             # and stashing reads the CUDA generator, which a graph
             # capture refuses
             x, aux = checkpoint(self._forward, x, False, segment_ids,
+                                None, None, None, None, p,
                                 use_reentrant=False,
                                 preserve_rng_state=False, **kw)
         else:
             x, aux = self._forward(x, decode, segment_ids, positions,
-                                   page_table, cache, plan)
+                                   page_table, cache, plan, p)
         if aux is not None and losses is not None:
             losses.append(aux)
         return x
 
-    def _ffn_call(self, x):
+    def _ffn_call(self, x, p=None):
         if self.use_moe:
             return self.moe(x)
-        return self.mlp(x), None
+        return self.mlp(x, _sub(p, "mlp")), None
 
-    def _ffn(self, x, decode: bool):
+    def _ffn(self, x, decode: bool, p=None):
         cfg = self.cfg
         if cfg.remat and not decode and torch.is_grad_enabled() \
                 and cfg.remat_policy == "attn_saved":
             # attention stays outside the recomputation (its kernels'
             # saved tensors are kept); only the FFN is recomputed, its
             # dot outputs kept
-            return checkpoint(self._ffn_call, x, use_reentrant=False,
+            return checkpoint(self._ffn_call, x, p, use_reentrant=False,
                               preserve_rng_state=False,
                               context_fn=_keep_dots)
-        return self._ffn_call(x)
+        return self._ffn_call(x, p)
 
     def _forward(self, x, decode: bool = False, segment_ids=None,
-                 positions=None, page_table=None, cache=None, plan=None):
+                 positions=None, page_table=None, cache=None, plan=None,
+                 p=None):
         """(output, the MoE loss or None)."""
-        attn_out = self.attn(self.ln1(x), decode=decode,
+        attn_out = self.attn(self.ln1(x, _sub(p, "ln1")), decode=decode,
                              segment_ids=segment_ids, positions=positions,
-                             page_table=page_table, cache=cache, plan=plan)
+                             page_table=page_table, cache=cache, plan=plan,
+                             p=_sub(p, "attn"))
         if self.cfg.parallel_residual:
-            ffn, aux = self._ffn(self.ln2(x), decode)
+            ffn, aux = self._ffn(self.ln2(x, _sub(p, "ln2")), decode, p)
             return x + attn_out + ffn, aux
         x = x + attn_out
-        ffn, aux = self._ffn(self.ln2(x), decode)
+        ffn, aux = self._ffn(self.ln2(x, _sub(p, "ln2")), decode, p)
         return x + ffn, aux
 
 
@@ -761,6 +805,60 @@ def _dots_saveable(ctx, op, *args, **kwargs):
 
 def _keep_dots():
     return create_selective_checkpoint_contexts(_dots_saveable)
+
+
+class ScannedBlocks(nn.Module):
+    """``scan_layers``' stack: ``block``, a ``Block`` whose every
+    parameter is one ``nn.Parameter`` ``[n_layers, *shape]`` (the JAX
+    ``layers/block/...`` leaves), so the state_dict reads
+    ``layers.block.attn.q.weight`` [n_layers, out, in]. The block's
+    code runs once a layer over that layer's slices (``layer_params``);
+    its own parameters are never used as they are."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.block = Block(cfg, device="meta")
+        self.names = [n for n, _ in self.block.named_parameters()]
+        for name, p in list(self.block.named_parameters()):
+            mod, _, leaf = name.rpartition(".")
+            setattr(self.block.get_submodule(mod), leaf, nn.Parameter(
+                torch.empty((cfg.n_layers, *p.shape), dtype=p.dtype,
+                            device=device)))
+
+    def layer_params(self) -> list[dict]:
+        """Each layer's parameters as nested dicts of slices of the
+        stacked leaves, taken once (``torch.unbind``: its backward is
+        one ``stack``, where indexing would add a full-size zero tensor
+        a layer). A leaf is read by attribute, so a module that computes
+        its weight (``train.lora``'s merged projection) gives the
+        computed one."""
+        out = [{} for _ in range(self.block.cfg.n_layers)]
+        for name in self.names:
+            node = self.block
+            for part in name.split("."):
+                node = getattr(node, part)
+            *mods, leaf = name.split(".")
+            for layer, t in zip(out, node.unbind(0)):
+                for m in mods:
+                    layer = layer.setdefault(m, {})
+                layer[leaf] = t
+        return out
+
+
+def layer_caches(cache: dict, n_layers: int) -> list[dict]:
+    """Each layer's cache dict: ``cache["block_i"]`` as it is, or for a
+    scanned cache (``cache["layers"]``, leaves ``[n_layers, ...]``) a
+    dict of each leaf's layer slice, views written in place, with the
+    stack's ``cache_index``."""
+    if "layers" not in cache:
+        return [cache[f"block_{i}"] for i in range(n_layers)]
+    stack = cache["layers"]
+    views = [{"cache_index": stack["cache_index"]} for _ in range(n_layers)]
+    for name, leaf in stack.items():
+        if isinstance(leaf, torch.Tensor):
+            for view, t in zip(views, leaf.unbind(0)):
+                view[name] = t
+    return views
 
 
 class Transformer(nn.Module):
@@ -784,9 +882,13 @@ class Transformer(nn.Module):
         elif cfg.positional != "rope":
             raise ValueError(f"unknown positional {cfg.positional!r}")
         every = cfg.moe_every
-        self.blocks = nn.ModuleList(
-            Block(cfg, device, use_moe=every > 0 and (i + 1) % every == 0)
-            for i in range(cfg.n_layers))
+        if cfg.scan_layers:
+            self.layers = ScannedBlocks(cfg, device)
+        else:
+            self.blocks = nn.ModuleList(
+                Block(cfg, device,
+                      use_moe=every > 0 and (i + 1) % every == 0)
+                for i in range(cfg.n_layers))
         self.ln_f = make_norm(cfg, device)
         if not cfg.tied_embeddings:
             self.lm_head = nn.Parameter(
@@ -860,21 +962,30 @@ class Transformer(nn.Module):
         if cfg.positional == "learned":
             x = x + self._learned_positions(tokens.shape[1], decode,
                                             positions, cache)
+        n = cfg.n_layers
+        caches = layer_caches(cache, n) if decode else [None] * n
         plan = None
         if decode and positions is not None:
             pos2d = positions[:, None] if positions.dim() == 1 \
                 else positions
-            ck = cache["block_0"]["cached_key"]
+            ck = caches[0]["cached_key"]
             if page_table is not None:
                 plan = write_plan(pos2d, page_table, ck.shape[0] - 1,
                                   ck.shape[1])
             else:
                 plan = write_plan(pos2d, buf_len=ck.shape[1])
-        for i, block in enumerate(self.blocks):
+        if cfg.scan_layers:
+            blocks = [self.layers.block] * n
+            params = self.layers.layer_params()
+        else:
+            blocks, params = self.blocks, [None] * n
+        for block, layer_cache, p in zip(blocks, caches, params):
             x = block(x, decode, segment_ids=segment_ids,
                       positions=positions, page_table=page_table,
-                      cache=cache[f"block_{i}"] if decode else None,
-                      plan=plan, losses=losses)
+                      cache=layer_cache, plan=plan, losses=losses, p=p)
+        if decode and cfg.scan_layers:
+            # the scalar-index mode advanced each layer's view
+            cache["layers"]["cache_index"] = caches[-1]["cache_index"]
         x = self.ln_f(x).float()
         return x if return_hidden else self.logits(x)
 

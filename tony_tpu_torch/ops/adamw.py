@@ -31,9 +31,10 @@ Differences from the JAX module, each deliberate:
   would be replayed from freed page-locked memory), and a table hit
   inside one is held past the cache's eviction (``_captured``): the
   graph reads it on every replay.
-- A non-float leaf carries its updated value into the compute copy, and
-  no sharded path exists (ROADMAP queue 3 records both JAX bugs at
-  ops/adamw.py:236 and :259; neither is copied).
+- A non-float leaf carries its updated value into the compute copy, as
+  the JAX package's does (``tony_tpu/ops/adamw.py:262-266``). No sharded
+  path exists yet; the JAX one divides a tuple PartitionSpec entry by
+  every named axis (:232-241), which the sharded port is to follow.
 """
 
 from __future__ import annotations

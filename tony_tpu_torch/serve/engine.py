@@ -125,7 +125,8 @@ from typing import Any, Iterable, Iterator
 import numpy as np
 import torch
 
-from tony_tpu_torch.models.generate import (_is_eos, multi_decode_step,
+from tony_tpu_torch.models.generate import (_is_eos, is_layer_key,
+                                            multi_decode_step,
                                             normalize_eos_ids,
                                             single_decode_step)
 from tony_tpu_torch.models.graphs import DEVICE, GraphCache
@@ -2434,7 +2435,7 @@ class Server:
             out["kv_bytes_resident"] = sum(
                 leaf.numel() * leaf.element_size()
                 for key, layer in self.slots.cache.items()
-                if key.startswith("block_") for leaf in layer.values()
+                if is_layer_key(key) for leaf in layer.values()
                 if isinstance(leaf, torch.Tensor))
             return out
         ps = self.slots.pool.stats()

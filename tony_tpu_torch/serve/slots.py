@@ -19,6 +19,12 @@ includes it; gathers clamp a sentinel onto it (the visibility mask
 hides what they read), and every write the JAX package drops lands on
 it, so the writes keep one shape whatever they drop (the JAX package's
 ``mode="drop"`` scatter) and a CUDA graph can hold them.
+
+A ``scan_layers`` model's cache is one entry, ``"layers"``, whose leaves
+carry a leading ``[n_layers]`` axis; every function here finds a leaf's
+slot or page axis from the right (``models.generate.batch_axis``, the
+JAX package's ``cache_batch_axis``), so each works on either layout, and
+a scanned payload moves each stacked leaf whole, all layers at once.
 """
 
 from __future__ import annotations
@@ -28,24 +34,30 @@ import threading
 import numpy as np
 import torch
 
-from tony_tpu_torch.models.generate import init_cache
-
-_POOL_LEAVES = ("cached_key", "cached_value", "cached_key_scale",
-                "cached_value_scale")
+from tony_tpu_torch.models.generate import (KV_LEAVES, batch_axis,
+                                            init_cache, is_layer_key)
 
 
 def _layers(cache: dict):
-    return [v for k, v in cache.items() if k.startswith("block_")]
+    return [v for k, v in cache.items() if is_layer_key(k)]
+
+
+def _at(ax: int, idx) -> tuple:
+    """An index that takes ``idx`` along axis ``ax``."""
+    return (slice(None),) * ax + (idx,)
 
 
 def pool_leaf_keys(cache: dict) -> list[tuple[str, str]]:
     """The page-pool leaves of a cache dict (or of a page payload), as
     ``(layer key, leaf name)`` in the FIXED order the wire codec sends
     them: layers by index, each layer's K/V (and int8 scales) in
-    ``_POOL_LEAVES`` order. The shared counters are not pool leaves."""
-    layers = sorted((k for k in cache if k.startswith("block_")),
-                    key=lambda k: int(k.split("_", 1)[1]))
-    return [(k, name) for k in layers for name in _POOL_LEAVES
+    ``KV_LEAVES`` order; a scanned cache's one ``layers`` entry, its
+    stacked leaves in that order. The shared counters are not pool
+    leaves."""
+    layers = sorted((k for k in cache if is_layer_key(k)),
+                    key=lambda k: int(k.split("_", 1)[1])
+                    if k.startswith("block_") else -1)
+    return [(k, name) for k in layers for name in KV_LEAVES
             if name in cache[k]]
 
 
@@ -55,11 +67,13 @@ def write_slot_row(cache: dict, row: dict, slot: int) -> None:
     slot's row of the resident leaf. The shared counters are not
     copied: per-slot decode neither reads nor advances them."""
     for key, layer in cache.items():
-        if key.startswith("block_"):
-            for name in _POOL_LEAVES:
+        if is_layer_key(key):
+            for name in KV_LEAVES:
                 leaf = layer.get(name)
                 if leaf is not None:
-                    leaf[slot].copy_(row[key][name][0])
+                    ax = batch_axis(name, leaf)
+                    leaf.select(ax, slot).copy_(
+                        row[key][name].select(ax, 0))
 
 
 def read_slot_row(cache: dict, slot: int) -> dict:
@@ -68,11 +82,12 @@ def read_slot_row(cache: dict, slot: int) -> dict:
     seeding a prefill from the row sets them anyway)."""
     out: dict = {}
     for key, layer in cache.items():
-        if not key.startswith("block_"):
+        if not is_layer_key(key):
             out[key] = layer
             continue
-        out[key] = {name: (leaf[slot:slot + 1].clone()
-                           if name in _POOL_LEAVES else leaf)
+        out[key] = {name: (leaf.narrow(batch_axis(name, leaf), slot,
+                                       1).clone()
+                           if name in KV_LEAVES else leaf)
                     for name, leaf in layer.items()}
     return out
 
@@ -86,11 +101,11 @@ def slot_view(cache: dict, slot: int, offset: int) -> dict:
     that ``write_slot_row`` then places)."""
     out: dict = {}
     for key, layer in cache.items():
-        if not key.startswith("block_"):
+        if not is_layer_key(key):
             out[key] = offset  # pos_index
             continue
-        out[key] = {name: (leaf[slot:slot + 1] if name in _POOL_LEAVES
-                           else offset)
+        out[key] = {name: (leaf.narrow(batch_axis(name, leaf), slot, 1)
+                           if name in KV_LEAVES else offset)
                     for name, leaf in layer.items()}
     return out
 
@@ -102,12 +117,13 @@ def row_nbytes(cache: dict) -> int:
     cache would occupy."""
     total = 0
     for key, layer in cache.items():
-        if not key.startswith("block_"):
+        if not is_layer_key(key):
             total += 4
             continue
         for name, leaf in layer.items():
-            total += (leaf.numel() * leaf.element_size() // leaf.shape[0]
-                      if name in _POOL_LEAVES else 4)
+            total += (leaf.numel() * leaf.element_size()
+                      // leaf.shape[batch_axis(name, leaf)]
+                      if name in KV_LEAVES else 4)
     return total
 
 
@@ -127,7 +143,8 @@ def default_page_size(cfg) -> int:
 
 def kv_page_nbytes(cfg, page_size: int) -> int:
     """Bytes of ONE KV page across all layers (K + V, plus the int8
-    mode's fp32 scales)."""
+    mode's fp32 scales); the same for a scanned pool, whose page spans
+    the stacked leaves."""
     item = 1 if cfg.kv_cache_quant else cfg.dtype.itemsize
     per = 2 * page_size * cfg.kv_heads * cfg.head_dim * item
     if cfg.kv_cache_quant:
@@ -140,10 +157,11 @@ def page_nbytes(cache: dict) -> int:
     junk page is not counted anywhere)."""
     total = 0
     for layer in _layers(cache):
-        for name in _POOL_LEAVES:
+        for name in KV_LEAVES:
             leaf = layer.get(name)
             if leaf is not None:
-                total += leaf.numel() * leaf.element_size() // leaf.shape[0]
+                total += leaf.numel() * leaf.element_size() \
+                    // leaf.shape[batch_axis(name, leaf)]
     return total
 
 
@@ -151,10 +169,11 @@ def copy_page(cache: dict, src: int, dst: int) -> None:
     """Copy pool page ``src`` onto page ``dst`` in every leaf, in place:
     the copy-on-write FORK of a shared page a slot must write into."""
     for layer in _layers(cache):
-        for name in _POOL_LEAVES:
+        for name in KV_LEAVES:
             leaf = layer.get(name)
             if leaf is not None:
-                leaf[dst] = leaf[src]
+                ax = batch_axis(name, leaf)
+                leaf.select(ax, dst).copy_(leaf.select(ax, src))
 
 
 def cache_device(cache: dict) -> torch.device:
@@ -165,16 +184,18 @@ def cache_device(cache: dict) -> torch.device:
 
 def gather_pages(cache: dict, idx: torch.Tensor) -> dict:
     """The CONTENT of pool pages ``idx`` ([n] int64) as a standalone
-    payload ``{layer: {leaf: [n, ps, ..]}}`` (the pool leaves only; the
-    counters are host ints and do not travel): the portable form of a
-    page list that the role-split handoff, migration and the host tier
-    move. A fresh copy: later writes to the pool leave
-    it alone."""
+    payload ``{layer: {leaf: [n, ps, ..]}}`` (a scanned pool's
+    ``{"layers": {leaf: [n_layers, n, ps, ..]}}``; the pool leaves only,
+    the counters are host ints and do not travel): the portable form of
+    a page list that the role-split handoff, migration and the host
+    tier move. A fresh copy: later writes to the pool leave it
+    alone."""
     out: dict = {}
     for key, name in pool_leaf_keys(cache):
         leaf = cache[key][name]
-        safe = torch.clamp(idx.to(leaf.device), 0, leaf.shape[0] - 1)
-        out.setdefault(key, {})[name] = leaf.index_select(0, safe)
+        ax = batch_axis(name, leaf)
+        safe = torch.clamp(idx.to(leaf.device), 0, leaf.shape[ax] - 1)
+        out.setdefault(key, {})[name] = leaf.index_select(ax, safe)
     return out
 
 
@@ -186,9 +207,10 @@ def scatter_pages(cache: dict, payload: dict, idx: torch.Tensor) -> None:
     a host hop and a scatter give back the same bits."""
     for key, name in pool_leaf_keys(cache):
         leaf = cache[key][name]
-        safe = torch.clamp(idx.to(leaf.device), 0, leaf.shape[0] - 1)
+        ax = batch_axis(name, leaf)
+        safe = torch.clamp(idx.to(leaf.device), 0, leaf.shape[ax] - 1)
         src = torch.as_tensor(payload[key][name])
-        leaf[safe] = src.to(device=leaf.device, dtype=leaf.dtype)
+        leaf[_at(ax, safe)] = src.to(device=leaf.device, dtype=leaf.dtype)
 
 
 def paged_view(cache: dict, table: torch.Tensor, max_len: int) -> dict:
@@ -200,21 +222,20 @@ def paged_view(cache: dict, table: torch.Tensor, max_len: int) -> dict:
     ``paged_write_back`` returns their writes to the pool."""
     out: dict = {}
     for key, layer in cache.items():
-        if not key.startswith("block_"):
+        if not is_layer_key(key):
             out[key] = layer
             continue
         view = {"cache_index": layer["cache_index"]}
-        for name in _POOL_LEAVES:
+        for name in KV_LEAVES:
             leaf = layer.get(name)
             if leaf is None:
                 continue
-            safe = torch.clamp(table, 0, leaf.shape[0] - 1)
-            v = leaf[safe]  # [b, cols, ps, ..]
-            v = v.reshape(v.shape[0], v.shape[1] * v.shape[2],
-                          *v.shape[3:])
-            limit = min(max_len, v.shape[1])
-            if limit < v.shape[1]:  # page-size rounding past max_len
-                v = v[:, :limit].contiguous()
+            ax = batch_axis(name, leaf)
+            safe = torch.clamp(table, 0, leaf.shape[ax] - 1)
+            v = leaf[_at(ax, safe)].flatten(ax + 1, ax + 2)  # [.., b, span, ..]
+            limit = min(max_len, v.shape[ax + 1])
+            if limit < v.shape[ax + 1]:  # page-size rounding past max_len
+                v = v.narrow(ax + 1, 0, limit).contiguous()
             view[name] = v
         out[key] = view
     return out
@@ -230,8 +251,9 @@ def paged_write_back(pool: dict, view: dict, table: torch.Tensor,
     are dropped, as the JAX package drops them: they land on the junk
     page, which no kept entry writes. Fixed shape, no host sync."""
     first = _layers(pool)[0]["cached_key"]
-    junk, ps = first.shape[0] - 1, first.shape[1]
-    span = _layers(view)[0]["cached_key"].shape[1]
+    ax = batch_axis("cached_key", first)
+    junk, ps = first.shape[ax] - 1, first.shape[ax + 1]
+    span = _layers(view)[0]["cached_key"].shape[ax + 1]
     steps = torch.arange(n_steps, dtype=start.dtype, device=start.device)
     pos_w = torch.where(start[:, None] >= 0, start[:, None] + steps,
                         torch.full_like(steps, -1)[None, :])
@@ -244,10 +266,11 @@ def paged_write_back(pool: dict, view: dict, table: torch.Tensor,
     dst = (page, safe % ps)
     rows = torch.arange(table.shape[0], device=table.device)[:, None]
     for pl, vl in zip(_layers(pool), _layers(view)):
-        for name in _POOL_LEAVES:
+        for name in KV_LEAVES:
             leaf = pl.get(name)
             if leaf is not None:
-                leaf[dst] = vl[name][rows, safe]
+                lead = (slice(None),) * batch_axis(name, leaf)
+                leaf[lead + dst] = vl[name][lead + (rows, safe)]
 
 
 class PagePool:

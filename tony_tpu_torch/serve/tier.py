@@ -32,7 +32,12 @@ tensor}}`` (``gather_pages``), its leaves travel in
 ``slots.pool_leaf_keys`` order, and each carries ``page_axis`` so that a
 relay can cut it page-wise (``trim_payload``). bf16 travels as its raw
 16-bit words under the dtype name ``"bfloat16"``: numpy has no bf16 type
-without ``ml_dtypes``, so a decoded leaf is a CPU torch tensor.
+without ``ml_dtypes``, so a decoded leaf is a CPU torch tensor. A
+scanned pool's payload sends each stacked leaf whole (``[n_layers, n,
+ps, ..]``, ``page_axis`` 1): K for every layer, its scales, then V and
+its scales, the JAX package's scanned wire form leaf for leaf. The JAX
+form also carries each layer's int32 ``cache_index``, which no receiver
+reads; the port's does not.
 """
 
 from __future__ import annotations
@@ -48,15 +53,12 @@ from typing import Any
 import numpy as np
 import torch
 
+from tony_tpu_torch.models.generate import batch_axis
 from tony_tpu_torch.models.graphs import DEVICE
 from tony_tpu_torch.serve.prefix import PrefixStore, tree_nbytes
 from tony_tpu_torch.serve.slots import cache_device, pool_leaf_keys
 
 log = logging.getLogger(__name__)
-
-# every paged leaf of a payload has its pages on axis 0
-PAGE_AXIS = 0
-
 
 # ------------------------------------------------------ payload shaping
 
@@ -64,21 +66,20 @@ PAGE_AXIS = 0
 def payload_pages(tree: dict) -> int:
     """Page-axis length of a gathered payload."""
     for key, name in pool_leaf_keys(tree):
-        return int(tree[key][name].shape[PAGE_AXIS])
+        leaf = tree[key][name]
+        return int(leaf.shape[batch_axis(name, leaf)])
     raise ValueError("payload holds no paged leaves")
-
-
-def _map_leaves(tree: dict, fn) -> dict:
-    out: dict = {}
-    for key, name in pool_leaf_keys(tree):
-        out.setdefault(key, {})[name] = fn(tree[key][name])
-    return out
 
 
 def pages_to_host(tree: dict, n: int) -> dict:
     """A device payload's first ``n`` pages as CPU tensors. The copy to
     the host is the device sync; the values are untouched."""
-    return _map_leaves(tree, lambda leaf: leaf[:n].to("cpu", copy=True))
+    out: dict = {}
+    for key, name in pool_leaf_keys(tree):
+        leaf = tree[key][name]
+        out.setdefault(key, {})[name] = leaf.narrow(
+            batch_axis(name, leaf), 0, n).to("cpu", copy=True)
+    return out
 
 
 # ----------------------------------------------------------- wire codec
@@ -126,8 +127,9 @@ def encode_payload(tree: Any) -> dict:
         return tree  # already wire form (a pure-router gateway relays)
     leaves = []
     for key, name in pool_leaf_keys(tree):
-        doc = encode_array(tree[key][name])
-        doc["page_axis"] = PAGE_AXIS
+        leaf = tree[key][name]
+        doc = encode_array(leaf)
+        doc["page_axis"] = batch_axis(name, leaf)
         leaves.append(doc)
     return {"leaves": leaves}
 

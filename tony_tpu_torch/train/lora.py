@@ -53,8 +53,9 @@ DEFAULT_TARGETS = ("q", "v")
 
 def kernel_shapes(cfg) -> dict[str, tuple]:
     """The JAX package's kernel shape of every projection of ``cfg``'s
-    model, by JAX path (``params/block_i/attn/q/kernel``), in the order
-    the JAX package flattens its tree (keys sorted)."""
+    model, by JAX path (``params/block_i/attn/q/kernel``; scanned,
+    ``params/layers/block/attn/q/kernel`` with the layer axis first), in
+    the order the JAX package flattens its tree (keys sorted)."""
     d, h, kvh, dh, f = (cfg.d_model, cfg.n_heads, cfg.kv_heads,
                         cfg.head_dim, cfg.d_ff)
     per = {"attn": {"q": (d, h, dh), "k": (d, kvh, dh), "v": (d, kvh, dh),
@@ -62,9 +63,15 @@ def kernel_shapes(cfg) -> dict[str, tuple]:
            "mlp": {"wi": (d, f), "wo": (f, d)}}
     if cfg.gated_mlp:
         per["mlp"]["wg"] = (d, f)
-    out = {f"params/block_{i}/{mod}/{name}/kernel": shape
-           for i in range(cfg.n_layers) for mod, names in per.items()
-           for name, shape in names.items()}
+    if cfg.scan_layers:  # one stacked kernel a projection
+        out = {f"params/layers/block/{mod}/{name}/kernel":
+               (cfg.n_layers, *shape)
+               for mod, names in per.items()
+               for name, shape in names.items()}
+    else:
+        out = {f"params/block_{i}/{mod}/{name}/kernel": shape
+               for i in range(cfg.n_layers) for mod, names in per.items()
+               for name, shape in names.items()}
     return dict(sorted(out.items()))
 
 
@@ -157,8 +164,11 @@ def _pairs(lora: Any) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
 
 
 def _port_key(path: str) -> str:
-    """The port ``state_dict`` key of a JAX kernel path."""
-    return _map_leaf(path.removeprefix("params/"), torch.zeros(1, 1))[0]
+    """The port ``state_dict`` key of a JAX kernel path (a scanned one's
+    leaf carries the layer axis)."""
+    path = path.removeprefix("params/")
+    probe = torch.zeros((1,) * (3 if path.startswith("layers/") else 2))
+    return _map_leaf(path, probe)[0]
 
 
 def merged_weight(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -218,11 +228,14 @@ class _Merged(nn.Module):
     def bias(self):
         return self.dense.bias
 
-    def forward(self, x):
+    def forward(self, x, p=None):
+        """``p``: a scanned layer's slices of the merged weight and the
+        bias (``ScannedBlocks.layer_params`` reads them through this
+        module's properties)."""
         dt = self.dense.compute_dtype
-        b = self.bias
-        return F.linear(x.to(dt), self.weight.to(dt),
-                        None if b is None else b.to(dt))
+        w, b = (self.weight, self.bias) if p is None \
+            else (p["weight"], p.get("bias"))
+        return F.linear(x.to(dt), w.to(dt), None if b is None else b.to(dt))
 
 
 def _frozen_view(base: nn.Module, compute_dtype=None) -> nn.Module:
