@@ -407,6 +407,27 @@ exits non-zero.
       position's greedy token the same, or a near tie (the smoke's bf16
       rule: within 2^-6 of the row's largest |logit|), the logits' gap
       printed.
+23. Data-parallel and FSDP training over a mesh, two ranks sharing the
+   one card over gloo (``MESH_LAYERS`` of Qwen2.5-1.5B's 28 layers at
+   full width, phase 8's recipe and batch, ``MESH_STEPS`` steps):
+   r. the reference: one process (this one), ``fit`` at
+      ``accum_steps=2`` on the global batch of 8 rows, captured;
+   a. FSDP: two child processes, spawned through ``distributed.
+      initialize``'s env, each ``Trainer(mesh=make_mesh(MeshSpec(data=1,
+      fsdp=2)), fsdp=True)`` at ``accum_steps=1`` through ``fit`` over
+      the same loader (4 rows a rank): the losses and every gathered fp32
+      master bit-equal to 23r's; fused AdamW launched once a step by each
+      rank on its local shards (local against whole elements printed),
+      flash attention forward, dQ and dK/dV ``MESH_STEPS`` x layers a
+      rank;
+   b. a two-worker gang: ``cli.local`` runs ``examples/lm_pretrain.py``
+      with ``tony.worker.instances=2`` and no chips (both see the card),
+      ``--micro 4 --accum 1`` on ``data_parallel_mesh()``: SUCCEEDED,
+      both workers on gloo in a world of 2, losses bit-equal to 23r's.
+   Each rank's ms a step, peak memory and seconds in collectives are
+   printed; a child that fails or outlives ``MESH_TIMEOUT`` is killed
+   with its process group, and its exit code and the tail of its output
+   are printed before the phase fails.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches (flash-decode's include 16a's
@@ -414,7 +435,8 @@ replays, the training kernels' phase 8's, and phase 17's agents'; the
 two phase 19 AdamW lines 19a's and 19c's; the expert-batched q8_matmul
 lines 20b's generate by route; one flash-decode line a zoo model with
 its launches in phase 21; phase 22's scanned serving and training in
-``launches_by_phase``), error and times.
+``launches_by_phase``, as are phase 23's reference and each FSDP
+rank's), error and times.
 
     python3 chip_smoke.py
 """
@@ -2203,6 +2225,20 @@ def train_replay_gate(ctx, trainer, state, batches, counters, per_step,
     return state, out
 
 
+def mesh_launches(ctx, i: int) -> dict:
+    """Phase 23's launches of training kernel ``i`` (fwd, dq, dkv,
+    AdamW): the reference's, each FSDP rank's and each gang worker's."""
+    m = ctx.get("mesh")
+    if m is None:
+        return {}
+    out = {"23r": m["ref"][i]}
+    for r, n in enumerate(m["ranks"]):
+        out[f"23a rank {r}"] = n[i]
+    for r, n in enumerate(m["gang"]):
+        out[f"23b worker {r}"] = n[i]
+    return out
+
+
 def train_kernel_lines(ctx) -> list[dict]:
     """The training kernels at phase 6's calls; ``launches`` is phase
     8's, ``launches_by_phase`` adds phase 19's LoRA step (19a) and job
@@ -2228,6 +2264,7 @@ def train_kernel_lines(ctx) -> list[dict]:
             by["20c"] = ctx["moe_train_launches"][i]
         if "scan" in ctx:
             by["22b"] = ctx["scan"]["train_launches"][i]
+        by.update(mesh_launches(ctx, i))
         lines.append({
             "name": name, "route": "cuda", "source": src, "replaces": site,
             "launches": launches[i], "launches_by_phase": by,
@@ -2242,7 +2279,7 @@ def train_kernel_lines(ctx) -> list[dict]:
             {"20c": ctx["moe_train_launches"][3]}
             if "moe_train_launches" in ctx else {}), **(
             {"22b": ctx["scan"]["train_launches"][3]}
-            if "scan" in ctx else {})},
+            if "scan" in ctx else {}), **mesh_launches(ctx, 3)},
         "max_abs_err": w["max_abs_err"], "ms": w["ms"],
         "plain_ms": w["plain_ms"], "bound_ms": w["bound"][0],
         "bound_by": w["bound"][1], "library_ms": w["library_ms"]})
@@ -5405,16 +5442,20 @@ class JobWatch:
 
 def run_job(ctx, tag: str, root: str, task: list, *confs,
             command: str | None = None,
-            payload: str = "lm_pretrain.py") -> dict:
+            payload: str = "lm_pretrain.py", workers: int = 1,
+            chips: int | None = 1, timeout: float = 900) -> dict:
     """``python -m tony_tpu_torch.cli.local --root root`` running the
     example ``payload`` over ``QWEN25_15B`` with ``task`` (or the worker
-    ``command``) on one worker holding one GPU, watched by ``JobWatch``:
+    ``command``) on ``workers`` workers holding ``chips`` GPUs each (None:
+    no chips asked, every worker sees the card), watched by ``JobWatch``:
     its exit code, wall, job dir, history, watch and output."""
     from tony_tpu_torch.events import history
 
     argv = [sys.executable, "-m", "tony_tpu_torch.cli.local", "--root",
-            root, "--device", DEVICE, "--conf", "tony.worker.instances=1",
-            "--conf", "tony.worker.chips=1"]
+            root, "--device", DEVICE, "--conf",
+            f"tony.worker.instances={workers}"]
+    if chips is not None:
+        argv += ["--conf", f"tony.worker.chips={chips}"]
     if command is None:
         hf = os.path.join(root, "config.json")
         with open(hf, "w") as f:
@@ -5434,11 +5475,12 @@ def run_job(ctx, tag: str, root: str, task: list, *confs,
                             start_new_session=True)
     watch = JobWatch(proc)
     try:
-        out, _ = proc.communicate(timeout=900)
+        out, _ = proc.communicate(timeout=timeout)
     finally:
         watch.stop()
-        if proc.poll() is None:
-            proc.kill()
+        if proc.poll() is None:  # the whole job's process group
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
     wall = time.time() - t0
     jobs = glob.glob(os.path.join(root, "staging", "application_*"))
@@ -8009,6 +8051,340 @@ def scan_attention(ctx) -> None:
     del blocked, flash
 
 
+# ------------------------------------------------------- mesh training
+
+MESH_LAYERS = 4     # 23: two processes share the card and the clock
+MESH_STEPS = 4
+MESH_TIMEOUT = 420  # s a rank process or the gang's job may take
+
+
+def mesh_config():
+    """Phase 8's training configuration at ``MESH_LAYERS`` layers (the
+    one ``examples/lm_pretrain.py`` builds from its ``--layers``)."""
+    import torch
+
+    from tony_tpu_torch.examples import lm_pretrain
+
+    hf = {**QWEN25_15B, "num_hidden_layers": MESH_LAYERS}
+    return lm_pretrain.train_config(hf, SERVE_MAX_LEN, dtype=torch.bfloat16)
+
+
+def mesh_counters():
+    from tony_tpu_torch.ops import adamw, attention
+
+    return (attention.flash_attention_fwd, attention.flash_attention_bwd_dq,
+            attention.flash_attention_bwd_dkv, adamw.fused_adamw_update)
+
+
+def mesh_fit(trainer, loader) -> dict:
+    """``fit`` for ``MESH_STEPS`` steps, timed from the end of step 2 on
+    the card (a wrapper of ``trainer.step``: fit calls sinks on rank 0
+    only); its losses, launches, peak memory and ms a step."""
+    import torch
+
+    from tony_tpu_torch.train import fit
+
+    counters = mesh_counters()
+    for c in counters:
+        c.launches = 0
+    marks = {"calls": 0}
+    step = trainer.step
+
+    def counted(state, batch):
+        out = step(state, batch)
+        marks["calls"] += 1
+        if marks["calls"] == 2:
+            sync()
+            marks["t2"] = time.perf_counter()
+        return out
+
+    trainer.step = counted
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    try:
+        result = fit(trainer, None, loader, num_steps=MESH_STEPS,
+                     log_every=1)
+        sync()
+        t_end = time.perf_counter()
+    finally:
+        trainer.step = step
+    return {"result": result,
+            "losses": [h["loss"] for h in result.history if "loss" in h],
+            "launches": [c.launches for c in counters],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "base_gib": base,
+            "step_ms": (t_end - marks["t2"]) / (MESH_STEPS - 2) * 1e3}
+
+
+def mesh_rank_main(out_dir: str) -> int:
+    """One rank of 23a, in a process of its own: initialize from the env
+    contract, train under FSDP on (data=1, fsdp=2), write this rank's
+    readings (and, rank 0, the gathered masters) into ``out_dir``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    # what the reference (this script's main process) sets, and nothing
+    # more
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from tony_tpu_torch import distributed
+    from tony_tpu_torch.examples import lm_pretrain
+    from tony_tpu_torch.ops import adamw
+    from tony_tpu_torch.parallel import FSDP, MeshSpec, make_mesh
+
+    spec = distributed.initialize(timeout_s=MESH_TIMEOUT, device=DEVICE)
+    mesh = make_mesh(MeshSpec(data=1, fsdp=2), device_type=DEVICE)
+    rank = mesh.axis_index(FSDP)
+    _, trainer, loader = lm_pretrain.build(
+        mesh_config(), seed=SEED, micro=TRAIN_MICRO, accum=1,
+        seq_len=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+        device=DEVICE, mesh=mesh, fsdp=True)
+    run = mesh_fit(trainer, loader)
+    state = run.pop("result").state
+    whole = trainer.gather_state(state).params
+    if rank == 0:
+        torch.save({n: t.cpu() for n, t in whole.items()},
+                   os.path.join(out_dir, "masters.pt"))
+    g = trainer.graphs
+    doc = {**run, "rank": rank, "world": mesh.size(),
+           "collectives": mesh_collective_check(mesh, rank),
+           "backend": spec["backend"],
+           "collective_s": trainer.collective_s,
+           "elements": list(adamw.fused_adamw_update.elements),
+           "sharded": len(trainer._shards), "leaves": len(whole),
+           "calls": [g.calls["train_step", w]
+                     for w in ("captures", "replays", "eager")]}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(doc, f)
+    torch.distributed.barrier()
+    return 0
+
+
+def mesh_collective_check(mesh, rank: int) -> dict:
+    """Each collective of ``parallel.collectives`` on CUDA tensors over the
+    fsdp axis, against what it must give: ring_shift takes gloo's staged
+    path (send/recv through pinned host buffers), the others gloo's own;
+    gathers and scatters along dim 1. Returns op -> whether it held."""
+    import torch
+
+    from tony_tpu_torch.parallel import FSDP
+    from tony_tpu_torch.parallel import collectives as col
+
+    def mine(r):  # rank r's block, exact in fp32 and bf16
+        return (torch.arange(24, device=DEVICE, dtype=torch.float32)
+                .reshape(4, 6) + 100 * r)
+
+    whole = torch.cat([mine(r) for r in range(2)], dim=1)
+    x = mine(rank)
+    got = {
+        "all_reduce_sum": torch.equal(col.all_reduce_sum(x, FSDP, mesh),
+                                      mine(0) + mine(1)),
+        "all_gather": torch.equal(col.all_gather(
+            x.bfloat16(), FSDP, mesh, axis=1), whole.bfloat16()),
+        "reduce_scatter": torch.equal(col.reduce_scatter(
+            whole, FSDP, mesh, axis=1), 2 * mine(rank)),
+        "ring_shift": torch.equal(col.ring_shift(x, FSDP, mesh),
+                                  mine(1 - rank))}
+    sync()
+    return got
+
+
+def wait_ranks(procs: list, logs: list, tag: str, limit: float) -> None:
+    """Wait for every rank process within ``limit`` seconds, then kill
+    the process group of any still running; on any failure print each
+    rank's exit code and the tail of its output, and fail."""
+    deadline = time.monotonic() + limit
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=max(deadline - time.monotonic(), 1)))
+        except subprocess.TimeoutExpired:
+            rcs.append(f"killed after {limit:.0f} s")
+    for p in procs:
+        if p.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    if any(rc != 0 for rc in rcs):
+        for r, (rc, log) in enumerate(zip(rcs, logs)):
+            with open(log, errors="replace") as f:
+                tail = f.read()[-3000:]
+            print(f"{tag} rank {r}: exit {rc}; its output ends:\n{tail}",
+                  file=sys.stderr)
+        raise PhaseError(f"{tag}: rank exit codes {rcs}")
+
+
+def phase_mesh_train(ctx) -> None:
+    """23: the reference in this process, then FSDP over two rank
+    processes, then a two-worker gang through the control plane."""
+    import torch
+
+    from tony_tpu_torch.examples import lm_pretrain
+
+    cfg = mesh_config()
+    model, trainer, loader = lm_pretrain.build(
+        cfg, seed=SEED, micro=TRAIN_MICRO, accum=2, seq_len=TRAIN_SEQ,
+        lr=TRAIN_LR, warmup=TRAIN_WARMUP, device=DEVICE)
+    ref = mesh_fit(trainer, loader)
+    ref_calls = [trainer.graphs.calls["train_step", w]
+                 for w in ("captures", "replays", "eager")]
+    check(ref_calls == [1, MESH_STEPS - 1, 0],
+          f"23r: train_step captures/replays/eager {ref_calls}")
+    per = MESH_LAYERS * 2 * MESH_STEPS
+    check(ref["launches"] == [per] * 3 + [MESH_STEPS],
+          f"23r: launches fwd/dq/dkv/adamw {ref['launches']}")
+    losses = ref["losses"]
+    masters = {n: t.to("cpu", copy=True)
+               for n, t in ref.pop("result").state.params.items()}
+    print(f"phase 23r reference: Qwen2.5-1.5B width, {MESH_LAYERS} layers, "
+          f"one process, fit at accum_steps=2 on {TRAIN_MICRO} x 2 x "
+          f"{TRAIN_SEQ} tokens a step, captured: losses "
+          f"{[round(x, 4) for x in losses]}; {ref['step_ms']:.1f} ms/step, "
+          f"peak memory {ref['peak_gib']:.2f} GiB; launches fwd/dq/dkv/"
+          f"adamw {ref['launches']} [{ctx['card']}]")
+    del model, trainer, loader
+    free_card()
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 23: the card's free memory {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB before the ranks (this script's cache "
+          f"released) [{ctx['card']}]")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_mesh_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        ranks = mesh_fsdp(ctx, root, losses, masters)
+        gang = mesh_gang(ctx, os.path.join(root, "gang"), losses)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ctx["mesh"] = {"ref": ref["launches"],
+                   "ranks": [r["launches"] for r in ranks],
+                   "gang": [r["launches"] for r in gang]}
+
+
+def mesh_fsdp(ctx, root: str, losses: list, masters: dict) -> list:
+    """23a: two rank processes, FSDP, against 23r bit for bit."""
+    import socket
+
+    import torch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for r in range(2):
+        log = os.path.join(root, f"rank{r}.log")
+        logs.append(log)
+        env = {**os.environ, "PYTHONPATH": ROOT,
+               "TONY_JAX_COORDINATOR": f"127.0.0.1:{port}",
+               "TONY_PROCESS_ID": str(r), "TONY_NUM_PROCESSES": "2"}
+        with open(log, "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--mesh-rank", root], cwd=ROOT, env=env, stdout=out,
+                stderr=subprocess.STDOUT, start_new_session=True))
+    wait_ranks(procs, logs, "23a", MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    per = MESH_LAYERS * MESH_STEPS
+    for r in ranks:
+        tag = f"23a rank {r['rank']}"
+        check(r["backend"] == "gloo" and r["world"] == 2,
+              f"{tag}: backend {r['backend']}, world {r['world']}")
+        check(r["losses"] == losses, f"{tag}: losses {r['losses']} "
+              f"against 23r's {losses} (held bit-equal)")
+        check(r["launches"] == [per] * 3 + [MESH_STEPS],
+              f"{tag}: launches fwd/dq/dkv/adamw {r['launches']}, "
+              f"expected {[per] * 3 + [MESH_STEPS]}")
+        check(r["elements"][0] < r["elements"][1] and r["sharded"] > 0,
+              f"{tag}: fused AdamW's local/whole elements {r['elements']}"
+              f", {r['sharded']} sharded leaves")
+        check(r["calls"] == [0, 0, MESH_STEPS],
+              f"{tag}: train_step captures/replays/eager {r['calls']}")
+        check(all(r["collectives"].values()),
+              f"{tag}: collectives on CUDA tensors {r['collectives']}")
+    got = torch.load(os.path.join(root, "masters.pt"), weights_only=True)
+    check(sorted(got) == sorted(masters), "23a: the gathered masters are "
+          "not 23r's leaves")
+    differ = [n for n, t in got.items() if not torch.equal(t, masters[n])]
+    check(not differ, f"23a: {len(differ)} of {len(masters)} gathered "
+          f"masters differ from 23r's: {differ[:4]}")
+    print(f"phase 23a FSDP over two rank processes on one card "
+          f"(gloo, MeshSpec(data=1, fsdp=2), accum_steps=1, {TRAIN_MICRO} "
+          f"rows a rank): losses and all {len(masters)} gathered fp32 "
+          f"masters bit-equal to 23r's; on CUDA tensors over gloo "
+          f"{', '.join(ranks[0]['collectives'])} equal to their sums and "
+          f"gathers (ring_shift staged through pinned host memory); wall "
+          f"{wall:.1f} s with the processes' start [{ctx['card']}]")
+    for r in ranks:
+        local, whole = r["elements"]
+        print(f"phase 23a rank {r['rank']}: {r['step_ms']:.1f} ms/step "
+              f"(eager), {r['collective_s']:.2f} s in collectives over "
+              f"{MESH_STEPS} steps and the gathers, peak memory "
+              f"{r['peak_gib']:.2f} GiB ({r['peak_gib'] - r['base_gib']:.2f}"
+              f" above its resident start); fused AdamW once a step over "
+              f"{local} local of {whole} elements ({r['sharded']} of "
+              f"{r['leaves']} leaves sharded); launches fwd/dq/dkv/adamw "
+              f"{r['launches']} [{ctx['card']}]")
+    return ranks
+
+
+def mesh_gang(ctx, root: str, losses: list) -> list:
+    """23b: a two-worker gang through the control plane, against 23r."""
+    os.makedirs(root)
+    task = ["--layers", str(MESH_LAYERS), "--steps", str(MESH_STEPS),
+            "--micro", str(TRAIN_MICRO), "--accum", "1", "--seq-len",
+            str(TRAIN_SEQ), "--max-seq-len", str(SERVE_MAX_LEN), "--lr",
+            str(TRAIN_LR), "--warmup", str(TRAIN_WARMUP), "--seed",
+            str(SEED), "--result", os.path.join(root, "r{rank}.json")]
+    job = run_job(ctx, "23b", root, task, workers=2, chips=None,
+                  timeout=MESH_TIMEOUT)
+    if job["rc"] != 0:
+        print(f"23b: cli.local exited {job['rc']}; its output ends:\n"
+              f"{job['out'][-3000:]}", file=sys.stderr)
+        for log in sorted(glob.glob(os.path.join(
+                job["job_dir"], "logs", "worker-*"))):
+            with open(log, errors="replace") as f:
+                print(f"23b {os.path.basename(log)} ends:\n"
+                      f"{f.read()[-2000:]}", file=sys.stderr)
+        raise PhaseError(f"23b: cli.local exited {job['rc']}")
+    types = job_events(job, "23b")
+    check(job["history"][0]["status"] == "SUCCEEDED",
+          f"23b: history {job['history'][0]['status']}, events {types}")
+    res = []
+    for r in range(2):
+        with open(os.path.join(root, f"r{r}.json")) as f:
+            res.append(json.load(f))
+    for r, doc in enumerate(res):
+        check(doc["rank"] == r and doc["world"] == 2
+              and doc["backend"] == "gloo",
+              f"23b worker {r}: rank {doc['rank']}, world {doc['world']}, "
+              f"backend {doc['backend']}")
+        check(doc["losses"] == losses, f"23b worker {r}: losses "
+              f"{doc['losses']} against 23r's {losses} (held bit-equal)")
+    print(f"phase 23b a two-worker gang: cli.local -> coordinator -> two "
+          f"agents -> lm_pretrain.py on data_parallel_mesh(), "
+          f"tony.worker.instances=2 and no chips (both on the card), "
+          f"--micro {TRAIN_MICRO} --accum 1: SUCCEEDED, both workers on "
+          f"gloo in a world of 2, losses bit-equal to 23r's; submit to "
+          f"SUCCEEDED {job['wall']:.2f} s [{ctx['card']}]")
+    for doc in res:
+        ms = "not measured" if doc["step_ms"] is None \
+            else f"{doc['step_ms']:.1f} ms/step"
+        peak = "not measured" if doc["peak_gib"] is None \
+            else f"{doc['peak_gib']:.2f} GiB"
+        print(f"phase 23b worker {doc['rank']}: {ms}, "
+              f"{doc['collective_s']:.2f} s in collectives, peak memory "
+              f"{peak}; launches "
+              f"{json.dumps(doc['launches'])} [{ctx['card']}]")
+    return [{"launches": [d["launches"][k] for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv", "fused_adamw")]} for d in res]
+
+
 def main() -> int:
     try:
         import torch
@@ -8047,7 +8423,8 @@ def main() -> int:
                         ("sampled", phase_sampled),
                         ("fabric", phase_fabric), ("job", phase_job),
                         ("finetune", phase_finetune), ("moe", phase_moe),
-                        ("zoo", phase_zoo), ("scan", phase_scan)):
+                        ("zoo", phase_zoo), ("scan", phase_scan),
+                        ("mesh-train", phase_mesh_train)):
         t0 = time.perf_counter()
         try:
             phase(ctx)
@@ -8074,4 +8451,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -126,11 +126,21 @@ def test_nonfloat_leaf_carries_its_updated_value():
 
 
 def test_refusals():
+    """A spec that names an axis needs a mesh that has it (the sharded
+    update itself runs on local shards: ``tests/test_torch_fsdp.py``)."""
+    from tony_tpu_torch.parallel import MeshSpec, make_mesh
+    from tony_tpu_torch.parallel.sharding import P
+
     opt = FusedAdamW()
     params = {"w": torch.ones(4)}
     state = opt.init(params)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        fused_adamw_update(opt, params, state, params, mesh=object())
+    with pytest.raises(ValueError, match="no mesh"):
+        fused_adamw_update(opt, params, state, params,
+                           param_specs={"w": P("fsdp")})
+    mesh = make_mesh(MeshSpec(data=2), devices=[0, 1], device_type="cpu")
+    with pytest.raises(ValueError, match="not an axis"):
+        fused_adamw_update(opt, params, state, params, mesh=mesh,
+                           param_specs={"w": P("rows")})
     with pytest.raises(ValueError, match="compute_params"):
         fused_adamw_update(opt, params, state, params,
                            compute_dtype=torch.bfloat16)

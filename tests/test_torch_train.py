@@ -201,11 +201,32 @@ def test_torch_optim_stands_for_optax():
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """What stays refused once fsdp and batch_shardings are ported: a
+    batch sharding past the batch dim (sequence parallelism) and a mesh
+    whose tensor, pipe, seq or expert axis is above 1, both naming
+    ROADMAP.md's item 5; and a batch that the accumulation cannot
+    split."""
+    from tony_tpu_torch.parallel import MeshSpec, make_mesh
+    from tony_tpu_torch.parallel.sharding import NamedSharding, P
+
     _, _, tm = _pair()
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        Trainer(tm, _apply(None), FusedAdamW(LR), fsdp=True)
-    with pytest.raises(NotImplementedError, match="batch_shardings"):
-        Trainer(tm, _apply(None), FusedAdamW(LR), batch_shardings={})
+    one = make_mesh(MeshSpec(), device_type="cpu")
+    with pytest.raises(NotImplementedError, match="item 5.*Ulysses"):
+        Trainer(tm, _apply(None), FusedAdamW(LR), mesh=one,
+                batch_shardings=NamedSharding(one, P("data", "seq")))
+    with pytest.raises(NotImplementedError, match="item 5.*Ulysses"):
+        Trainer(tm, _apply(None), FusedAdamW(LR), mesh=one,
+                batch_shardings={"tokens": NamedSharding(
+                    one, P(None, ("data",)))})
+    for axis in ("tensor", "pipe", "seq", "expert"):
+        mesh = make_mesh(MeshSpec(data=1, **{axis: 2}), devices=[0, 1],
+                         device_type="cpu")
+        with pytest.raises(NotImplementedError, match=f"{axis}.*item 5"):
+            Trainer(tm, _apply(None), FusedAdamW(LR), mesh=mesh)
+    # what no longer raises: fsdp, a batch-dim sharding, a mesh of one
+    tr = Trainer(tm, _apply(None), FusedAdamW(LR), fsdp=True, mesh=one,
+                 batch_shardings=NamedSharding(one, P(("data", "fsdp"))))
+    assert tr.ranks == 1 and not tr.distributed
     tr = Trainer(tm, _apply(None), FusedAdamW(LR), accum_steps=3)
     with pytest.raises(ValueError, match="not divisible"):
         tr.step(tr.init_state(), {"tokens": torch.from_numpy(

@@ -43,18 +43,46 @@ def env_spec() -> dict | None:
     }
 
 
-def _backend(device: str | None) -> str:
-    """``nccl`` on the card, ``gloo`` on an explicit CPU request; raises
-    with no GPU and no CPU request, as the port's other entry points
-    do."""
+def _card_id() -> str:
+    """The identity of the card this process drives (its UUID)."""
+    import torch
+
+    return str(torch.cuda.get_device_properties(
+        torch.cuda.current_device()).uuid)
+
+
+def _backend(device: str | None, store=None, rank: int = 0,
+             world: int = 1) -> tuple[str, str]:
+    """(backend, why): ``gloo`` on an explicit CPU request, or when the
+    ranks outnumber the cards (two ranks drive one card: every rank
+    publishes the UUID of its current card in the store, and any UUID
+    seen twice means a shared card, which NCCL refuses); ``nccl`` when
+    each rank has a card of its own. Without a store it only checks that
+    a GPU is there: it raises with no GPU and no CPU request, as the
+    port's other entry points do."""
     if device == "cpu":
-        return "gloo"
+        return "gloo", "device=cpu"
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to initialize over gloo")
-    return "nccl"
+    if store is None:
+        return "nccl", "one rank"
+    store.set(f"tony/card/{rank}", _card_id())
+    cards = [store.get(f"tony/card/{r}").decode() for r in range(world)]
+    if len(set(cards)) < world:
+        return "gloo", (f"{world} ranks on {len(set(cards))} card(s): "
+                        "ranks share a card")
+    return "nccl", f"{world} ranks, a card each"
+
+
+def _local_index(store, rank: int, world: int) -> int:
+    """This rank's place among the ranks on its host: every rank
+    publishes its host name in the store."""
+    store.set(f"tony/host/{rank}", socket.gethostname())
+    hosts = [store.get(f"tony/host/{r}").decode() for r in range(world)]
+    return sum(h == hosts[rank] for h in hosts[:rank])
 
 
 def _store(spec: dict, timeout: datetime.timedelta):
@@ -109,11 +137,14 @@ def _shutdown(store, rank: int, world: int,
 
 def initialize(timeout_s: int | None = None,
                device: str | None = None) -> dict | None:
-    """``torch.distributed.init_process_group`` from injected env, over
-    ``nccl`` (on the card) or ``gloo`` (``device="cpu"``), with an exit
-    handler that tears the group down in step with the other ranks
-    (``_shutdown``). No-op (returns the spec, or None outside a job) with
-    a single process."""
+    """``torch.distributed.init_process_group`` from injected env, with an
+    exit handler that tears the group down in step with the other ranks
+    (``_shutdown``). Off the CPU each rank drives the card at its place
+    among its host's ranks (modulo the visible cards). The backend is
+    ``nccl`` when each rank has a card of its own, else ``gloo``
+    (``_backend``: ``device="cpu"``, or ranks that share a card); the
+    rank prints it on its first line. No-op (returns the spec, or None
+    outside a job) with a single process."""
     from tony_tpu_torch.profiler import maybe_start_server
 
     spec = env_spec()
@@ -123,30 +154,40 @@ def initialize(timeout_s: int | None = None,
         return spec
     import torch.distributed as dist
 
-    backend = _backend(device)
+    _backend(device)  # no GPU and no CPU request: raise before binding
     timeout = datetime.timedelta(seconds=timeout_s or 300)
     store = _store(spec, timeout)
+    rank, world = spec["process_id"], spec["num_processes"]
+    if device != "cpu":
+        import torch
+
+        # the rank's card: its place on the host, past the cards' count
+        # sharing them
+        torch.cuda.set_device(_local_index(store, rank, world)
+                              % torch.cuda.device_count())
+    backend, why = _backend(device, store, rank, world)
+    print(f"tony_tpu_torch.distributed: rank {rank} of {world}, backend "
+          f"{backend} ({why})", flush=True)
     dist.init_process_group(
-        backend=backend, store=store, rank=spec["process_id"],
-        world_size=spec["num_processes"], timeout=timeout)
-    atexit.register(_shutdown, store, spec["process_id"],
-                    spec["num_processes"], timeout)
+        backend=backend, store=store, rank=rank, world_size=world,
+        timeout=timeout)
+    atexit.register(_shutdown, store, rank, world, timeout)
     log.info("torch.distributed initialized (%s): rank %d/%d via %s",
-             backend, spec["process_id"], spec["num_processes"],
-             spec["coordinator_address"])
+             backend, rank, world, spec["coordinator_address"])
     maybe_start_server()  # TONY_PROFILER_PORT-gated; no-op otherwise
-    return spec
+    return {**spec, "backend": backend}
 
 
 def default_mesh(axis_name: str = "data", device: str | None = None):
     """Every rank's device as a 1-D data-parallel mesh (call after
-    ``initialize``)."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    ``initialize``): ``parallel.data_parallel_mesh``, its one dim named
+    ``axis_name``, on ``device`` (``cpu``; None is the card)."""
+    from tony_tpu_torch.parallel.mesh import Mesh, data_parallel_mesh
 
-    kind = "cpu" if device == "cpu" else "cuda"
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    return init_device_mesh(kind, (world,), mesh_dim_names=(axis_name,))
+    mesh = data_parallel_mesh(device_type=device)
+    if mesh.axis_names == (axis_name,):
+        return mesh
+    return Mesh(mesh.devices, (axis_name,), mesh.device_type)
 
 
 def task_identity() -> tuple[str, int]:

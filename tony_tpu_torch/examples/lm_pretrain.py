@@ -1,5 +1,9 @@
 """Decoder-LM pretraining as a tony-tpu job on the card: the port's
-counterpart of ``examples/lm-pretrain/pretrain.py``, without the mesh.
+counterpart of ``examples/lm-pretrain/pretrain.py``. As that payload does,
+it calls ``distributed.initialize`` and trains on ``data_parallel_mesh()``
+over every worker of the gang (one worker: a mesh of one, the captured
+step); each worker takes ``--micro`` x ``--accum`` rows of the global
+batch, whose gradients are summed over the workers.
 
 Builds Qwen2.5-1.5B at full width (``--config-json`` gives another
 Llama-family ``config.json``, ``--layers`` cuts the depth), random from
@@ -67,14 +71,17 @@ def train_config(hf: dict, max_seq_len: int, **overrides):
 
 
 def build(cfg, *, seed: int, micro: int, accum: int, seq_len: int,
-          lr: float, warmup: int, device: str):
+          lr: float, warmup: int, device: str, mesh=None,
+          fsdp: bool = False):
     """``(model, trainer, loader)``: the model random from ``seed`` in
     ``cfg.dtype`` (a ``scan_layers`` model holds the unscanned draw's
     weights, stacked), a ``Trainer`` of bf16 compute over fp32 masters with
     ``FusedAdamW`` (``lr`` after a linear ``warmup``, a tensor of the
     step count, as a captured step needs) and ``accum`` micro-batches of
-    ``micro`` rows, and a loader over one global batch of synthetic
-    tokens from ``seed``, reshuffled each epoch."""
+    ``micro`` rows a rank over ``mesh`` (None: one device; ``fsdp`` shards
+    it), and a loader over one global batch (``micro`` x ``accum`` x the
+    mesh's ranks rows) of synthetic tokens from ``seed``, reshuffled each
+    epoch, each rank taking its stride."""
     import numpy as np
     import torch
 
@@ -108,8 +115,9 @@ def build(cfg, *, seed: int, micro: int, accum: int, seq_len: int,
         return lr * torch.clamp((count + 1).float() / warmup, max=1.0)
 
     trainer = Trainer(model, apply_fn, FusedAdamW(warmup_lr),
-                      compute_dtype=cdt, accum_steps=accum)
-    gb = micro * accum
+                      compute_dtype=cdt, accum_steps=accum, mesh=mesh,
+                      fsdp=fsdp)
+    gb = micro * accum * (1 if mesh is None else mesh.size())
     rng = np.random.default_rng(seed)
     data = rng.integers(0, cfg.vocab_size, (gb, seq_len)).astype(np.int64)
     loader = DataLoader(ArraySource({"tokens": data}), gb, seed=seed,
@@ -152,7 +160,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    "checkpoint")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--result", help="write the JSON result here "
-                   "('{attempt}' in the path becomes the attempt number)")
+                   "('{attempt}' in the path becomes the attempt number, "
+                   "'{rank}' the worker's rank)")
     p.add_argument("--save-params",
                    help="torch.save the final fp32 masters here")
     return p.parse_args(argv)
@@ -165,12 +174,16 @@ def main(argv=None) -> int:
 
     from tony_tpu_torch import constants as C
     from tony_tpu_torch import distributed
+    from tony_tpu_torch.ops import adamw
+    from tony_tpu_torch.parallel import DATA, data_parallel_mesh
     from tony_tpu_torch.train import fit, job_checkpoint_dir
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to train on "
                            "the CPU")
-    distributed.initialize(device=args.device)  # no-op for one worker
+    spec = distributed.initialize(device=args.device)  # no-op alone
+    mesh = data_parallel_mesh(device_type=args.device)
+    rank = mesh.axis_index(DATA)
     hf = QWEN25_15B
     if args.config_json:
         with open(args.config_json) as f:
@@ -183,7 +196,7 @@ def main(argv=None) -> int:
     model, trainer, loader = build(
         cfg, seed=args.seed, micro=args.micro, accum=args.accum,
         seq_len=args.seq_len, lr=args.lr, warmup=args.warmup,
-        device=args.device)
+        device=args.device, mesh=mesh)
     attempt = int(os.environ.get(C.ATTEMPT_NUMBER, "0"))
     fail = args.fail_after_checkpoint > 0 and attempt == 0 \
         and job_checkpoint_dir() is not None
@@ -193,50 +206,66 @@ def main(argv=None) -> int:
         if args.device == "cuda":
             torch.cuda.synchronize()
 
-    stamps = []
+    marks = {"calls": 0, "t2": None}
+    step = trainer.step
 
-    def stamp(step, metrics):
-        # step 1's metrics are read once step 2 is queued: wait for the
-        # card there, so that the steady window starts where step 2 ends
-        if not stamps:
+    def counted(state, batch):
+        # every rank's clock (fit calls its sinks on rank 0 only): the
+        # steady window starts where step 2 ends on the card
+        out = step(state, batch)
+        marks["calls"] += 1
+        if marks["calls"] == 2:
             sync()
-        stamps.append(time.time())
+            marks["t2"] = time.time()
+        return out
 
+    trainer.step = counted
+    if args.device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     sync()
     t_fit = time.time()
-    result = fit(trainer, None, loader, total_steps=target, log_every=1,
-                 metric_sinks=[stamp])
+    result = fit(trainer, None, loader, total_steps=target, log_every=1)
     sync()
     t_end = time.time()
     hist = [h for h in result.history if "loss" in h]
     n_params = sum(p.numel() for p in model.parameters())
-    run = len(stamps)
+    run, world = marks["calls"], mesh.size()
     doc = {
         "attempt": attempt, "resumed_from": result.resumed_from,
         "steps_run": result.steps_run, "steps": [h["step"] for h in hist],
         "losses": [h["loss"] for h in hist],
         # steady steps: from the end of step 2 on the card to the end of
         # the last, over their count
-        "step_ms": (t_end - stamps[0]) / (run - 2) * 1e3 if run > 2
+        "step_ms": (t_end - marks["t2"]) / (run - 2) * 1e3 if run > 2
         else None,
         "launches": launches(), "n_params": n_params,
         "n_layers": cfg.n_layers,
-        "tokens_per_step": args.micro * args.accum * args.seq_len,
+        "tokens_per_step": args.micro * args.accum * args.seq_len * world,
+        "rank": rank, "world": world,
+        "backend": (spec or {}).get("backend"),
+        # host seconds in the gradient sum and the copies' gather
+        "collective_s": trainer.collective_s,
+        # fused AdamW's (local, whole) elements in its last call
+        "adamw_elements": list(adamw.fused_adamw_update.elements),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+        if args.device == "cuda" else None,
         "device": torch.cuda.get_device_name(0) if args.device == "cuda"
         else "cpu",
         "cuda_visible_devices": os.environ.get(C.CUDA_VISIBLE_DEVICES),
         "pid": os.getpid(), "agent_pid": os.environ.get(C.AGENT_PID),
         "t_start": t_start, "t_fit": t_fit,
-        "t_first_step": stamps[0] if stamps else None, "t_end": t_end,
+        "t_first_step": marks["t2"], "t_end": t_end,
         "checkpoint": None if result.manager is None else {
             "saves": result.manager.saves,
             "restores": result.manager.restores},
     }
     if args.save_params:
-        torch.save({n: t.cpu() for n, t in result.state.params.items()},
-                   args.save_params)
+        whole = trainer.gather_state(result.state).params
+        if rank == 0:
+            torch.save({n: t.cpu() for n, t in whole.items()},
+                       args.save_params)
     if args.result:
-        path = args.result.format(attempt=attempt)
+        path = args.result.format(attempt=attempt, rank=rank)
         with open(path + ".tmp", "w") as f:
             json.dump(doc, f)
         os.replace(path + ".tmp", path)

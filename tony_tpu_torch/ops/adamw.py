@@ -32,9 +32,18 @@ Differences from the JAX module, each deliberate:
   inside one is held past the cache's eviction (``_captured``): the
   graph reads it on every replay.
 - A non-float leaf carries its updated value into the compute copy, as
-  the JAX package's does (``tony_tpu/ops/adamw.py:262-266``). No sharded
-  path exists yet; the JAX one divides a tuple PartitionSpec entry by
-  every named axis (:232-241), which the sharded port is to follow.
+  the JAX package's does (``tony_tpu/ops/adamw.py:262-266``).
+- Sharded (``mesh`` and ``param_specs``): the JAX function runs a sharded
+  leaf's kernel under ``shard_map`` on each device's shard of a global
+  array. A rank of the port holds only its shard (``parallel.sharding.
+  place``), so the leaves it is given are local: a sharded leaf's
+  gradient, master, moments and compute copy are its contiguous local
+  shards (never a strided view of a whole tensor: a shard along a
+  non-leading dim is not one), updated by the same one-launch-per-dtype
+  table as the replicated leaves. The whole leaf's element count is the
+  local count times every named axis of each spec entry, a tuple entry
+  counting each of its axes (:232-241); ``fused_adamw_update.elements``
+  records both sums of the last call.
 """
 
 from __future__ import annotations
@@ -322,10 +331,18 @@ def fused_adamw_update(opt: FusedAdamW, grads: dict, state: FusedAdamWState,
     copy written whether or not ``compute_dtype`` is given, so a caller
     may point the copies at other tensors (a model's parameters). CUDA
     leaves run the kernel (``fused_adamw_update.launches`` counts the
-    launches); CPU leaves and non-float leaves run the plain version."""
-    if mesh is not None or param_specs is not None:
-        raise NotImplementedError("sharded fused AdamW is not ported yet "
-                                  "(single device; see ROADMAP.md)")
+    launches); CPU leaves and non-float leaves run the plain version.
+
+    ``mesh`` and ``param_specs`` (name -> ``PartitionSpec``): the leaves
+    of a spec that names an axis are this rank's local shards (the
+    module docstring); the spec's axes must be the mesh's."""
+    local, whole = 0, 0
+    for name, p in params.items():
+        n = p.numel()
+        local += n
+        whole += n * _shard_factor(mesh, None if param_specs is None
+                                   else param_specs.get(name))
+    fused_adamw_update.elements = (local, whole)
     if compute_dtype is not None and state.compute_params is None:
         raise ValueError("compute_dtype needs state.compute_params "
                          "(FusedAdamW.init(params, compute_dtype))")
@@ -351,3 +368,26 @@ def fused_adamw_update(opt: FusedAdamW, grads: dict, state: FusedAdamWState,
 
 
 fused_adamw_update.launches = 0
+# (local, whole) elements of the last call's params: equal unless sharded
+fused_adamw_update.elements = (0, 0)
+
+
+def _shard_factor(mesh, spec) -> int:
+    """How many shards a leaf of ``spec`` is cut into over ``mesh``: the
+    product of every named axis of every entry, a tuple entry splitting
+    its dim over each of its axes (``tony_tpu/ops/adamw.py:232-241``)."""
+    if spec is None or not any(ax is not None for ax in spec):
+        return 1
+    if mesh is None:
+        raise ValueError(f"param spec {spec} names axes but no mesh was "
+                         "given")
+    n = 1
+    for ax in spec:
+        if ax is None:
+            continue
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            if a not in mesh.shape:
+                raise ValueError(f"param spec {spec} names {a!r}, not an "
+                                 f"axis of the mesh {mesh.shape}")
+            n *= mesh.shape[a]
+    return n

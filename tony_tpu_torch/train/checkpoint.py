@@ -8,6 +8,13 @@ The JAX package writes orbax checkpoints; this manager cannot read them
 (a deliberate divergence, ROADMAP queue 3): carry a JAX state across
 with ``models.convert.from_jax_train_state`` instead.
 
+A gang's manager (``gang=True``, as ``fit`` makes it for a mesh
+``Trainer``): every rank of the process group calls ``save`` together,
+rank 0 writes (the state it is given is whole: ``Trainer.gather_state``)
+and every rank returns once the step is on disk. So a step is the same
+file whatever world wrote it, and ``Trainer.place`` cuts a restored
+whole leaf to each rank's shard.
+
 A job's retry resumes through ``TONY_CHECKPOINT_DIR``: ``auto_resume``
 (or ``fit``, which reads the same variable) restores the newest complete
 step there, the one the coordinator advertised as ``TONY_RESUME_STEP``
@@ -57,8 +64,9 @@ class CheckpointManager:
     (a save) bytes written."""
 
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 save_interval_steps: int = 1):
+                 save_interval_steps: int = 1, gang: bool = False):
         self.directory = os.path.abspath(directory)
+        self.gang = gang
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
@@ -76,7 +84,18 @@ class CheckpointManager:
             -> bool:
         """Write ``state`` as step ``step``; off the save interval (or
         onto an existing step) only with ``force``. Returns whether it
-        wrote."""
+        wrote. A gang's ranks call it together and rank 0 writes."""
+        if self.gang:
+            import torch.distributed as dist
+
+            wrote = [self._write(step, state, force)
+                     if dist.get_rank() == 0 else None]
+            # every rank leaves once rank 0's step is on disk
+            dist.broadcast_object_list(wrote, src=0)
+            return bool(wrote[0])
+        return self._write(step, state, force)
+
+    def _write(self, step: int, state: TrainState, force: bool) -> bool:
         final = os.path.join(self.directory, str(step))
         if not force and (step % self.save_interval_steps
                           or os.path.exists(final)):

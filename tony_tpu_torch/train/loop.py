@@ -7,6 +7,13 @@ params and metric sinks. Metrics stay on the device between log
 boundaries: a boundary only records them, and they are fetched at the
 next one (or at the end), by when the steps behind them have long
 finished, so the host never waits for the card at a boundary.
+
+A mesh ``Trainer`` runs ``fit`` on every rank (a ``DataLoader`` gives each
+rank its rows by default). Only rank 0 calls the metric sinks, as the
+JAX payload arranges (``examples/lm-pretrain/pretrain.py``); every rank
+keeps the history. A checkpoint holds the whole state, gathered from the
+shards (``Trainer.gather_state``) and written by rank 0, the same file a
+one-device run writes, so a run resumes on another world size.
 """
 
 from __future__ import annotations
@@ -83,9 +90,11 @@ def fit(trainer: Trainer, params: Any, train_data: Iterable, *,
     resumed_from = None
     manager = None
     placed = None
+    primary = not trainer.distributed or _rank() == 0
     ckpt_dir = checkpoint_dir or job_checkpoint_dir()
     if ckpt_dir:
-        manager = CheckpointManager(ckpt_dir, max_to_keep=max_checkpoints)
+        manager = CheckpointManager(ckpt_dir, max_to_keep=max_checkpoints,
+                                    gang=trainer.distributed)
         restored = manager.restore()
         if restored is not None:
             placed = trainer.place(restored)
@@ -111,7 +120,7 @@ def fit(trainer: Trainer, params: Any, train_data: Iterable, *,
 
     def emit(step: int, metrics: dict) -> None:
         history.append({"step": step, **metrics})
-        for sink in sinks:
+        for sink in sinks if primary else ():
             sink(step, metrics)
 
     pending: tuple[int, dict, float] | None = None
@@ -159,7 +168,7 @@ def fit(trainer: Trainer, params: Any, train_data: Iterable, *,
                            steps_run / (time.monotonic() - t0))
             if manager and checkpoint_every and \
                     steps_run % checkpoint_every == 0:
-                manager.save(step, placed)
+                manager.save(step, trainer.gather_state(placed))
             if eval_fn and eval_data is not None and eval_every and \
                     steps_run % eval_every == 0:
                 flush_pending()  # keep history and sinks step-ordered
@@ -177,10 +186,16 @@ def fit(trainer: Trainer, params: Any, train_data: Iterable, *,
     if manager:
         final = start_step + steps_run
         if manager.latest_step() != final:
-            manager.save(final, placed, force=True)
+            manager.save(final, trainer.gather_state(placed), force=True)
     return FitResult(state=placed, steps_run=steps_run,
                      resumed_from=resumed_from, history=history,
                      ema_params=ema_params, manager=manager)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _run_eval(eval_fn, model, eval_data) -> dict:

@@ -1,5 +1,4 @@
-"""The train step: the counterpart of ``tony_tpu/train/trainer.py`` on one
-device.
+"""The train step: the counterpart of ``tony_tpu/train/trainer.py``.
 
 ``Trainer`` keeps fp32 master params in ``TrainState`` and runs the
 module in ``compute_dtype``: the loss comes out in fp32, ``accum_steps``
@@ -21,6 +20,30 @@ fused kernel writes that copy in the same pass as the master (the JAX
 compute-dtype carry, with the copy written straight into the module's
 parameters, which ``FusedAdamWState.compute_params`` then holds); after
 a ``torch.optim`` step the trainer copies the masters into them.
+
+Over a mesh (``mesh``: ``parallel.make_mesh``; None is one device, the
+behaviour above). Every rank runs this trainer on its own rows (the
+``DataLoader`` gives rank p the rows ``order[p::P]``). ``fsdp`` shards
+each leaf that ``parallel.sharding.shard_params_by_size`` picks over the
+``fsdp`` axis: the rank holds its master, moments and compute copy of
+that leaf as contiguous local shards, and the module parameter whole,
+whose gradient it computes whole: so only the optimizer's part of the
+state is sharded at rest, where the JAX fsdp keeps the parameters
+sharded too (ROADMAP.md section 1, item 5). A step runs forward and
+backward on the local rows, accumulates the local micro-batches in fp32
+as above, then casts the gradients to fp32 and sums them over the batch
+axes (data, fsdp): a reduce-scatter a sharded leaf onto its local shard
+(then an all-reduce over the batch axes the shard does not span), and
+one all-reduce for the replicated leaves and the loss, packed into one
+buffer; and scales by 1/(ranks on those axes). Fused AdamW then updates
+the local shards and the replicated leaves in its one launch a dtype
+group, and the compute copies' shards are all-gathered into the
+module's parameters. Two ranks at ``accum_steps=1`` thus compute, bit
+for bit, one process's step at ``accum_steps=2`` over the same loader
+(each fp32 sum has two operands, and AdamW is elementwise). The JAX
+step reduces the gradients in the dtype the backward gives them; the
+port reduces in fp32 (a deliberate divergence, which makes that
+equality hold under the bf16 carry).
 
 One step, one graph. The JAX package jits the whole step; on the card
 the port captures it whole as a CUDA graph (``models.graphs``) and
@@ -45,13 +68,20 @@ schedule must return a tensor computed from ``count`` on the device
 (a Python float is refused there, not baked in). A ``torch.optim``
 optimizer built with ``capturable=True`` runs inside the graph too;
 any other runs the step eagerly, counted as a ``train_step`` eager
-call. On the CPU every step runs eagerly.
+call. With more than one rank the step runs eagerly too (a gloo
+collective cannot live in a CUDA graph). On the CPU every step runs
+eagerly.
 
-Not ported (single device): ``fsdp`` and ``batch_shardings`` raise.
+Not ported: a mesh whose ``tensor``, ``pipe``, ``seq`` or ``expert``
+axis is above 1, and ``batch_shardings`` that shard a dim past the batch
+dim (sequence parallelism); both raise, naming ROADMAP.md section 1,
+item 5.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -61,12 +91,21 @@ from torch import nn
 from tony_tpu_torch.models.graphs import GraphCache
 from tony_tpu_torch.ops.adamw import (FusedAdamW, FusedAdamWState,
                                      fused_adamw_update)
+from tony_tpu_torch.parallel import collectives
+from tony_tpu_torch.parallel.mesh import (DATA, EXPERT, FSDP, PIPE, SEQ,
+                                          TENSOR)
+from tony_tpu_torch.parallel.sharding import (NamedSharding, P, place,
+                                              replicated,
+                                              shard_params_by_size)
+
+_NOT_PORTED = ("is not ported yet (ROADMAP.md section 1, item 5: ring and "
+               "Ulysses attention, pipelining and expert parallelism)")
 
 
 @dataclass
 class TrainState:
     step: int
-    params: dict  # name -> fp32 master tensor
+    params: dict  # name -> fp32 master tensor (a local shard if sharded)
     # FusedAdamWState, a torch.optim.Optimizer over the masters, or (as
     # read from a checkpoint) that optimizer's state_dict; None = fresh
     opt_state: Any = None
@@ -83,12 +122,22 @@ def cross_entropy_loss(logits, labels, mask=None):
     return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
+def _shard_dim(sh: NamedSharding) -> tuple[int, Any]:
+    """(dim, axes) of a sharding that splits exactly one dim."""
+    dims = [(d, a) for d, a in enumerate(sh.spec)
+            if sh.mesh.axis_size(a) > 1]
+    if len(dims) != 1:
+        raise NotImplementedError(f"a leaf sharded along {len(dims)} dims "
+                                  f"({sh.spec}) {_NOT_PORTED}")
+    return dims[0]
+
+
 @dataclass
 class Trainer:
-    """One-device train step over ``model``.
+    """The train step over ``model``, on one device or over ``mesh``.
 
     ``apply_fn(model, batch) -> loss`` (a scalar); the model's parameters
-    hold the compute copy of the masters while it runs."""
+    hold the whole compute copy of the masters while it runs."""
 
     model: nn.Module
     apply_fn: Callable[[nn.Module, Any], torch.Tensor]
@@ -104,29 +153,77 @@ class Trainer:
     accum_steps: int = 1
     # opt-in telemetry: the global gradient norm re-reads every grad
     log_grad_norm: bool = False
+    # the batch's shardings (a NamedSharding, or a dict of them by batch
+    # key): only the batch dim may be sharded. The rank's loader already
+    # gives it its rows, so they are checked, not applied
     batch_shardings: Any = None
+    # the device mesh (parallel.make_mesh); None = one device
+    mesh: Any = None
 
     def __post_init__(self):
-        if self.fsdp:
-            raise NotImplementedError("fsdp is not ported yet (single "
-                                      "device; see ROADMAP.md)")
-        if self.batch_shardings is not None:
-            raise NotImplementedError("batch_shardings is not ported yet "
-                                      "(single device; see ROADMAP.md)")
         if getattr(getattr(self.model, "cfg", None), "quantized", False):
             raise ValueError(
                 "an int8 weight-only model (cfg.quantized) is for "
                 "generation and scoring: int8 weights have no useful "
                 "gradients. Train the float model, then convert it with "
                 "models.quantize_for_serving")
+        self._check_batch_shardings()
         # the dtype each parameter is stored in when no compute dtype
         # overrides it (taken once: wiring changes it)
-        self._own_dtype = {n: p.dtype
-                           for n, p in self.model.named_parameters()}
+        named = dict(self.model.named_parameters())
+        self._own_dtype = {n: p.dtype for n, p in named.items()}
+        self._full_shape = {n: tuple(p.shape) for n, p in named.items()}
         self._copies: dict[str, torch.Tensor] = {}
+        # sharded leaves: the module's whole parameter, by name
+        self._whole: dict[str, torch.Tensor] = {}
+        # the collective blocks' spans (collective_s): seconds already
+        # read, and the card's (start, end) events not read yet
+        self._collective_s = 0.0
+        self._spans: list = []
+        mesh = self.mesh
+        self._batch_axes: tuple = ()
+        self.param_shardings = None
+        self._shards: dict[str, NamedSharding] = {}
+        if mesh is not None:
+            big = [a for a in (TENSOR, PIPE, SEQ, EXPERT)
+                   if mesh.shape.get(a, 1) > 1]
+            if big:
+                raise NotImplementedError(
+                    f"a mesh whose {'/'.join(big)} axis is above 1 "
+                    f"{_NOT_PORTED}")
+            self._batch_axes = tuple(a for a in (DATA, FSDP)
+                                     if mesh.shape.get(a, 1) > 1)
+            self.param_shardings = shard_params_by_size(mesh, named) \
+                if self.fsdp else {n: replicated(mesh) for n in named}
+            self._shards = {n: sh for n, sh in self.param_shardings.items()
+                            if sh.is_sharded()}
+        # the sharded leaves by the axes they are cut over, and each
+        # one's dim
+        self._shard_dims = {n: _shard_dim(sh)
+                            for n, sh in self._shards.items()}
+        self._by_axes: dict = {}
+        for n, (_, axes) in self._shard_dims.items():
+            self._by_axes.setdefault(axes, []).append(n)
+        # ranks on the batch axes: the gradient sum's operands
+        self.ranks = 1 if mesh is None else mesh.axis_size(self._batch_axes)
         # the captured step's graph on the card (None: every step eager)
         self.graphs = GraphCache(self.device) \
             if self.device.type == "cuda" else None
+
+    def _check_batch_shardings(self) -> None:
+        b = self.batch_shardings
+        if b is None:
+            return
+        shardings = list(b.values()) if isinstance(b, dict) else [b]
+        for sh in shardings:
+            if not isinstance(sh, NamedSharding):
+                raise TypeError(f"batch_shardings holds {sh!r}, not a "
+                                "NamedSharding")
+            past = [a for a in list(sh.spec)[1:] if a is not None]
+            if past:
+                raise NotImplementedError(
+                    f"a batch sharding that shards a dim past the batch "
+                    f"dim ({sh.spec}: sequence parallelism) {_NOT_PORTED}")
 
     @property
     def device(self) -> torch.device:
@@ -136,45 +233,83 @@ class Trainer:
     def fused(self) -> bool:
         return isinstance(self.optimizer, FusedAdamW)
 
+    @property
+    def distributed(self) -> bool:
+        """Whether a step talks to other ranks."""
+        return self.mesh is not None and self.mesh.size() > 1
+
     # ------------------------------------------------------------ state
 
     def init_state(self, params: dict | None = None) -> TrainState:
         """A fresh state: fp32 copies of ``params`` (a name -> tensor dict,
         e.g. ``models.convert.from_jax_params``; None = the model's own
-        weights) on the model's device, the optimizer at step 0."""
+        weights) on the model's device, sharded leaves cut to this rank's
+        shard, the optimizer at step 0."""
         src = dict(self.model.named_parameters()) if params is None \
             else params
         masters = {}
         for name in self._own_dtype:
             t = src[name].detach()
-            masters[name] = t.to(self.device, torch.float32).clone() \
-                if t.is_floating_point() else t.to(self.device).clone()
+            t = t.to(self.device, torch.float32) if t.is_floating_point() \
+                else t.to(self.device)
+            masters[name] = place(t, self._shards[name]) \
+                if name in self._shards else t.clone()
         return self.place(TrainState(step=0, params=masters))
+
+    def _local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as this rank holds it: a whole sharded leaf (as a
+        checkpoint stores it) cut to the rank's shard."""
+        sh = self._shards.get(name)
+        if sh is None or tuple(t.shape) != self._full_shape[name]:
+            return t
+        return place(t, sh)
+
+    def state_shardings(self, state: TrainState) -> TrainState:
+        """Each leaf's ``NamedSharding`` (the JAX method's tree):
+        ``shard_params_by_size`` over the fsdp axis under ``fsdp``, else
+        replicated; the optimizer's leaves like their params."""
+        if self.mesh is None:
+            raise ValueError("state_shardings needs a mesh")
+        rep = replicated(self.mesh)
+        return TrainState(
+            step=rep, params=dict(self.param_shardings),
+            opt_state=_opt_shardings_like(self.mesh, state.opt_state,
+                                          self.param_shardings,
+                                          state.params))
 
     def _wire(self, params: dict) -> dict:
         """Point each module parameter at its master or at a compute copy
-        (see the module docstring); returns the copies by name."""
-        copies = {}
+        (see the module docstring); returns the copies by name. A
+        sharded leaf's module parameter is a whole tensor of its own and
+        its copy a local shard, gathered into it (``_gather_copies``)."""
+        copies, whole = {}, {}
         with torch.no_grad():
             for name, p in self.model.named_parameters():
                 m = params[name]
                 dt = self.compute_dtype if (self.compute_dtype is not None
                                             and m.is_floating_point()) \
                     else self._own_dtype[name]
-                if dt == m.dtype:
+                if name in self._shards:
+                    p.data = whole[name] = torch.empty(
+                        self._full_shape[name], dtype=dt, device=m.device)
+                    copies[name] = m.to(dt, copy=True)
+                elif dt == m.dtype:
                     p.data = m
                 else:
                     p.data = m.to(dt)
                     copies[name] = p.data
-        self._copies = copies
+        self._copies, self._whole = copies, whole
         return copies
 
     def place(self, state: TrainState) -> TrainState:
         """``state`` on the model's device, wired into the module, with
-        its optimizer state built (or rebuilt from a state_dict)."""
+        its optimizer state built (or rebuilt from a state_dict). Whole
+        sharded leaves (a checkpoint's) are cut to this rank's shards;
+        over a mesh every rank calls it together."""
         dev = self.device
-        params = {n: t.to(dev, torch.float32) if t.is_floating_point()
-                  else t.to(dev) for n, t in state.params.items()}
+        params = {n: self._local(n, t.to(dev, torch.float32)
+                                 if t.is_floating_point() else t.to(dev))
+                  for n, t in state.params.items()}
         copies = self._wire(params)
         opt = state.opt_state
         if self.fused:
@@ -186,22 +321,169 @@ class Trainer:
             with torch.no_grad():
                 if given is not None:  # carried values, not recomputed
                     for name, c in copies.items():
-                        c.copy_(given[name])
+                        c.copy_(self._local(name, given[name].to(dev)))
             opt = FusedAdamWState(
                 count=opt.count.to(dev, torch.int32),
-                mu={n: t.to(dev) for n, t in opt.mu.items()},
-                nu={n: t.to(dev) for n, t in opt.nu.items()},
+                mu={n: self._local(n, t.to(dev)) for n, t in opt.mu.items()},
+                nu={n: self._local(n, t.to(dev)) for n, t in opt.nu.items()},
                 compute_params=copies or None)
         elif not isinstance(opt, torch.optim.Optimizer) or any(
                 p is not params[n] for n, p in zip(
                     params, opt.param_groups[0]["params"])):
             built = self.optimizer(list(params.values()))
             if opt is not None:
-                built.load_state_dict(
-                    opt if isinstance(opt, dict) else opt.state_dict())
+                sd = opt if isinstance(opt, dict) else opt.state_dict()
+                built.load_state_dict(self._optim_local(sd, params))
             opt = built
+        with torch.no_grad():
+            self._gather_copies()
         return TrainState(step=int(state.step), params=params,
                           opt_state=opt)
+
+    def _optim_local(self, sd: dict, params: dict) -> dict:
+        """A ``torch.optim`` state_dict with whole sharded leaves' state
+        cut to this rank's shards (``place``)."""
+        if not self._shards:
+            return sd
+        names = list(params)
+        state = {i: {k: self._local(names[i], v)
+                     if torch.is_tensor(v) and v.dim() else v
+                     for k, v in st.items()}
+                 for i, st in sd["state"].items()}
+        return {**sd, "state": state}
+
+    def gather_state(self, state: TrainState) -> TrainState:
+        """``state`` with every sharded leaf whole (all-gathered): what a
+        one-device trainer holds, and what a checkpoint stores. Every
+        rank calls it together; an unsharded state comes back as is."""
+        if not self._shards:
+            return state
+        from tony_tpu_torch.parallel.sharding import gather
+
+        def whole(name, t):
+            sh = self._shards.get(name)
+            return t if sh is None else gather(t, sh)
+
+        params = {n: whole(n, t) for n, t in state.params.items()}
+        opt = state.opt_state
+        if isinstance(opt, FusedAdamWState):
+            cp = opt.compute_params
+            opt = FusedAdamWState(
+                count=opt.count,
+                mu={n: whole(n, t) for n, t in opt.mu.items()},
+                nu={n: whole(n, t) for n, t in opt.nu.items()},
+                compute_params=None if cp is None else {
+                    n: self._whole.get(n, t) for n, t in cp.items()})
+        elif isinstance(opt, torch.optim.Optimizer):
+            sd = opt.state_dict()
+            names = list(state.params)
+            opt = {**sd, "state": {
+                i: {k: whole(names[i], v) if torch.is_tensor(v) and v.dim()
+                    else v for k, v in st.items()}
+                for i, st in sd["state"].items()}}
+        return TrainState(step=state.step, params=params, opt_state=opt)
+
+    # ------------------------------------------------------ collectives
+
+    @contextlib.contextmanager
+    def _timed(self):
+        """Adds the block's span to ``collective_s``: on the card a pair
+        of CUDA events on the current stream (read later, so the step
+        waits for nothing), on the CPU the host clock."""
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            yield
+            self._collective_s += time.perf_counter() - t0
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self._fold(wait=False)
+        self._spans.append((start, end))
+
+    def _fold(self, wait: bool) -> None:
+        """Adds to the seconds read the spans the card has finished (all
+        of them, waiting for the card, with ``wait``)."""
+        keep = []
+        for start, end in self._spans:
+            if wait or end.query():
+                end.synchronize()
+                self._collective_s += start.elapsed_time(end) / 1e3
+            else:
+                keep.append((start, end))
+        self._spans = keep
+
+    @property
+    def collective_s(self) -> float:
+        """Seconds this trainer's steps spent in collectives (on the
+        card, between the events around each block: gloo makes the
+        stream wait for its host copies, so the span holds them)."""
+        self._fold(wait=True)
+        return self._collective_s
+
+    def _reduce(self, loss: torch.Tensor, grads: dict
+                ) -> tuple[torch.Tensor, dict]:
+        """The fp32 sum over the batch axes, scaled by 1/ranks: the
+        replicated gradients and the loss packed into one all-reduce,
+        each sharded one reduce-scattered along its shard dim onto this
+        rank's shard, straight from the gradient when it is fp32 already
+        (then all-reduced over the batch axes the shard does not span).
+        Returns the loss and the gradients as this rank updates them
+        (local shards for sharded leaves)."""
+        mesh, scale = self.mesh, 1.0 / self.ranks
+        out = {}
+        with self._timed():
+            rep = [n for n, g in grads.items()
+                   if n not in self._shards and g.is_floating_point()]
+            flat = torch.cat([loss.reshape(1).float()]
+                             + [grads[n].reshape(-1).float() for n in rep])
+            flat = collectives.all_reduce_sum(flat, self._batch_axes, mesh)
+            flat.mul_(scale)
+            loss, at = flat[0], 1
+            for n in rep:
+                k = grads[n].numel()
+                out[n] = flat[at:at + k].view(grads[n].shape)
+                at += k
+            for n, (d, axes) in self._shard_dims.items():
+                piece = collectives.reduce_scatter(grads[n].float(), axes,
+                                                   mesh, axis=d)
+                rest = tuple(a for a in self._batch_axes
+                             if a not in (axes if isinstance(axes, tuple)
+                                          else (axes,)))
+                if mesh.axis_size(rest) > 1:
+                    piece = collectives.all_reduce_sum(piece, rest, mesh)
+                out[n] = piece.mul_(scale)
+        for n, g in grads.items():
+            out.setdefault(n, g)
+        return loss, {n: out[n] for n in grads}
+
+    def _gather_copies(self) -> None:
+        """All-gather the sharded leaves' compute copies (local shards)
+        into the module's whole parameters: one all-gather a shard axis
+        and dtype."""
+        if not self._shards:
+            return
+        groups: dict = {}
+        for axes, names in self._by_axes.items():
+            for n in names:
+                groups.setdefault((axes, self._copies[n].dtype), []).append(n)
+        with self._timed():
+            for (axes, _), names in groups.items():
+                flat = torch.cat([self._copies[n].reshape(-1)
+                                  for n in names])
+                rows = collectives.all_gather(flat, axes, self.mesh,
+                                              tiled=False)
+                n_sh, at = rows.shape[0], 0
+                for n in names:
+                    c = self._copies[n]
+                    d = self._shard_dims[n][0]
+                    dst = self._whole[n].unflatten(d, (n_sh, -1)).movedim(
+                        d, 0)
+                    dst.copy_(rows[:, at:at + c.numel()].view(
+                        n_sh, *c.shape))
+                    at += c.numel()
 
     # ------------------------------------------------------------- step
 
@@ -280,12 +562,18 @@ class Trainer:
 
     def _update(self, state: TrainState, batch, acc=None) -> torch.Tensor:
         """The step's device work, in place on ``state``'s tensors:
-        gradients (``_grads``), the optimizer update, and the metrics as
-        one fp32 tensor, ``[loss]`` or ``[loss, grad_norm]``."""
+        gradients (``_grads``), their sum over the ranks (``_reduce``),
+        the optimizer update, the sharded copies gathered, and the
+        metrics as one fp32 tensor, ``[loss]`` or ``[loss, grad_norm]``."""
         loss, grads = self._grads(batch, acc)
+        if self.ranks > 1:
+            loss, grads = self._reduce(loss, grads)
         if self.fused:
+            specs = None if self.param_shardings is None else {
+                n: sh.spec for n, sh in self.param_shardings.items()}
             fused_adamw_update(self.optimizer, grads, state.opt_state,
-                               state.params)
+                               state.params, mesh=self.mesh,
+                               param_specs=specs)
         else:
             opt, params = state.opt_state, state.params
             for n, m in params.items():
@@ -296,11 +584,27 @@ class Trainer:
                     m.grad = None
                     if n in self._copies:
                         self._copies[n].copy_(m)
+        with torch.no_grad():
+            self._gather_copies()
         out = [loss]
         if self.log_grad_norm:
-            out.append(torch.sqrt(sum(
-                (g.float() * g.float()).sum() for g in grads.values())))
+            out.append(self._grad_norm(grads))
         return torch.stack(out)
+
+    def _grad_norm(self, grads: dict) -> torch.Tensor:
+        """The global norm of the (summed) gradients: the sharded leaves'
+        squares summed over their shard axes."""
+        def sq(names):
+            return sum(((grads[n].float() * grads[n].float()).sum()
+                        for n in names),
+                       torch.zeros((), device=self.device))
+
+        total = sq([n for n in grads if n not in self._shards])
+        for axes, names in self._by_axes.items():
+            with self._timed():
+                total = total + collectives.all_reduce_sum(
+                    sq(names), axes, self.mesh)
+        return torch.sqrt(total)
 
     def _capturable(self, state: TrainState) -> bool:
         """Whether the step can run inside a graph: fused AdamW (its
@@ -352,7 +656,7 @@ class Trainer:
         one replay of its captured graph (the module docstring)."""
         if self.graphs is None:
             out = self._update(state, batch)
-        elif not self._capturable(state):
+        elif self.distributed or not self._capturable(state):
             out = self.graphs.eager("train_step", self._update, state,
                                     batch)
         else:
@@ -381,9 +685,34 @@ class Trainer:
 
 
 def build_train_step(model: nn.Module, apply_fn, optimizer, params=None,
-                     fsdp: bool = False):
+                     fsdp: bool = False, mesh=None):
     """One-call convenience: (step_fn, state)."""
     trainer = Trainer(model=model, apply_fn=apply_fn, optimizer=optimizer,
-                      fsdp=fsdp)
+                      fsdp=fsdp, mesh=mesh)
     state = trainer.init_state(params)
     return trainer.step, state
+
+
+def _opt_shardings_like(mesh, opt_state, param_shardings, params):
+    """Optimizer-state shardings: leaves keyed (or, in a ``torch.optim``
+    state, indexed) like a param get that param's sharding (the moments,
+    the compute copy); everything else replicated. The JAX function
+    matches leaves to params by shape and dtype; the port's leaves carry
+    the params' names."""
+    rep = NamedSharding(mesh, P())
+
+    def like(tree):
+        return None if tree is None else {
+            n: param_shardings.get(n, rep) for n in tree}
+
+    if isinstance(opt_state, FusedAdamWState):
+        return FusedAdamWState(count=rep, mu=like(opt_state.mu),
+                               nu=like(opt_state.nu),
+                               compute_params=like(opt_state.compute_params))
+    if isinstance(opt_state, torch.optim.Optimizer):
+        names = list(params)
+        return {i: {k: param_shardings[names[i]]
+                    if torch.is_tensor(v) and v.dim() else rep
+                    for k, v in st.items()}
+                for i, st in opt_state.state_dict()["state"].items()}
+    return rep
